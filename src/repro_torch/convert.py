@@ -1,0 +1,36 @@
+"""State carried across from the reference engine into the port.
+
+There are no weights: the state of a triangle engine is its oriented CSR
+and its box plan. ``engine_from_state`` takes them as plain numpy values
+and returns a port engine that runs exactly that CSR and that plan, so a
+lane-by-lane comparison with the reference is not confounded by planning.
+
+``state`` keys: ``indptr`` (V+1 int64), ``indices`` (int32), ``orientation``
+('minmax' or 'degree'), ``nv`` (V) and ``plan`` (a list of
+``(lx, hx, ly, hy)``; optional — without it the port plans for itself).
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+
+from repro_torch.core.engine import TriangleEngine
+
+
+def engine_from_state(state: Mapping, **kw) -> TriangleEngine:
+    """A port ``TriangleEngine`` over ``state`` (see the module docstring);
+    ``kw`` are engine options (``torch_device``, ``backend``, ``mem_words``,
+    ``workers``, ...)."""
+    indptr = np.asarray(state["indptr"], dtype=np.int64)
+    if int(state["nv"]) != len(indptr) - 1:
+        raise ValueError(f"state nv={state['nv']} disagrees with indptr "
+                         f"({len(indptr) - 1} rows)")
+    eng = TriangleEngine(csr=(indptr, np.asarray(state["indices"])),
+                         orientation=state["orientation"], **kw)
+    plan = state.get("plan")
+    if plan is not None:
+        eng._plan_cache = (eng.mem_words,
+                           [tuple(int(x) for x in box) for box in plan])
+    return eng

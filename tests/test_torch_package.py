@@ -1,0 +1,110 @@
+"""Guards of the port's boundaries: repro_torch and chip_smoke.py import
+neither JAX nor the reference package, entry points never carry on on the
+CPU without being asked, and a kernel build without nvcc fails loudly."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+
+def _modules():
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(PKG.parent).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        yield ".".join(parts)
+
+
+def test_importing_every_module_pulls_in_no_jax_and_no_reference():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {list(_modules())!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('IMPORT_OK', len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "IMPORT_OK" in out.stdout
+
+
+@pytest.mark.parametrize("path", sorted(
+    [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")]
+    + ["chip_smoke.py"]))
+def test_source_has_no_jax_or_reference_import(path):
+    tree = ast.parse((ROOT / path).read_text(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+def test_entry_point_defaults_to_the_card():
+    """Without torch_device the engine runs on CUDA; on a host without it,
+    it raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device; the default runs there")
+    from repro_torch import TriangleEngine, engine_count
+    src, dst = np.array([0, 1, 0]), np.array([1, 2, 2])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TriangleEngine(src, dst)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        engine_count(src, dst)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TriangleEngine(src, dst, torch_device="cuda:0")
+    with pytest.raises(ValueError, match="torch_device"):
+        TriangleEngine(src, dst, torch_device="meta")
+    assert TriangleEngine(src, dst, torch_device="cpu").count() == 1
+
+
+def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
+    from repro_torch.kernels import _build
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(_build, "CUDA_HOME_DEFAULT", str(tmp_path / "cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_libs", {})
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.find_nvcc()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load("intersect", {})
+    assert not (tmp_path / "build").exists() \
+        or not any((tmp_path / "build").iterdir())
+
+
+def test_kernel_sources_and_library_names():
+    """Every kernel has its source; the library name follows the source
+    hash, so an edited source is rebuilt, never a stale library loaded."""
+    from repro_torch.kernels import _build
+    for name in _build.KERNELS:
+        src = _build.SRC_DIR / f"{name}.cu"
+        assert src.exists()
+        text = src.read_text()
+        assert "src/repro/kernels/" in text      # names the TPU kernel
+        assert "cudaGetLastError" in text
+        path = _build.library_path(name)
+        assert path.parent == _build.BUILD_DIR
+        assert path.name.startswith(name + "-") and path.suffix == ".so"
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
