@@ -4,7 +4,9 @@ The engine is split into two layers:
 
   * **planner** (this module) — orientation/CSR preparation, the box plan
     (``core.boxing.plan_boxes`` over a ``TrieArray`` of the oriented
-    edges) and per-box lane dispatch by edge density.
+    edges, or ``plan_boxes_heavy_light`` under ``skew="heavy_light"``) and
+    per-box lane dispatch by edge density or by the box's hub/light
+    class.
   * **streaming executor** (``core.executor.StreamingExecutor``) — pulls
     boxes from a work queue and materializes, per box, a vertex-renumbered
     *compacted* neighbor slice, overlapping host-side slice construction
@@ -13,8 +15,9 @@ The engine is split into two layers:
     and ``EngineStats`` carries the measured block I/Os.
 
 The lanes run on ``torch_device``, which is the CUDA card unless the
-caller asks for the CPU: there the dense and intersect lanes launch the
-hand-written CUDA kernels of ``kernels/``. Counts are int64 end to end.
+caller asks for the CPU: there the dense, intersect and fused lanes launch
+the hand-written CUDA kernels of ``kernels/``. Counts are int64 end to
+end.
 
 Usage::
 
@@ -164,13 +167,28 @@ class TriangleEngine:
     mem_words : memory budget for the box planner; ``None`` = one box.
     orientation : 'minmax' (paper §2.3) or 'degree' (√|E| out-degree cap).
     backend : 'auto' (density dispatch), or force 'binary' / 'dense' /
-        'intersect' / 'host' for every box ('host' is the pure-numpy
-        binary-search lane).
+        'intersect' / 'host' / 'fused' for every box ('host' is the
+        pure-numpy binary-search lane; 'fused' runs each whole box as one
+        ``kernels/lftj_fused`` invocation, falling back per box to
+        intersect (card) / binary outside the kernel's envelope).
     dense_threshold : box edge-density above which 'auto' picks the dense
         lane.
     intersect_threshold : lower edge of the mid-density band 'auto' routes
         to the intersect kernel (only on the card). Default
         ``dense_threshold / 4``.
+    fused_threshold : density above which 'auto' prefers the fused lane
+        over the intersect band (only on the card). Default ``None`` keeps
+        density dispatch off the fused lane (heavy/light hub boxes still
+        route to it on the card).
+    skew : 'uniform' (the mass-budgeted grid cutter) or 'heavy_light':
+        vertices of out-degree >= ``heavy_threshold`` are hubs, every box
+        range is pure-class per axis, hub-hub boxes go to the dense lane
+        (or, when the one-hot footprint cannot fit, to the fused lane on
+        the card and the binary lane elsewhere) and light and mixed boxes
+        to the host lane. ``EngineStats`` records the lane mix and
+        ``padded_words`` vs ``actual_words``.
+    heavy_threshold : hub degree cut for ``skew='heavy_light'``; default
+        ``boxing.heavy_threshold_default`` (√(2·|E|)).
     chunk : edge-chunk length of the binary lane (peak memory
         O(chunk · K)).
     prefetch_depth : how many box slices the host builds ahead of the
@@ -184,15 +202,15 @@ class TriangleEngine:
         ``2 * workers``), with resident raw words capped at
         ``inflight_boxes * mem_words`` when a budget is set.
     torch_device : where the lanes run: ``"cuda"`` (default; raises when
-        no CUDA device is available) or ``"cpu"``. On CUDA the dense and
-        intersect lanes launch the hand-written kernels (``use_kernels``)
-        and 'auto' routes the mid-density band to the intersect kernel;
-        on the CPU the kernel wrappers run their plain torch versions.
+        no CUDA device is available) or ``"cpu"``. On CUDA the dense,
+        intersect and fused lanes launch the hand-written kernels
+        (``use_kernels``) and 'auto' routes the mid-density band to the
+        intersect kernel and hub boxes to the fused kernel; on the CPU the
+        kernel wrappers run their plain torch versions.
 
     Options of the reference engine that are not ported yet raise
     ``NotImplementedError``: ``store``, ``cache_words > 0``,
-    ``degree_bins=True``, ``skew='heavy_light'``, ``backend='fused'``,
-    ``fused_threshold``, sharding (``shard=True``), ``tracer``/``metrics``
+    ``degree_bins=True``, sharding (``shard=True``), ``tracer``/``metrics``
     and the ``'measured'`` thresholds.
     """
 
@@ -210,6 +228,7 @@ class TriangleEngine:
                  fused_threshold=None,
                  degree_bins: bool = False,
                  skew: str = "uniform",
+                 heavy_threshold: Optional[int] = None,
                  shard="auto",
                  chunk: int = 2048,
                  prefetch_depth: int = 2,
@@ -227,15 +246,14 @@ class TriangleEngine:
                 (store is not None, "store= (out-of-core edge stores)"),
                 (int(cache_words) > 0, "cache_words > 0 (SliceCache)"),
                 (bool(degree_bins), "degree_bins=True"),
-                (skew == "heavy_light", "skew='heavy_light'"),
-                (backend == "fused", "backend='fused'"),
-                (fused_threshold is not None, "fused_threshold"),
                 (shard is True, "sharded execution (shard=True)"),
                 (tracer is not None, "tracer="),
                 (metrics is not None, "metrics="),
                 (dense_threshold == "measured", "dense_threshold='measured'"),
                 (intersect_threshold == "measured",
-                 "intersect_threshold='measured'")):
+                 "intersect_threshold='measured'"),
+                (fused_threshold == "measured",
+                 "fused_threshold='measured'")):
             if given:
                 raise _not_ported(feature)
         # one torch device per engine: the reference's shard="auto" rule
@@ -248,6 +266,7 @@ class TriangleEngine:
         self.use_kernels = self.torch_device.type == "cuda"
         self.backend = backend
         self.skew = skew
+        self.heavy_threshold = heavy_threshold
         self.chunk = int(chunk)
         self.mem_words = mem_words
         self.prefetch_depth = int(prefetch_depth)
@@ -259,6 +278,10 @@ class TriangleEngine:
         # kernel (card only): the static crossover/4 by default
         self.intersect_threshold = self.dense_threshold / 4.0 \
             if intersect_threshold is None else float(intersect_threshold)
+        # density gate of the fused lane (card only): None keeps density
+        # dispatch off it; hub boxes still take it
+        self.fused_threshold = None if fused_threshold is None \
+            else float(fused_threshold)
         self.orientation = orientation
         if csr is not None:
             if src is not None or dst is not None:
@@ -285,6 +308,10 @@ class TriangleEngine:
                                          device=device,
                                          orientation=self.orientation)
         self._plan_cache: Optional[Tuple[Optional[int], list]] = None
+        # box -> lane ("hub"/"light"/"mixed"), filled by the heavy_light
+        # planner; the lane steers _pick_backend for planned boxes
+        self._box_lane: dict = {}
+        self._skew_threshold = 0
         self.stats = EngineStats(dense_threshold=self.dense_threshold,
                                  skew=self.skew)
 
@@ -306,9 +333,21 @@ class TriangleEngine:
 
     def _plan_uncached(self) -> List[Tuple[int, int, int, int]]:
         if self.nv == 0 or self.source.n_edges == 0:
+            self._box_lane = {}
             return []
         # hy < lx pruning is only sound when every edge has x < y (minmax)
         prune = self.orientation == "minmax"
+        if self.skew == "heavy_light":
+            # pure-class ranges per axis from the degree index, lane
+            # metadata per box
+            from .boxing import plan_boxes_heavy_light
+            sp = plan_boxes_heavy_light(self.indptr, self.mem_words,
+                                        monotone_prune=prune,
+                                        heavy_threshold=self.heavy_threshold)
+            self._box_lane = dict(zip(sp.boxes, sp.lanes))
+            self._skew_threshold = sp.threshold
+            return sp.boxes
+        self._box_lane = {}
         if self.mem_words is None:
             return [(0, self.nv - 1, 0, self.nv - 1)]
         from .boxing import plan_boxes
@@ -320,16 +359,34 @@ class TriangleEngine:
 
     def _pick_backend(self, n_edges: int, wx: int, wy: int,
                       box=None) -> str:
-        """Density dispatch: dense above the crossover, the intersect
-        kernel for the mid-density band, binary-search otherwise.
+        """Density dispatch: dense above the crossover, the fused lane
+        above ``fused_threshold`` (when set), the intersect kernel for the
+        mid-density band, binary-search otherwise.
 
-        The intersect band is taken **only when** ``use_kernels`` is set
-        (running on the card), exactly as the reference takes its kernel
-        band only where the kernel compiles; force ``backend="intersect"``
-        to run that lane anywhere.
+        With ``skew="heavy_light"`` a planned ``box`` overrides density:
+        hub-hub boxes go to the dense lane, or to the fused lane (binary
+        off the card) when the one-hot footprint cannot fit; light and
+        mixed boxes go to the host lane.
+
+        The fused and intersect bands are taken **only when**
+        ``use_kernels`` is set (running on the card), exactly as the
+        reference takes its kernel bands only where the kernels compile;
+        force ``backend="fused"`` / ``"intersect"`` to run those lanes
+        anywhere.
         """
         if self.backend != "auto":
             return self.backend
+        lane = self._box_lane.get(box) if box is not None else None
+        if lane is not None:
+            if lane == "hub":
+                est_rows = min(wx, n_edges) + min(wy, n_edges)
+                est_cols = min(self.nv, 16 * max(1, n_edges))
+                if est_rows * est_cols <= _DENSE_WORDS_CAP:
+                    return "dense"
+                # hub boxes too big for the one-hot footprint run whole as
+                # one fused launch on the card
+                return "fused" if self.use_kernels else "binary"
+            return "host"
         density = n_edges / max(1, wx * wy)
         # feasibility of the dense one-hots: the executor compacts rows to
         # the referenced endpoints (≤ min(width, edges) per side) and
@@ -340,6 +397,9 @@ class TriangleEngine:
         if density > self.dense_threshold \
                 and est_rows * est_cols <= _DENSE_WORDS_CAP:
             return "dense"
+        if self.use_kernels and self.fused_threshold is not None \
+                and density > self.fused_threshold:
+            return "fused"
         if self.use_kernels and density > self.intersect_threshold:
             return "intersect"
         return "binary"
@@ -367,7 +427,13 @@ class TriangleEngine:
         self.stats = EngineStats(dense_threshold=self.dense_threshold,
                                  n_boxes=n_boxes,
                                  n_workers=self.workers,
-                                 skew=self.skew)
+                                 skew=self.skew,
+                                 heavy_threshold=self._skew_threshold)
+        if self._box_lane:
+            lanes = list(self._box_lane.values())
+            self.stats.n_hub_boxes = lanes.count("hub")
+            self.stats.n_light_boxes = lanes.count("light")
+            self.stats.n_mixed_boxes = lanes.count("mixed")
 
     def _io_mark(self):
         if self.device is None:

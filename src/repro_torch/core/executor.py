@@ -12,12 +12,13 @@ the executor
   3. dispatches the slice to a lane chosen by the planner's density rule:
      ``binary`` (plain torch row-batched binary search), ``dense`` (the
      masked dense count, a CUDA kernel on the card), ``intersect`` (the
-     per-edge intersection CUDA kernel on the card) or ``host`` (numpy).
+     per-edge intersection CUDA kernel on the card), ``fused`` (the whole
+     box's LFTJ loop nest, a CUDA kernel on the card) or ``host`` (numpy).
 
 The device lanes copy only the slice's real CSR words to the torch device
 and build the box-local padded matrix there. On a CUDA device the dense
-and intersect lanes launch the kernels of ``kernels/``; on the CPU the
-kernel wrappers run their plain torch versions.
+intersect and fused lanes launch the kernels of ``kernels/``; on the CPU
+the kernel wrappers run their plain torch versions.
 
 Two execution modes share the per-box machinery:
 
@@ -50,6 +51,7 @@ import torch
 from repro_torch.data.pipeline import Prefetcher
 from repro_torch.kernels import ledger as kernel_ledger
 from repro_torch.kernels.intersect import ops as intersect_ops
+from repro_torch.kernels.lftj_fused import ops as fused_ops
 from repro_torch.kernels.triangle_dense import ops as dense_ops
 from repro_torch.parallel.sharding import box_queue_order
 
@@ -381,10 +383,10 @@ def merge_queue_telemetry(stats, tele: dict, lock: threading.Lock,
 class StreamingExecutor:
     """Pulls boxes from a work queue, materializes slices, runs lanes.
 
-    ``torch_device`` is where the binary, dense, intersect and listing
-    lanes run; on a CUDA device the dense and intersect lanes launch the
-    port's kernels (``use_kernels``), on the CPU their wrappers run the
-    plain torch versions. ``workers=1`` is the sequential oracle (single
+    ``torch_device`` is where the binary, dense, intersect, fused and
+    listing lanes run; on a CUDA device the dense, intersect and fused
+    lanes launch the port's kernels (``use_kernels``), on the CPU their
+    wrappers run the plain torch versions. ``workers=1`` is the sequential oracle (single
     Prefetcher pipeline); ``workers>1`` runs the async scheduler described
     in the module docstring. ``inflight_boxes``/``inflight_words`` bound the
     window of materialized-but-unreduced slices (defaults: ``2*workers``
@@ -648,6 +650,54 @@ class StreamingExecutor:
         eu, ev = slc.edges(self.torch_device)
         return int(intersect_ops.intersect_count(npad, npad, eu, ev).sum())
 
+    def _count_fused(self, slc: BoxSlice) -> Optional[int]:
+        """Whole-box triangle count in ONE device invocation: the fused
+        LFTJ lane (``kernels.lftj_fused``). The triangle query ships as
+        three box-restricted atoms in compact CSR form — the in-box edge
+        list as R(x, y) plus the slice's neighbor lists re-keyed by the
+        edge endpoints as S(x, z) and T(y, z) — so the whole loop nest
+        runs on the device. Returns ``None`` when the box falls outside the
+        kernel's envelope; the caller falls back to the staged lanes."""
+        if slc.n_edges == 0:
+            return 0
+        off, vals = slc.row_off, slc.row_vals
+        deg = np.diff(off)
+
+        def sub_csr(local_rows: np.ndarray):
+            d = deg[local_rows]
+            n = int(d.sum())
+            so = np.concatenate([np.zeros(1, np.int64),
+                                 np.cumsum(d, dtype=np.int64)])
+            if n == 0:
+                return so, vals[:0]
+            r0 = np.repeat(off[local_rows], d)
+            within = np.arange(n) - np.repeat(np.cumsum(d) - d, d)
+            return so, vals[r0 + within]
+
+        # R(x, y): the in-box edges, grouped by global source id (rows is
+        # sorted, so local-id order == global-id order)
+        gu = slc.rows[slc.eu]
+        gv = slc.rows[slc.ev]
+        order = np.lexsort((gv, gu))
+        gu_s, gv_s = gu[order], gv[order]
+        keys0, counts0 = np.unique(gu_s, return_counts=True)
+        off0 = np.concatenate([np.zeros(1, np.int64),
+                               np.cumsum(counts0, dtype=np.int64)])
+        uniq_u = np.unique(slc.eu)
+        uniq_v = np.unique(slc.ev)
+        off1, vals1 = sub_csr(uniq_u)
+        off2, vals2 = sub_csr(uniq_v)
+        dev = self.torch_device
+        csrs = [tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                      for a in csr)
+                for csr in ((keys0, off0, gv_s),
+                            (slc.rows[uniq_u], off1, vals1),
+                            (slc.rows[uniq_v], off2, vals2))]
+        try:
+            return fused_ops.fused_count(((0, 1), (0, 2), (1, 2)), csrs, 3)
+        except fused_ops.FusedUnsupported:
+            return None
+
     def _count_slice(self, slc: BoxSlice) -> int:
         with kernel_ledger.attach() as kl:
             out = self._count_slice_dispatch(slc)
@@ -661,6 +711,17 @@ class StreamingExecutor:
 
     def _count_slice_dispatch(self, slc: BoxSlice) -> int:
         be = self._backend_for(slc)
+        if be == "fused":
+            out = self._count_fused(slc)
+            if out is not None:
+                if self.stats is not None:
+                    with self._stats_lock:
+                        self.stats.n_fused_boxes += 1
+                self._note_padding(slc)
+                return out
+            # box outside the fused kernel's envelope: fall back to the
+            # staged kernel lane on the card, the binary lane elsewhere
+            be = "intersect" if self.use_kernels else "binary"
         if be == "dense":
             out = self._count_dense(slc)
             if out is not None:

@@ -174,10 +174,9 @@ def test_conveniences_and_canonical_rows():
 
 @pytest.mark.parametrize("kw", [
     dict(store="graph.csr"), dict(cache_words=64), dict(degree_bins=True),
-    dict(skew="heavy_light"), dict(backend="fused"),
-    dict(fused_threshold=0.1), dict(shard=True), dict(tracer=object()),
-    dict(metrics=object()), dict(dense_threshold="measured"),
-    dict(intersect_threshold="measured")])
+    dict(shard=True), dict(tracer=object()), dict(metrics=object()),
+    dict(dense_threshold="measured"), dict(intersect_threshold="measured"),
+    dict(fused_threshold="measured")])
 def test_unported_options_raise(kw):
     src, dst = GRAPHS["er"]()
     with pytest.raises(NotImplementedError, match="not ported"):

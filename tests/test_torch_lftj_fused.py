@@ -1,0 +1,387 @@
+"""repro_torch's fused LFTJ lane against the reference on the CPU.
+
+Kernel layer: the port's ``fused_count`` / ``fused_list`` on CPU tensors
+(their plain torch versions) against the reference's interpret-mode
+megakernel and listing program and its scalar ``fused_ref``, over the
+triangle, four-clique and diamond atom shapes on ER, RMAT and star graphs
+from fixed seeds. Listings must equal the reference's buffer row for row,
+also at a capacity below the total. Engine layer:
+``TriangleEngine(backend="fused")`` against the reference's, plan, count,
+``list()`` bytes and stats. Every quantity is an integer: equality is
+exact. The CUDA kernel is held against the same plain versions on the
+card by ``chip_smoke.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core import TriangleEngine as RefEngine
+from repro.data import graphs as r_graphs
+from repro.kernels import ledger as ref_ledger
+from repro.kernels.lftj_fused import ops as ref_ops
+from repro.kernels.lftj_fused.ref import fused_ref as reference_fused_ref
+from repro_torch import TriangleEngine
+from repro_torch.kernels import ledger as port_ledger
+from repro_torch.kernels.lftj_fused import ops as fused_ops
+from repro_torch.kernels.lftj_fused.ops import (FusedUnsupported, fused_count,
+                                                fused_list, fused_supported)
+from repro_torch.kernels.lftj_fused.ref import (SENTINEL, fused_count_ref,
+                                                fused_ref)
+
+# atom shapes over the variable order, as the reference's planner emits
+# them (tests/test_lftj_fused.py): the diamond leaves variable 1
+# starts-only
+DIMS = {
+    "triangle": ((0, 1), (0, 2), (1, 2)),
+    "four_clique": ((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3)),
+    "diamond": ((1, 2), (1, 3), (0, 2), (0, 3)),
+}
+
+
+def er_graph(n, p, seed):
+    rng = np.random.default_rng(seed)
+    adj = np.triu(rng.random((n, n)) < p, k=1)
+    src, dst = np.nonzero(adj)
+    return src.astype(np.int64), dst.astype(np.int64)
+
+
+def star_graph(hubs, leaves, seed):
+    """A few hubs adjacent to every leaf plus a sprinkle of leaf-leaf
+    edges: a couple of huge rows over tiny ones."""
+    rng = np.random.default_rng(seed)
+    src = np.repeat(np.arange(hubs), leaves)
+    dst = hubs + np.tile(np.arange(leaves), hubs)
+    extra = rng.integers(hubs, hubs + leaves, size=(leaves, 2))
+    extra = extra[extra[:, 0] < extra[:, 1]]
+    src = np.concatenate([src, extra[:, 0]])
+    dst = np.concatenate([dst, extra[:, 1]])
+    uniq = np.unique(src * (hubs + leaves) + dst)
+    return (uniq // (hubs + leaves)).astype(np.int64), \
+        (uniq % (hubs + leaves)).astype(np.int64)
+
+
+GRAPHS = {
+    "er": lambda seed: er_graph(40, 0.2, seed),
+    "rmat": lambda seed: r_graphs.rmat_graph(64, 500, seed=seed),
+    "star": lambda seed: star_graph(3, 24, seed),
+}
+
+
+def graph_csr(src, dst):
+    """Oriented (u < v) adjacency as (keys, off, vals) compact CSR."""
+    u, v = np.minimum(src, dst), np.maximum(src, dst)
+    keep = u != v
+    stride = int(max(v.max(initial=0), 1)) + 1
+    uniq = np.unique(u[keep] * stride + v[keep])
+    u, v = uniq // stride, uniq % stride
+    keys, counts = np.unique(u, return_counts=True)
+    off = np.concatenate([np.zeros(1, np.int64),
+                          np.cumsum(counts, dtype=np.int64)])
+    return keys.astype(np.int64), off, v.astype(np.int32)
+
+
+def tensors(csrs):
+    return [tuple(torch.from_numpy(np.asarray(a)) for a in c) for c in csrs]
+
+
+def canonical(rows):
+    rows = np.asarray(rows, dtype=np.int64)
+    if len(rows) == 0:
+        return rows
+    return rows[np.lexsort(tuple(rows[:, c] for c in
+                                 range(rows.shape[1] - 1, -1, -1)))]
+
+
+def n_vars_of(dims):
+    return max(sd for _, sd in dims) + 1
+
+
+# ---------------------------------------------------------------------------
+# kernel layer
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("graph", sorted(GRAPHS))
+@pytest.mark.parametrize("pattern", sorted(DIMS))
+def test_count_and_list_match_reference(pattern, graph, seed):
+    csr = graph_csr(*GRAPHS[graph](seed))
+    dims = DIMS[pattern]
+    n = n_vars_of(dims)
+    csrs = [csr] * len(dims)
+    want, want_rows = reference_fused_ref(dims, csrs, n, mode="list")
+    assert fused_ref(dims, csrs, n, mode="list")[0] == want
+    with ref_ledger.attach() as r_kl:
+        assert ref_ops.fused_count(dims, csrs, n, interpret=True) == want
+    with port_ledger.attach() as p_kl:
+        assert fused_count(dims, tensors(csrs), n) == want
+    assert p_kl.invocations == r_kl.invocations == 1
+    # the full listing, then a capacity below the total: both must equal
+    # the reference program's buffer row for row (its traversal order)
+    for cap in (max(1, want), max(1, want // 3), 1):
+        r_total, r_rows = ref_ops.fused_list(dims, csrs, n, capacity=cap,
+                                             interpret=True)
+        p_total, p_rows = fused_list(dims, tensors(csrs), n, capacity=cap)
+        assert p_total == r_total == want
+        assert p_rows.dtype == np.int64 and p_rows.shape == r_rows.shape
+        np.testing.assert_array_equal(p_rows, r_rows)
+        if cap >= want:
+            np.testing.assert_array_equal(canonical(p_rows),
+                                          canonical(want_rows))
+
+
+@pytest.mark.parametrize("pattern", sorted(DIMS))
+def test_per_row_counts_of_the_plain_version(pattern):
+    """fused_count_ref's per-depth-0-row counts sum to the oracle and are
+    int64; SENTINEL padding of the frontier counts 0."""
+    csr = graph_csr(*er_graph(36, 0.25, 5))
+    dims = DIMS[pattern]
+    n = n_vars_of(dims)
+    c0, atoms, consts = fused_ops.padded_layout(
+        dims, tensors([csr] * len(dims)), n)
+    padded = torch.cat([c0, torch.full((5,), SENTINEL, dtype=torch.int32)])
+    counts = fused_count_ref(dims, padded, atoms, consts, n)
+    assert counts.dtype == torch.int64 and counts.shape == padded.shape
+    assert int(counts.sum()) == fused_ref(dims, [csr] * len(dims), n)[0]
+    assert not counts[-5:].any()
+
+
+def test_two_variable_patterns():
+    """n_vars = 2: the depth-1 candidates are the innermost ones; with two
+    atoms on (0, 1) the second one prunes the first."""
+    a = graph_csr(*er_graph(30, 0.3, 1))
+    b = graph_csr(*er_graph(30, 0.3, 2))
+    for dims, csrs in ((((0, 1),), [a]), (((0, 1), (0, 1)), [a, b])):
+        want = reference_fused_ref(dims, csrs, 2)[0]
+        assert want > 0
+        assert ref_ops.fused_count(dims, csrs, 2, interpret=True) == want
+        assert fused_count(dims, tensors(csrs), 2) == want
+        r_total, r_rows = ref_ops.fused_list(dims, csrs, 2, capacity=want,
+                                             interpret=True)
+        p_total, p_rows = fused_list(dims, tensors(csrs), 2, capacity=want)
+        assert p_total == r_total == want
+        np.testing.assert_array_equal(p_rows, r_rows)
+
+
+def test_bounded_capacity_is_exact_prefix():
+    csr = graph_csr(*er_graph(30, 0.3, 7))
+    dims = DIMS["triangle"]
+    want, _ = fused_ref(dims, [csr] * 3, 3)
+    assert want > 4
+    total, rows = fused_list(dims, tensors([csr] * 3), 3, capacity=2)
+    assert total == want and len(rows) == 2
+    full_total, full = fused_list(dims, tensors([csr] * 3), 3,
+                                  capacity=want)
+    assert full_total == want
+    np.testing.assert_array_equal(rows, full[:2])
+
+
+def test_empty_graph_and_empty_frontier_launch_nothing():
+    empty = (np.zeros(0, np.int64), np.zeros(1, np.int64),
+             np.zeros(0, np.int32))
+    dims = DIMS["triangle"]
+    a = graph_csr(*er_graph(20, 0.3, 1))
+    shifted = (a[0] + 1_000, a[1], a[2])
+    with port_ledger.attach() as kl:
+        assert fused_count(dims, tensors([empty] * 3), 3) == 0
+        total, rows = fused_list(dims, tensors([empty] * 3), 3, capacity=4)
+        assert total == 0 and rows.shape == (0, 3)
+        # disjoint key sets: the depth-0 intersection is empty
+        assert fused_count(dims, tensors([a, shifted, a]), 3) == 0
+        assert fused_ops.padded_layout(dims, tensors([a, shifted, a]),
+                                       3) is None
+    assert kl.invocations == 0
+    assert ref_ops.fused_count(dims, [a, shifted, a], 3, interpret=True) == 0
+
+
+def test_starts_only_constant_depth():
+    """Diamond dims leave variable 1 unbound by any atom: its candidates
+    are a binding-independent key intersection, a constant row; an empty
+    one ends the box without a launch."""
+    csr = graph_csr(*er_graph(28, 0.25, 3))
+    dims = DIMS["diamond"]
+    want, want_rows = fused_ref(dims, [csr] * 4, 4, mode="list")
+    assert fused_count(dims, tensors([csr] * 4), 4) == want
+    total, rows = fused_list(dims, tensors([csr] * 4), 4,
+                             capacity=max(1, want))
+    assert total == want
+    np.testing.assert_array_equal(canonical(rows), canonical(want_rows))
+    # atoms starting at 1 with disjoint keys: the constant row is empty
+    shifted = (csr[0] + 1_000, csr[1], csr[2])
+    csrs = [csr, shifted, csr, csr]
+    with port_ledger.attach() as kl:
+        assert fused_count(dims, tensors(csrs), 4) == 0
+    assert kl.invocations == 0
+    assert ref_ops.fused_count(dims, csrs, 4, interpret=True) == 0
+
+
+def test_supported_gate_matches_reference():
+    cases = [(DIMS["triangle"], 3), (DIMS["diamond"], 4), ((), 3),
+             (((0, 1),), 1), (((1, 0),), 2), (((0, 1),), 3),
+             (((0, 2), (2, 3)), 4), (tuple((d, d + 1) for d in range(7)), 8)]
+    for dims, n in cases:
+        assert (fused_supported(dims, n) is None) \
+            == (ref_ops.fused_supported(dims, n) is None), (dims, n)
+    assert "MAX_DEPTH" in fused_supported(cases[-1][0], 8)
+    with pytest.raises(FusedUnsupported):
+        fused_count(((1, 0),), tensors([graph_csr(*er_graph(10, 0.3, 0))]),
+                    2)
+
+
+@pytest.mark.parametrize("case", ["id_range", "not_a_set", "atoms"])
+def test_outside_the_envelope_raises(case):
+    """The port's envelope: int32 vertex ids below SENTINEL, rows that are
+    sets, at most MAX_ATOMS atoms. Outside it FusedUnsupported is raised
+    on every device, so the engine falls back the same way everywhere."""
+    csr = graph_csr(*er_graph(20, 0.3, 4))
+    dims = DIMS["triangle"]
+    csrs = [csr] * 3
+    if case == "id_range":
+        big = (csr[0] + 2 ** 31, csr[1], csr[2])
+        csrs = [big, big, csr]
+    elif case == "not_a_set":
+        vals = csr[2].copy()
+        row = int(np.argmax(np.diff(csr[1]) >= 2))
+        vals[csr[1][row] + 1] = vals[csr[1][row]]       # a repeated value
+        csrs = [csr, (csr[0], csr[1], vals), csr]
+    else:
+        dims = DIMS["triangle"] * 6
+        csrs = [csr] * len(dims)
+        # the reference has no atom limit and still answers
+        assert ref_ops.fused_count(dims, csrs, 3, interpret=True) \
+            == fused_ref(dims, csrs, 3)[0]
+    with pytest.raises(FusedUnsupported):
+        fused_count(dims, tensors(csrs), 3)
+    with pytest.raises(FusedUnsupported):
+        fused_list(dims, tensors(csrs), 3, capacity=8)
+
+
+def test_malformed_inputs_raise_value_error():
+    csr = tensors([graph_csr(*er_graph(20, 0.3, 4))])[0]
+    dims = DIMS["triangle"]
+    with pytest.raises(ValueError, match="offsets"):
+        fused_count(dims, [csr, csr, (csr[0], csr[1][:-1], csr[2])], 3)
+    with pytest.raises(ValueError, match="CSRs"):
+        fused_count(dims, [csr, csr], 3)
+    with pytest.raises(ValueError, match="capacity"):
+        fused_list(dims, [csr] * 3, 3, capacity=0)
+
+
+def test_kernel_descriptor_layout():
+    """The int64 descriptor the wrapper hands the CUDA launcher: n_vars,
+    n_atoms, per atom (fd, sd, pointers, key count), per depth the
+    constant row of a starts-only depth."""
+    csr = tensors([graph_csr(*er_graph(28, 0.25, 3))])[0]
+    dims = DIMS["diamond"]
+    _, csrs, c0, consts = fused_ops._prepare(dims, [csr] * 4, 4)
+    desc = fused_ops._descriptor(dims, csrs, consts, 4)
+    assert desc.shape == (2 + 6 * fused_ops.MAX_ATOMS
+                          + 2 * fused_ops.MAX_DEPTH,)
+    assert list(desc[:2]) == [4, 4]
+    for ai, (fd, sd) in enumerate(dims):
+        e = desc[2 + 6 * ai:8 + 6 * ai]
+        assert (e[0], e[1], e[5]) == (fd, sd, csrs[ai][0].numel())
+        assert e[2] == csrs[ai][0].data_ptr()
+    base = 2 + 6 * fused_ops.MAX_ATOMS
+    assert desc[base + 2] == consts[0].data_ptr()       # depth 1
+    assert desc[base + 3] == consts[0].numel() > 0
+    assert not desc[base + 4:].any() and not desc[base:base + 2].any()
+
+
+# ---------------------------------------------------------------------------
+# engine layer: backend="fused"
+# ---------------------------------------------------------------------------
+
+ENGINE_GRAPHS = {
+    "rmat": lambda: r_graphs.rmat_graph(200, 1800, seed=1),
+    "star": lambda: star_graph(4, 60, 3),
+    "clustered": lambda: r_graphs.clustered_graph(4, 32, seed=2, p_in=0.5),
+}
+
+STAT_FIELDS = ("n_boxes", "n_dense_boxes", "n_binary_boxes", "n_host_boxes",
+               "n_fused_boxes", "n_rescans", "padded_words", "actual_words",
+               "device_invocations", "max_box_device_invocations",
+               "n_streamed_boxes", "slice_words_read", "max_slice_words",
+               "max_slice_padded_words", "block_reads", "block_writes",
+               "word_reads")
+
+
+def run_engine(eng):
+    count = eng.count()
+    count_stats = {f: getattr(eng.stats, f) for f in STAT_FIELDS}
+    tris = eng.list()
+    return count, count_stats, tris, {f: getattr(eng.stats, f)
+                                      for f in STAT_FIELDS}
+
+
+@pytest.mark.parametrize("workers", [1, 4])
+@pytest.mark.parametrize("mem", [None, 800])
+@pytest.mark.parametrize("graph", sorted(ENGINE_GRAPHS))
+def test_fused_engine_matches_reference(graph, mem, workers):
+    src, dst = ENGINE_GRAPHS[graph]()
+    kw = dict(mem_words=mem, workers=workers, backend="fused")
+    r_eng = RefEngine(src, dst, shard=False, **kw)
+    p_eng = TriangleEngine(src, dst, torch_device="cpu", **kw)
+    ref, port = run_engine(r_eng), run_engine(p_eng)
+    assert p_eng.plan() == r_eng.plan()
+    assert port[0] == ref[0]
+    assert port[1] == ref[1]
+    assert port[2].tobytes() == ref[2].tobytes() and len(port[2]) == port[0]
+    assert port[3] == ref[3]
+    assert port[1]["n_fused_boxes"] > 0
+    assert port[1]["device_invocations"] == port[1]["n_fused_boxes"]
+    assert port[0] == RefEngine(src, dst, shard=False).count()
+
+
+def test_fused_lane_outside_envelope_falls_back(monkeypatch):
+    """A box outside the fused envelope takes the binary lane off the card
+    and the intersect lane on it, and still gives the reference's count."""
+    src, dst = ENGINE_GRAPHS["rmat"]()
+    want = RefEngine(src, dst, shard=False, mem_words=800,
+                     backend="fused").count()
+
+    def outside(*args, **kw):
+        raise FusedUnsupported("box outside the envelope")
+
+    monkeypatch.setattr(fused_ops, "fused_count", outside)
+    eng = TriangleEngine(src, dst, mem_words=800, backend="fused",
+                         torch_device="cpu")
+    assert eng.count() == want
+    s = eng.stats
+    assert s.n_fused_boxes == 0 and s.device_invocations == 0
+    assert s.n_binary_boxes == s.n_streamed_boxes > 0
+    # the card's fallback lane: the intersect kernel (its plain version
+    # here, since the tensors lie on the CPU)
+    ex = eng._make_executor()
+    ex.use_kernels = True
+    assert sum(ex.count_box(box) for box in eng.plan()) == want
+    assert ex.stats.n_intersect_boxes > 0 and ex.stats.n_fused_boxes == 0
+
+
+def test_fused_count_box_matches_reference():
+    src, dst = ENGINE_GRAPHS["clustered"]()
+    r_eng = RefEngine(src, dst, mem_words=800, shard=False, backend="fused")
+    p_eng = TriangleEngine(src, dst, mem_words=800, backend="fused",
+                           torch_device="cpu")
+    r_ex, p_ex = r_eng._make_executor(), p_eng._make_executor()
+    for box in r_eng.plan():
+        assert p_ex.count_box(box) == r_ex.count_box(box)
+    for f in ("n_fused_boxes", "device_invocations", "padded_words",
+              "actual_words"):
+        assert getattr(p_ex.stats, f) == getattr(r_ex.stats, f), f
+
+
+def test_listing_off_the_cpu_raises_until_its_kernel(monkeypatch):
+    """fused_list runs its plain version for CPU tensors only: any other
+    device raises NotImplementedError naming the QueryEngine slice (no
+    fallback to the plain version)."""
+    csr = tensors([graph_csr(*er_graph(20, 0.3, 4))])[0]
+    dims = DIMS["triangle"]
+    _, csrs, c0, consts = fused_ops._prepare(dims, [csr] * 3, 3)
+    meta = c0.to("meta")
+    monkeypatch.setattr(fused_ops, "_prepare",
+                        lambda *a: (dims, csrs, meta, consts))
+    with pytest.raises(NotImplementedError, match="QueryEngine"):
+        fused_list(dims, [csr] * 3, 3, capacity=8)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_count(dims, [csr] * 3, 3)

@@ -41,6 +41,28 @@ def test_importing_every_module_pulls_in_no_jax_and_no_reference():
     assert "IMPORT_OK" in out.stdout
 
 
+@pytest.mark.parametrize("module", ["repro_torch.kernels.lftj_fused.ops",
+                                    "repro_torch.kernels.lftj_fused.ref",
+                                    "repro_torch.core.executor",
+                                    "repro_torch.convert"])
+def test_fused_lane_modules_import_no_jax_and_no_reference(module):
+    """The fused lane's modules, and the executor and converter that reach
+    them, load on a host without JAX: importing each alone pulls in
+    neither ``jax`` nor ``repro``."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('IMPORT_OK')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "IMPORT_OK" in out.stdout
+
+
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")]
     + ["chip_smoke.py"]))
