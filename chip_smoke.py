@@ -1,42 +1,54 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives ``repro_torch.TriangleEngine.count()`` / ``.list()`` on the card,
+Drives ``repro_torch.TriangleEngine.count()`` / ``.list()``,
+``repro_torch.QueryEngine`` and ``repro_torch.embedding_bag`` on the card,
 builds the CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc``, holds
-every kernel against its plain PyTorch version, and checks the counts
+every kernel against its plain PyTorch version, and checks the results
 against independent oracles. Every phase prints one JSON line; any failure
 raises and exits non-zero. Each main-path phase sets every kernel's launch
-count to 0 just before it drives the engine and reads the counts just
+count to 0 just before it drives the entry point and reads the counts just
 after. Run from the repository root:
 
     python3 chip_smoke.py                 # full run (one card)
     python3 chip_smoke.py --quick         # build + kernel checks only
 
-Phases:
+Phases (the kernels each main-path phase must launch in brackets):
   1. device     — card name and power limit, kernel build (one nvcc per
                   source, in parallel) with the ptxas report.
   2. kernels    — each kernel against its plain version on ragged and edge
-                  shapes (exact integer equality); the fused kernel also
-                  against the scalar ``fused_ref`` on triangle, four-clique
-                  and diamond atoms over ER, RMAT and star graphs.
-  3. rmat       — Graph500-style RMAT, ``backend="auto"`` on the card: the
-                  intersect kernel must launch; the count must equal the
-                  plain torch ``binary`` lane on the card.
-  4. clustered  — triangle-rich planted-partition graph: the dense kernel
-                  must launch; the int64 count (> 2^31) must equal an
-                  independent per-cluster float64 oracle.
+                  shapes: intersect and dense (exact), the fused count and
+                  listing kernels (exact, the listing at capacities below
+                  and at the total; also against the scalar ``fused_ref``)
+                  and embedding_bag in both modes (within BAG_ATOL).
+  3. rmat       — Graph500-style RMAT, ``backend="auto"`` [intersect]; the
+                  count must equal the plain torch ``binary`` lane.
+  4. clustered  — triangle-rich planted-partition graph [triangle_dense];
+                  the int64 count (> 2^31) must equal a per-cluster
+                  float64 oracle.
   5. listing    — ``list()`` on the card equals ``list()`` on the CPU byte
                   for byte, with forced rescans; counts equal the host lane
-                  and a scipy-sparse oracle.
-  6. skew       — phase 3's graph, hub-first labels, ``skew="heavy_light"``:
-                  hub boxes past the one-hot cap launch the fused kernel,
-                  light and mixed boxes take the host lane; the count must
-                  equal phase 3's.
-  7. fused      — ``backend="fused"`` on phase 4's and phase 5's graphs:
-                  the counts must equal their oracles.
-  8. timing     — each kernel at the largest inputs the main path gave it
-                  (phases 3-7), against its plain version, a library call
-                  where one exists, and its roofline bound.
+                  and a scipy-sparse oracle [intersect, triangle_dense].
+  6. skew       — phase 3's graph, hub-first labels, ``skew="heavy_light"``
+                  [lftj_fused]; the count must equal phase 3's.
+  7. fused      — ``backend="fused"`` on phase 4's and phase 5's graphs
+                  [lftj_fused]; the counts must equal their oracles.
+  8. query      — ``QueryEngine``: the triangle on phase 3's graph, on the
+                  degree planner's boxes, count equal to phase 3's
+                  [intersect]; four-clique and diamond on ``auto`` [the
+                  diamond: intersect] and ``backend="fused"`` [lftj_fused]
+                  at QUERY_SCALE, each equal to its scipy oracle.
+  9. query_listing — four-clique ``list()`` on ``backend="fused"``
+                  [lftj_fused_list]: bytes equal the CPU's and a forced-
+                  rescan run's; total equal to the host backend and the
+                  scipy oracle.
+ 10. embedding_bag — "auto" on the dlrm-mlperf configuration's largest
+                  field (20.5 GB) [embedding_bag "dma"] and its seventh
+                  (3.7 MB) [embedding_bag "onehot"], B = 65,536, L = 1 and
+                  8, within BAG_ATOL of the plain version; timed, freed.
+ 11. timing     — each kernel at the largest input the main path gave it,
+                  against its plain version, a library call where one
+                  exists, and its roofline bound.
 
 The last three lines are the ``kernels`` JSON line, the ``nvidia-smi``
 name/power-limit line and the final ``{"ok": true, ...}`` line.
@@ -76,6 +88,23 @@ LIST_SCALE, LIST_MEM_WORDS = 16, 1 << 18
 # boxes to is numpy, which releases the GIL
 SKEW_WORKERS = 8
 TIMING_REPS = 20
+# the query phase's four-clique and diamond graph, RMAT at QUERY_SCALE with
+# the rmat phase's boxes per edge (PERF.md §4 says why it is cut), and the
+# query-listing phase's four-clique listing graph
+QUERY_SCALE, QUERY_MEM_WORDS = 13, 1 << 14
+QUERY_LIST_SCALE, QUERY_LIST_MEM_WORDS = 12, 1 << 14
+# the query phase's worker threads on `auto` (its host lane is numpy,
+# which releases the GIL), as in the skew phase; the fused runs take one:
+# there every box synchronises with the card several times, and eight
+# threads sharing its stream wait on each other (four-clique at scale 13:
+# 87.2 s with 8 workers against 35.9 s with 1, PERF.md §5)
+QUERY_WORKERS = 8
+# embedding_bag: the dlrm-mlperf configuration's largest field (Criteo's
+# 39,979,771 rows padded to 512) and its seventh (7,120 padded to 512:
+# 3.7 MB, where "auto" picks "onehot"), D = 128 float32, B = 65,536 bags of
+# L = 1 (the configuration's `hot`) and of L = 8 with ~10 % PAD slots
+BAG_V_LARGEST, BAG_V_SMALL, BAG_D, BAG_B = 39_980_032, 7_168, 128, 65_536
+BAG_LS, BAG_PAD_SHARE = (1, 8), 0.1
 # the fused kernel's plain version is timed on the largest main-path input
 # whose padded (R, K) atoms hold at most this many words
 FUSED_PLAIN_WORDS_CAP = 1 << 30
@@ -127,6 +156,7 @@ class Recorder:
         self.orig = getattr(module, attr)
         self.shapes = Counter()
         self.largest = None
+        self.largest_kw = {}
         self.largest_size = -1
         self.largest_fitting = None
         self.largest_fitting_size = -1
@@ -151,10 +181,24 @@ class Recorder:
         size = self.size(*args)
         if size > self.largest_size:
             self.largest_size, self.largest = size, args
+            self.largest_kw = kw
         if self.fits is not None and size > self.largest_fitting_size \
                 and self.fits(*args):
             self.largest_fitting_size, self.largest_fitting = size, args
         return self.orig(*args, **kw)
+
+
+class ListRecorder(Recorder):
+    """A Recorder of ``fused_list`` that keeps the call emitting the most
+    rows (known only after the call), with its keyword arguments."""
+
+    def __call__(self, *args, **kw):
+        self.shapes[self.shape(*args)] += 1
+        total, rows = self.orig(*args, **kw)
+        if len(rows) > self.largest_size:
+            self.largest_size, self.largest = len(rows), args
+            self.largest_kw = kw
+        return total, rows
 
 
 def profile_count(torch, eng, label: str, top: int = 10) -> dict:
@@ -191,12 +235,12 @@ def lane_stats(stats) -> dict:
 
 
 def reset_launches(ops: dict) -> None:
-    for op in ops.values():
-        op.LAUNCHES.reset()
+    for counter in ops.values():
+        counter.reset()
 
 
 def read_launches(ops: dict) -> dict:
-    return {name: op.LAUNCHES.n for name, op in ops.items()}
+    return {name: counter.n for name, counter in ops.items()}
 
 
 def state_of(eng) -> dict:
@@ -309,22 +353,40 @@ def graph_csr(np, src, dst):
     return keys.astype(np.int64), off, v.astype(np.int32)
 
 
+def on_card(torch, np, csrs):
+    return [tuple(torch.from_numpy(np.ascontiguousarray(a)).to("cuda")
+                  for a in csr) for csr in csrs]
+
+
+def fused_case_graphs(np):
+    from repro_torch.data.graphs import rmat_graph
+    return {"er": lambda seed: er_graph(np, 150, 0.08, seed),
+            "rmat": lambda seed: rmat_graph(256, 2000, seed=seed),
+            "star": lambda seed: star_graph(np, 3, 100, seed)}
+
+
+def hub_row_csrs(np, hub: int):
+    """One depth-0 row whose depth-1 list is hub-sized: vertex 0 adjacent
+    to 1..hub, the leaves a path i -> i+1, so the triangles are (0, i,
+    i+1): the (R, S, T) atoms of the triangle pattern."""
+    row0 = (np.zeros(1, np.int64), np.array([0, hub], np.int64),
+            np.arange(1, hub + 1, dtype=np.int32))
+    path = (np.arange(1, hub, dtype=np.int64),
+            np.arange(hub, dtype=np.int64),
+            np.arange(2, hub + 1, dtype=np.int32))
+    return [row0, row0, path]
+
+
 def phase_fused_cases(torch, np, fused_ops) -> dict:
     """The fused kernel against its plain version on the card and against
     the scalar oracle ``fused_ref``: every pattern on every graph, plus an
     empty frontier, an empty starts-only depth, one depth-0 row with a
     hub-sized depth-1 list, and two-variable patterns."""
-    from repro_torch.data.graphs import rmat_graph
     from repro_torch.kernels.lftj_fused.ref import fused_count_ref, fused_ref
-    dev = torch.device("cuda")
-
-    def on_card(csrs):
-        return [tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                      for a in csr) for csr in csrs]
 
     def check(dims, csrs, want=None):
         n = max(sd for _, sd in dims) + 1
-        card = on_card(csrs)
+        card = on_card(torch, np, csrs)
         before = fused_ops.LAUNCHES.n
         got = fused_ops.fused_count(dims, card, n)
         launched = fused_ops.LAUNCHES.n - before
@@ -337,12 +399,9 @@ def phase_fused_cases(torch, np, fused_ops) -> dict:
         assert launched == (0 if layout is None else 1), launched
         return got
 
-    graphs = {"er": lambda seed: er_graph(np, 150, 0.08, seed),
-              "rmat": lambda seed: rmat_graph(256, 2000, seed=seed),
-              "star": lambda seed: star_graph(np, 3, 100, seed)}
     n_cases = 0
     counts = {}
-    for gname, make in sorted(graphs.items()):
+    for gname, make in sorted(fused_case_graphs(np).items()):
         for seed in (0, 1):
             csr = graph_csr(np, *make(seed))
             for pname, dims in sorted(FUSED_DIMS.items()):
@@ -354,15 +413,8 @@ def phase_fused_cases(torch, np, fused_ops) -> dict:
     # empty depth-0 frontier, and an empty starts-only depth: no launch
     assert check(TRIANGLE, [csr, shifted, csr]) == 0
     assert check(FUSED_DIMS["diamond"], [csr, shifted, csr, csr]) == 0
-    # one depth-0 row whose depth-1 list is hub-sized: vertex 0 adjacent to
-    # 1..hub, the leaves a path i -> i+1, so the triangles are (0, i, i+1)
     hub = 1 << 15
-    row0 = (np.zeros(1, np.int64), np.array([0, hub], np.int64),
-            np.arange(1, hub + 1, dtype=np.int32))
-    path = (np.arange(1, hub, dtype=np.int64),
-            np.arange(hub, dtype=np.int64),
-            np.arange(2, hub + 1, dtype=np.int32))
-    counts["hub_row"] = check(TRIANGLE, [row0, row0, path], want=hub - 1)
+    counts["hub_row"] = check(TRIANGLE, hub_row_csrs(np, hub), want=hub - 1)
     # two variables: one atom, and two atoms on (0, 1) pruning each other
     other = graph_csr(np, *er_graph(np, 120, 0.2, 4))
     counts["two_vars"] = check(((0, 1),), [csr])
@@ -371,6 +423,123 @@ def phase_fused_cases(torch, np, fused_ops) -> dict:
     torch.cuda.synchronize()
     return {"phase": "kernels", "of": ["lftj_fused"], "cases": n_cases,
             "exact": True, "counts": counts}
+
+
+# every pattern of the query package, as the reference planner orders it
+LIST_DIMS = dict(FUSED_DIMS, path3=((0, 1), (1, 2), (2, 3)),
+                 cycle4=((0, 1), (1, 2), (2, 3), (0, 3)))
+
+
+def phase_list_cases(torch, np, fused_ops) -> dict:
+    """The listing kernel against its plain version ``fused_list_ref`` on
+    the card (the total and the rows, byte for byte, at capacities below
+    and at the total) and against ``fused_ref``'s count: every pattern on
+    every graph, plus the empty and hub-row cases of the count kernel."""
+    from repro_torch.kernels.lftj_fused.ref import fused_list_ref, fused_ref
+
+    def check(dims, csrs, want=None):
+        n = max(sd for _, sd in dims) + 1
+        card = on_card(torch, np, csrs)
+        layout = fused_ops.padded_layout(dims, card, n)
+        if want is None:
+            want = fused_ref(dims, csrs, n)[0]
+        for cap in (1, 7, max(1, want)):
+            before = fused_ops.LIST_LAUNCHES.n
+            total, rows = fused_ops.fused_list(dims, card, n, capacity=cap)
+            launched = fused_ops.LIST_LAUNCHES.n - before
+            if layout is None:
+                plain_total, plain = 0, np.zeros((0, n), np.int64)
+            else:
+                plain_total, plain = fused_list_ref(dims, *layout, n, cap)
+                plain = plain.cpu().numpy()
+            assert total == plain_total == want, (dims, cap, total,
+                                                  plain_total, want)
+            assert rows.dtype == plain.dtype and rows.shape == plain.shape
+            assert rows.tobytes() == plain.tobytes(), (dims, cap)
+            assert launched == (0 if layout is None else 1), launched
+        return want
+
+    n_cases = 0
+    counts = {}
+    for gname, make in sorted(fused_case_graphs(np).items()):
+        for seed in (0, 1):
+            csr = graph_csr(np, *make(seed))
+            for pname, dims in sorted(LIST_DIMS.items()):
+                counts[f"{pname}/{gname}/{seed}"] = check(dims,
+                                                          [csr] * len(dims))
+                n_cases += 1
+    csr = graph_csr(np, *er_graph(np, 120, 0.2, 3))
+    shifted = (csr[0] + 10_000, csr[1], csr[2])
+    assert check(TRIANGLE, [csr, shifted, csr]) == 0
+    assert check(FUSED_DIMS["diamond"], [csr, shifted, csr, csr]) == 0
+    hub = 1 << 15
+    counts["hub_row"] = check(TRIANGLE, hub_row_csrs(np, hub), want=hub - 1)
+    other = graph_csr(np, *er_graph(np, 120, 0.2, 4))
+    counts["two_vars"] = check(((0, 1),), [csr])
+    counts["two_vars_pruned"] = check(((0, 1), (0, 1)), [csr, other])
+    n_cases += 5
+    torch.cuda.synchronize()
+    return {"phase": "kernels", "of": ["lftj_fused_list"], "cases": n_cases,
+            "capacities": "1, 7, total", "exact": True, "counts": counts}
+
+
+# embedding_bag shapes (V, D, B, L): single row and slot, ragged, the
+# dlrm-mlperf width D = 128, the seventh Criteo field padded to 512 rows,
+# a width that takes the 4-byte loads, empty bags, bags longer than a warp
+BAG_CASES = ((1, 1, 1, 1), (100, 16, 37, 5), (1000, 128, 64, 8),
+             (7168, 128, 1000, 3), (5000, 130, 513, 9), (300, 64, 8, 0),
+             (50, 4, 10, 40))
+# the reference test's bound (tests/test_kernels.py): the kernel adds in
+# slot order, the plain version in PyTorch's order
+BAG_ATOL = 1e-4
+
+
+def bag_indices(np, rng, v: int, b: int, ll: int):
+    """(b, ll) int64 indices: about 10 % PAD (== v) or past it, bag 0 all
+    PAD, duplicate slots in bag 1."""
+    idx = rng.integers(0, v, size=(b, ll))
+    pad = rng.random((b, ll)) < 0.1
+    idx[pad] = v + rng.integers(0, 3, size=int(pad.sum()))
+    if ll:
+        idx[0, :] = v
+        if b > 1 and ll > 1:
+            idx[1, 1] = idx[1, 0] = min(idx[1, 0], v - 1)
+    return idx
+
+
+def phase_bag_cases(torch, np, bag_ops) -> dict:
+    """The embedding_bag kernel in both modes against its plain version
+    on ragged and edge shapes, within BAG_ATOL."""
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rng = np.random.default_rng(0)
+    worst = 0.0
+    n_cases = 0
+    for v, d, b, ll in BAG_CASES:
+        table = torch.rand((v, d), generator=gen, device=dev)
+        idx = torch.from_numpy(bag_indices(np, rng, v, b, ll)).to(dev)
+        want = embedding_bag_ref(table, idx)
+        for mode in ("dma", "onehot"):
+            before = bag_ops.LAUNCHES[mode].n
+            got = bag_ops.embedding_bag(table, idx, mode=mode)
+            assert bag_ops.LAUNCHES[mode].n == before + 1, mode
+            assert got.shape == want.shape and got.dtype == want.dtype
+            err = float((got - want).abs().max()) if got.numel() else 0.0
+            assert err <= BAG_ATOL, (v, d, b, ll, mode, err)
+            worst = max(worst, err)
+            n_cases += 1
+    # a table view offset by one float takes the 4-byte loads
+    buf = torch.rand(1000 * 128 + 1, generator=gen, device=dev)
+    table = buf[1:].view(1000, 128)
+    idx = torch.from_numpy(bag_indices(np, rng, 1000, 77, 6)).to(dev)
+    err = float((bag_ops.embedding_bag(table, idx, mode="dma")
+                 - embedding_bag_ref(table, idx)).abs().max())
+    assert err <= BAG_ATOL, err
+    worst = max(worst, err)
+    torch.cuda.synchronize()
+    return {"phase": "kernels", "of": ["embedding_bag"],
+            "cases": n_cases + 1, "atol": BAG_ATOL, "max_abs_err": worst}
 
 
 # ---------------------------------------------------------------------------
@@ -697,13 +866,283 @@ def phase_fused(torch, np, ops, shared, profile: bool) -> dict:
     return out
 
 
+def oriented_adjacency(np, src, dst):
+    """The minmax-oriented graph as a scipy CSR matrix of ones."""
+    import scipy.sparse as sp
+    from repro_torch.core.lftj_torch import orient_edges
+    a, b = orient_edges(src, dst)
+    n = int(max(a.max(), b.max())) + 1
+    adj = sp.csr_matrix((np.ones(len(a), np.int64), (a, b)), shape=(n, n))
+    adj.sort_indices()
+    return adj
+
+
+def four_clique_oracle(np, adj, chunk: int = 1 << 16) -> int:
+    """4-cliques of the oriented graph: for each edge (u, v), the edges
+    among the common out-neighbours C of u and v (Q = A[u] ⊙ A[v] per
+    edge, then Σ (Q A) ⊙ Q), in chunks of edges."""
+    u = np.repeat(np.arange(adj.shape[0]), np.diff(adj.indptr))
+    v = adj.indices
+    total = 0
+    for s in range(0, len(u), chunk):
+        q = adj[u[s:s + chunk]].multiply(adj[v[s:s + chunk]]).tocsr()
+        total += int((q @ adj).multiply(q).sum())
+    return total
+
+
+def diamond_oracle(adj) -> int:
+    """Diamonds E(x,y) E(x,z) E(y,w) E(z,w) of the oriented graph: the sum
+    over (x, w) of the squared number of 2-paths, Σ (A²)[x, w]²."""
+    a2 = adj @ adj
+    return int(a2.multiply(a2).sum())
+
+
+def query_source(np, csr):
+    from repro_torch.data.edgestore import InMemoryEdgeSource
+    return {"E": InMemoryEdgeSource(*csr, orientation="minmax")}
+
+
+def query_stats(stats) -> dict:
+    return {"boxes": stats.n_boxes, "kernel": stats.n_kernel_boxes,
+            "fused": stats.n_fused_boxes, "host": stats.n_host_boxes,
+            "device_invocations": stats.device_invocations,
+            "max_frontier": stats.max_frontier}
+
+
+def run_query_count(torch, ops, eng) -> tuple:
+    reset_launches(ops)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    count = eng.count()
+    torch.cuda.synchronize()
+    return count, time.perf_counter() - t0, read_launches(ops)
+
+
+def phase_query(torch, np, ops, shared, scale: int, mem_words: int) -> dict:
+    """QueryEngine counts on the card: the triangle pattern on phase 3's
+    graph (its plan must be the triangle degree planner's,
+    ``plan_boxes_from_degrees``, box for box, and its count phase 3's),
+    then the four-clique and the diamond on `auto` and
+    on `fused` at ``scale``, each equal to its scipy oracle."""
+    from repro_torch.core.boxing import plan_boxes_from_degrees
+    from repro_torch.core.lftj_torch import csr_from_edges, orient_edges
+    from repro_torch.data.graphs import rmat_graph
+    from repro_torch.query import QueryEngine, patterns
+    rmat = shared["rmat"]
+    out = {"phase": "query", "runs": {}}
+    t0 = time.perf_counter()
+    eng = QueryEngine(patterns.triangle(),
+                      relations=query_source(np, rmat["csr"]),
+                      mem_words=RMAT_MEM_WORDS, workers=QUERY_WORKERS)
+    plan = eng.plan()
+    t_plan = time.perf_counter() - t0
+    boxes = [(b[0][0], b[0][1], b[1][0], b[1][1]) for b in plan.boxes]
+    want = plan_boxes_from_degrees(rmat["csr"][0], RMAT_MEM_WORDS)
+    assert boxes == [tuple(b) for b in want], (len(boxes), len(want))
+    count, wall, launches = run_query_count(torch, ops, eng)
+    assert launches["intersect"] > 0, launches
+    assert count == rmat["count"], (count, rmat["count"])
+    out["runs"]["triangle/auto"] = {
+        "scale": RMAT_SCALE, "mem_words": RMAT_MEM_WORDS,
+        "workers": QUERY_WORKERS, "count": count,
+        "count_rmat_phase": rmat["count"], "boxes": len(boxes),
+        "boxes_rmat_phase": rmat["boxes"], "plan_s": t_plan,
+        "count_s": wall, "launches": launches,
+        "lanes": query_stats(eng.stats)}
+    runs = [launches]
+    t0 = time.perf_counter()
+    src, dst = rmat_graph(1 << scale, 16 << scale, seed=0)
+    a, b = orient_edges(src, dst)
+    csr = csr_from_edges(a, b, n_nodes=int(max(a.max(), b.max())) + 1)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    adj = oriented_adjacency(np, src, dst)
+    oracles = {"four_clique": four_clique_oracle(np, adj),
+               "diamond": diamond_oracle(adj)}
+    out.update(scale=scale, mem_words=mem_words, edges=int(len(a)),
+               gen_s=t_gen, oracle_s=time.perf_counter() - t0,
+               oracles=oracles)
+    for name in ("four_clique", "diamond"):
+        for backend in ("auto", "fused"):
+            workers = QUERY_WORKERS if backend == "auto" else 1
+            eng = QueryEngine(patterns.PATTERNS[name](),
+                              relations=query_source(np, csr),
+                              mem_words=mem_words, backend=backend,
+                              workers=workers)
+            count, wall, launches = run_query_count(torch, ops, eng)
+            stats = eng.stats
+            assert count == oracles[name], (name, backend, count,
+                                            oracles[name])
+            if backend == "fused":
+                assert stats.n_fused_boxes > 0, query_stats(stats)
+                assert launches["lftj_fused"] > 0, launches
+            elif name == "diamond":
+                # the four-clique's innermost variable has three bound
+                # atoms, which the host lane intersects (as in the
+                # reference); the diamond's has two: the intersect kernel
+                assert launches["intersect"] > 0, launches
+            out["runs"][f"{name}/{backend}"] = {
+                "count": count, "count_s": wall, "workers": workers,
+                "launches": launches,
+                "lanes": query_stats(stats)}
+            runs.append(launches)
+    out["launches"] = {k: sum(r[k] for r in runs) for k in ops}
+    return out
+
+
+def phase_query_listing(torch, np, ops, shared, scale: int,
+                        mem_words: int) -> dict:
+    """four-clique ``list()`` on ``backend="fused"``: the listing kernel
+    must launch; its bytes equal the same call on the CPU and a run at a
+    capacity that forces rescans; its total equals the host backend and
+    the scipy oracle."""
+    from repro_torch.core.lftj_torch import csr_from_edges, orient_edges
+    from repro_torch.data.graphs import rmat_graph
+    from repro_torch.query import QueryEngine, patterns
+    src, dst = rmat_graph(1 << scale, 16 << scale, seed=1)
+    a, b = orient_edges(src, dst)
+    csr = csr_from_edges(a, b, n_nodes=int(max(a.max(), b.max())) + 1)
+
+    def engine(**kw):
+        return QueryEngine(patterns.four_clique(),
+                           relations=query_source(np, csr),
+                           mem_words=mem_words, **kw)
+
+    eng = engine(backend="fused")
+    reset_launches(ops)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = eng.list()
+    torch.cuda.synchronize()
+    t_list = time.perf_counter() - t0
+    rescans_default = eng.stats.n_rescans
+    stats = query_stats(eng.stats)
+    # a capacity well below the mean per-box total forces rescans
+    cap = max(1, min(1024, len(rows) // (4 * max(1, eng.stats.n_boxes))))
+    forced = eng.list(capacity=cap)
+    rescans_forced = eng.stats.n_rescans
+    launches = read_launches(ops)
+    assert launches["lftj_fused_list"] > 0, launches
+    assert rescans_forced > rescans_default, (rescans_forced,
+                                              rescans_default)
+    assert forced.tobytes() == rows.tobytes()
+    t0 = time.perf_counter()
+    cpu = engine(backend="fused", torch_device="cpu").list()
+    t_cpu = time.perf_counter() - t0
+    assert cpu.dtype == rows.dtype and cpu.shape == rows.shape
+    assert cpu.tobytes() == rows.tobytes()
+    count_host = engine(backend="host").count()
+    oracle = four_clique_oracle(np, oriented_adjacency(np, src, dst))
+    assert len(rows) == count_host == oracle, (len(rows), count_host,
+                                               oracle)
+    return {"phase": "query_listing", "scale": scale, "edges": int(len(a)),
+            "mem_words": mem_words, "listed": len(rows), "lanes": stats,
+            "launches": launches, "rescans_default": rescans_default,
+            "forced_capacity": cap, "rescans_forced": rescans_forced,
+            "list_s": t_list, "cpu_list_s": t_cpu,
+            "count_host_backend": count_host, "scipy_oracle": oracle}
+
+
+def bag_inputs(torch, gen, v: int, ll: int):
+    """(BAG_B, ll) int64 indices on the card, about BAG_PAD_SHARE of the
+    slots PAD (== v) when ll > 1."""
+    idx = torch.randint(0, v, (BAG_B, ll), generator=gen, device="cuda")
+    if ll > 1:
+        pad = torch.rand((BAG_B, ll), generator=gen,
+                         device="cuda") < BAG_PAD_SHARE
+        idx[pad] = v
+    return idx
+
+
+def time_bag(torch, bag_ops, table, idx, reps: int) -> dict:
+    """The bag kernel, its plain version and the library yardstick on one
+    input, against the bytes bound: each distinct non-PAD row read once,
+    the indices, the output written once (the additions, one per non-PAD
+    element at the float32 rate, take far less)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    v, d = table.shape
+    mode = bag_ops.resolve_mode(table, "auto")
+    idx32 = idx.to(torch.int32)
+    ms = cuda_ms(lambda: bag_ops._launch(table, idx32, mode), reps)
+    plain_ms = cuda_ms(lambda: embedding_bag_ref(table, idx), reps)
+    live = idx < v
+    safe = idx.clamp(max=v - 1)
+    weights = live.float()
+    lib_ms = cuda_ms(lambda: F.embedding_bag(
+        safe, table, mode="sum", per_sample_weights=weights), reps)
+    lib = F.embedding_bag(safe, table, mode="sum", per_sample_weights=weights)
+    got = bag_ops._launch(table, idx32, mode)
+    lib_err = float((got - lib).abs().max())
+    rows = int(torch.unique(idx[live]).numel())
+    n_bytes = 4 * rows * d + 4 * idx.numel() + 4 * got.numel()
+    n_ops = float(int(live.sum()) * d)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / SCALAR_OPS_PER_S * 1e3
+    return {"mode": mode, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "library_max_abs_err": lib_err,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "shape": {"table": [v, d], "idx": list(idx.shape)},
+            "bytes": n_bytes, "ops": n_ops}
+
+
+def phase_embedding_bag(torch, np, ops, shared, bag_ops) -> dict:
+    """``embedding_bag`` with mode "auto" on the dlrm-mlperf configuration's
+    largest field (auto picks "dma") and on its seventh field (auto picks
+    "onehot"), at B = 65,536 with L = 1 and L = 8 (about 10 % PAD), each
+    within BAG_ATOL of the plain version; the kernel is timed on the
+    largest input of each mode, then the table is freed."""
+    from repro_torch import embedding_bag
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {"phase": "embedding_bag", "B": BAG_B, "D": BAG_D, "runs": {}}
+    runs = []
+    timing = {}
+    for field, v in (("largest", BAG_V_LARGEST), ("seventh", BAG_V_SMALL)):
+        t0 = time.perf_counter()
+        table = torch.rand((v, BAG_D), generator=gen, device="cuda")
+        torch.cuda.synchronize()
+        t_table = time.perf_counter() - t0
+        for ll in BAG_LS:
+            idx = bag_inputs(torch, gen, v, ll)
+            reset_launches(ops)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = embedding_bag(table, idx)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches(ops)
+            mode = bag_ops.resolve_mode(table, "auto")
+            assert launches[f"embedding_bag_{mode}"] == 1, launches
+            want = embedding_bag_ref(table, idx)
+            err = float((got - want).abs().max())
+            assert err <= BAG_ATOL, (field, ll, err)
+            assert bool(torch.isfinite(got).all())
+            out["runs"][f"{field}/L{ll}"] = {
+                "V": v, "L": ll, "mode": mode, "table_bytes":
+                v * BAG_D * 4, "pad_share": float((idx >= v).float().mean()),
+                "max_abs_err": err, "call_s": wall, "launches": launches,
+                "table_s": t_table}
+            runs.append(launches)
+            if ll == max(BAG_LS):
+                timing[mode] = dict(time_bag(torch, bag_ops, table, idx,
+                                             TIMING_REPS), max_abs_err=err)
+        del table, idx, got, want
+        torch.cuda.empty_cache()
+    out["launches"] = {k: sum(r[k] for r in runs) for k in ops}
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    shared["bag_timing"] = timing
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 8: kernel timing at the main path's largest inputs
 # ---------------------------------------------------------------------------
 
 def time_intersect(torch, rec, launches: int, reps: int) -> dict:
     from repro_torch.kernels.intersect.ref import intersect_count_ref
-    a, b, ia, ib = rec.largest
+    a, b, ia, ib = (tuple(rec.largest) + (None, None))[:4]
     got = rec.orig(a, b, ia, ib)
     want = intersect_count_ref(a, b, ia, ib)
     err = int((got.long() - want.long()).abs().max()) if len(got) else 0
@@ -713,12 +1152,22 @@ def time_intersect(torch, rec, launches: int, reps: int) -> dict:
     # least bytes: each referenced row's real entries once, the two index
     # vectors and the output; least operations: one probe step per
     # narrower-row element per level of the wider row's binary search
-    deg = (a != 2 ** 31 - 1).sum(dim=1)
-    rows = torch.unique(torch.cat([ia, ib]).long())
-    du, dv = deg[ia.long()], deg[ib.long()]
+    # the index form reads rows of one matrix (the engine passes the same
+    # padded matrix twice); without indices row i of a meets row i of b
+    deg_a = (a != 2 ** 31 - 1).sum(dim=1)
+    deg_b = (b != 2 ** 31 - 1).sum(dim=1)
+    if ia is None:
+        du, dv = deg_a, deg_b
+        real = int(deg_a.sum()) + int(deg_b.sum())
+        n_idx = 0
+    else:
+        du, dv = deg_a[ia.long()], deg_b[ib.long()]
+        rows = torch.unique(torch.cat([ia, ib]).long())
+        real = int(deg_a[rows].sum())
+        n_idx = len(ia) + len(ib)
     lo, hi = torch.minimum(du, dv), torch.maximum(du, dv)
     steps = torch.ceil(torch.log2(hi.double() + 1))
-    n_bytes = 4 * int(deg[rows].sum()) + 4 * (len(ia) + len(ib) + len(got))
+    n_bytes = 4 * real + 4 * (n_idx + len(got))
     n_ops = float((lo.double() * steps).sum())
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / SCALAR_OPS_PER_S * 1e3
@@ -731,7 +1180,7 @@ def time_intersect(torch, rec, launches: int, reps: int) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None,
             "shape": {"a": list(a.shape), "b": list(b.shape),
-                      "pairs": int(len(ia))},
+                      "pairs": int(len(got))},
             "bytes": n_bytes, "ops": n_ops}
 
 
@@ -856,13 +1305,73 @@ def time_fused(torch, rec, launches: int, reps: int) -> dict:
     return out
 
 
+def time_fused_list(torch, rec, launches: int, reps: int) -> dict:
+    """The listing kernel at the main path's largest ``fused_list`` call
+    (by emitted rows), against its plain version on the same input and
+    against its bound: the atoms' CSR bytes read once and the int32 rows
+    written once; at least one membership probe per emitted binding and
+    further atom bound at the innermost depth."""
+    from repro_torch.kernels.lftj_fused import ops as fused_ops
+    from repro_torch.kernels.lftj_fused.ref import fused_list_ref
+    dims, csrs, n = rec.largest
+    cap = rec.largest_kw["capacity"]
+    prep = fused_ops._prepare(dims, csrs, n)
+    total, rows = fused_ops.launch_list(prep, cap)
+    ms = cuda_ms(lambda: fused_ops.launch_list(prep, cap), reps)
+    layout = fused_ops.padded_layout(dims, csrs, n)
+    plain_total, plain = fused_list_ref(dims, *layout, n, cap)
+    plain_ms = cuda_ms(lambda: fused_list_ref(dims, *layout, n, cap),
+                       max(1, reps // 10))
+    exact = total == plain_total and torch.equal(rows.long(), plain)
+    in_bytes = sum(4 * k.numel() + 8 * o.numel() + 4 * v.numel()
+                   for k, o, v in csrs)
+    n_bytes = in_bytes + 4 * rows.numel() + 8
+    last = n - 1
+    probes = max(1, sum(1 for _, sd in dims if sd == last) - 1)
+    n_ops = float(total * probes)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / SCALAR_OPS_PER_S * 1e3
+    return {"name": "lftj_fused_list", "route": "cuda",
+            "source": "src/repro_torch/csrc/lftj_fused.cu",
+            "replaces": "src/repro/kernels/lftj_fused/kernel.py:264",
+            "launches": launches, "max_abs_err": 0 if exact else None,
+            "exact": exact, "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "total": total, "capacity": cap,
+            "shape": {"atoms_keys_vals": fused_shape(dims, csrs, n),
+                      "frontier": int(prep[2].numel()),
+                      "rows": list(rows.shape)},
+            "bytes": n_bytes, "ops": n_ops}
+
+
+def bag_kernel_row(timing: dict, launches: int) -> dict:
+    """The embedding_bag kernel's line: the "dma" numbers (the largest
+    input), with both modes' numbers under ``by_mode``."""
+    dma = timing["dma"]
+    return {"name": "embedding_bag", "route": "cuda",
+            "source": "src/repro_torch/csrc/embedding_bag.cu",
+            "replaces": "src/repro/kernels/embedding_bag/kernel.py:35",
+            "replaces_also": "src/repro/kernels/embedding_bag/kernel.py:83",
+            "launches": launches, "max_abs_err": dma["max_abs_err"],
+            "exact": dma["max_abs_err"] <= BAG_ATOL, "ms": dma["ms"],
+            "kernel_ms": dma["ms"], "plain_ms": dma["plain_ms"],
+            "bound_ms": dma["bound_ms"], "bound_by": dma["bound_by"],
+            "library_ms": dma["library_ms"], "by_mode": timing}
+
+
+PHASES = ("rmat", "clustered", "listing", "skew", "fused", "query",
+          "query_listing", "embedding_bag")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
                     help="device, build and kernel checks only")
-    ap.add_argument("--phases", default="rmat,clustered,listing,skew,fused",
-                    help="main-path phases to run (default: all five; skew "
-                         "needs rmat, fused needs clustered and listing)")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="main-path phases to run (default: all eight; "
+                         "skew and query need rmat, fused needs clustered "
+                         "and listing)")
     ap.add_argument("--profile", action="store_true",
                     help="repeat each main-path count under "
                          "torch.profiler and print device time by kernel")
@@ -875,11 +1384,17 @@ def main() -> int:
         return 2
     import numpy as np
     from repro_torch.kernels import _build
+    from repro_torch.kernels.embedding_bag import ops as bag_ops
     from repro_torch.kernels.intersect import ops as intersect_ops
     from repro_torch.kernels.lftj_fused import ops as fused_ops
     from repro_torch.kernels.triangle_dense import ops as dense_ops
-    ops = {"intersect": intersect_ops, "triangle_dense": dense_ops,
-           "lftj_fused": fused_ops}
+    # every kernel's launch counter (embedding_bag keeps one per mode)
+    ops = {"intersect": intersect_ops.LAUNCHES,
+           "triangle_dense": dense_ops.LAUNCHES,
+           "lftj_fused": fused_ops.LAUNCHES,
+           "lftj_fused_list": fused_ops.LIST_LAUNCHES,
+           "embedding_bag_dma": bag_ops.LAUNCHES["dma"],
+           "embedding_bag_onehot": bag_ops.LAUNCHES["onehot"]}
 
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
@@ -899,6 +1414,12 @@ def main() -> int:
     emit(phase_kernel_cases(torch, np, intersect_ops, dense_ops))
     emit(dict(phase_fused_cases(torch, np, fused_ops),
               phase_s=time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    emit(dict(phase_list_cases(torch, np, fused_ops),
+              phase_s=time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    emit(dict(phase_bag_cases(torch, np, bag_ops),
+              phase_s=time.perf_counter() - t0))
 
     kernels = []
     if not args.quick:
@@ -909,8 +1430,14 @@ def main() -> int:
         rec_d = Recorder(dense_ops, "triangle_count",
                          lambda a, b, m: a.shape[0] * b.shape[0]
                          * a.shape[1])
-        rec_f = Recorder(fused_ops, "fused_count", fused_csr_words,
+        # the fused kernel is timed at its largest triangle box, the input
+        # its bound is written for (fused_bound)
+        rec_f = Recorder(fused_ops, "fused_count",
+                         lambda dims, csrs, n: fused_csr_words(dims, csrs, n)
+                         if tuple(dims) == TRIANGLE else -1,
                          shape=fused_shape, fits=fused_padded_fits)
+        rec_l = ListRecorder(fused_ops, "fused_list", None,
+                             shape=fused_shape)
         shared = {}
         phases = {
             "rmat": lambda: phase_rmat(
@@ -926,6 +1453,13 @@ def main() -> int:
                 args.profile),
             "fused": lambda: phase_fused(torch, np, ops, shared,
                                          args.profile),
+            "query": lambda: phase_query(torch, np, ops, shared,
+                                         QUERY_SCALE, QUERY_MEM_WORDS),
+            "query_listing": lambda: phase_query_listing(
+                torch, np, ops, shared, QUERY_LIST_SCALE,
+                QUERY_LIST_MEM_WORDS),
+            "embedding_bag": lambda: phase_embedding_bag(
+                torch, np, ops, shared, bag_ops),
         }
         runs = []
         for name in args.phases.split(","):
@@ -936,7 +1470,8 @@ def main() -> int:
         launches = {k: sum(r["launches"][k] for r in runs) for k in ops}
         emit({"phase": "launch_shapes", "intersect": rec_i.summary(),
               "triangle_dense": rec_d.summary(),
-              "lftj_fused": rec_f.summary()})
+              "lftj_fused": rec_f.summary(),
+              "lftj_fused_list": rec_l.summary()})
         if rec_i.largest is not None:
             kernels.append(time_intersect(torch, rec_i,
                                           launches["intersect"], TIMING_REPS))
@@ -946,6 +1481,14 @@ def main() -> int:
         if rec_f.largest is not None:
             kernels.append(time_fused(torch, rec_f, launches["lftj_fused"],
                                       TIMING_REPS))
+        if rec_l.largest is not None:
+            kernels.append(time_fused_list(torch, rec_l,
+                                           launches["lftj_fused_list"],
+                                           TIMING_REPS))
+        if "bag_timing" in shared:
+            kernels.append(bag_kernel_row(
+                shared["bag_timing"], launches["embedding_bag_dma"]
+                + launches["embedding_bag_onehot"]))
         for k in kernels:
             assert k["exact"], k
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start})

@@ -1,16 +1,27 @@
-"""State carried across from the reference engine into the port.
+"""State carried across from the reference engines into the port.
 
 There are no weights: the state of a triangle engine is its oriented CSR
-and its box plan. ``engine_from_state`` takes them as plain numpy values
-and returns a port engine that runs exactly that CSR and that plan, so a
-lane-by-lane comparison with the reference is not confounded by planning.
+and its box plan, and that of a query engine its query, its relations and
+its plan. ``engine_from_state`` and ``query_engine_from_state`` take them
+as plain Python and numpy values and return a port engine that runs
+exactly that CSR and that plan, so a lane-by-lane comparison with the
+reference is not confounded by planning.
 
-``state`` keys: ``indptr`` (V+1 int64), ``indices`` (int32), ``orientation``
-('minmax' or 'degree'), ``nv`` (V), ``plan`` (a list of
+``engine_from_state`` keys: ``indptr`` (V+1 int64), ``indices`` (int32),
+``orientation`` ('minmax' or 'degree'), ``nv`` (V), ``plan`` (a list of
 ``(lx, hx, ly, hy)``; optional — without it the port plans for itself) and
 ``lanes`` (optional, with ``plan`` only: the reference's per-box
 ``'hub'`` / ``'light'`` / ``'mixed'`` class of a ``skew='heavy_light'``
 plan, so the carried-across plan routes box for box as it does there).
+
+``query_engine_from_state`` keys: ``head`` (variable names), ``atoms``
+(``(relation, (var, var))`` pairs), ``relations`` (name -> ``{"indptr",
+"indices", "orientation"}``: the reference engine's sources), ``order``,
+``rank``, ``boxes`` (per box, one inclusive ``(lo, hi)`` per variable),
+``lanes`` (per box, or empty), ``skew``, ``heavy_threshold``, ``budgets``
+and ``single_box`` (optional: the planner's per-dimension budget split)
+and ``mem_words`` (the budget the plan was cut for; ``kw`` may not
+override it, or the port would plan anew).
 """
 
 from __future__ import annotations
@@ -20,6 +31,11 @@ from typing import Mapping
 import numpy as np
 
 from repro_torch.core.engine import TriangleEngine
+from repro_torch.core.leapfrog import Atom
+from repro_torch.core.queries import Query
+from repro_torch.data.edgestore import InMemoryEdgeSource
+from repro_torch.query.executor import QueryEngine
+from repro_torch.query.planner import QueryPlan
 
 
 def engine_from_state(state: Mapping, **kw) -> TriangleEngine:
@@ -45,3 +61,43 @@ def engine_from_state(state: Mapping, **kw) -> TriangleEngine:
                                  f"{len(boxes)} boxes")
             eng._box_lane = dict(zip(boxes, (str(x) for x in lanes)))
     return eng
+
+
+def query_engine_from_state(state: Mapping, **kw) -> QueryEngine:
+    """A port ``QueryEngine`` running the reference plan in ``state`` (see
+    the module docstring); ``kw`` are engine options (``torch_device``,
+    ``backend``, ``workers``, ``use_kernels``, ...)."""
+    if "mem_words" in kw and kw["mem_words"] != state["mem_words"]:
+        raise ValueError(f"mem_words={kw['mem_words']} differs from the "
+                         f"plan's budget {state['mem_words']}")
+    kw.pop("mem_words", None)
+    query = Query(head=tuple(state["head"]),
+                  atoms=[Atom(rel, tuple(vs)) for rel, vs in state["atoms"]])
+    relations = {
+        name: InMemoryEdgeSource(np.asarray(r["indptr"], dtype=np.int64),
+                                 np.asarray(r["indices"], dtype=np.int32),
+                                 orientation=r["orientation"])
+        for name, r in state["relations"].items()}
+    order = tuple(state["order"])
+    boxes = [tuple((int(lo), int(hi)) for lo, hi in box)
+             for box in state["boxes"]]
+    lanes = [str(x) for x in state.get("lanes", [])]
+    if lanes and len(lanes) != len(boxes):
+        raise ValueError(f"state has {len(lanes)} lanes for {len(boxes)} "
+                         "boxes")
+    pos = {v: i for i, v in enumerate(order)}
+    # an atom is owned by the dimension of its earlier variable in the
+    # order (an inconsistent atom runs on its reversed index)
+    owned = tuple(sorted({min(pos[v] for v in a.vars)
+                          for a in query.atoms}))
+    plan = QueryPlan(order=order, rank=int(state["rank"]),
+                     owned_dims=owned, boxes=boxes,
+                     budgets={int(d): int(b) for d, b
+                              in state.get("budgets", {}).items()},
+                     single_box=bool(state.get("single_box",
+                                               len(boxes) <= 1)),
+                     skew=str(state.get("skew", "uniform")), lanes=lanes,
+                     heavy_threshold=int(state.get("heavy_threshold", 0)))
+    return QueryEngine(query, relations=relations, order=order,
+                       mem_words=state["mem_words"],
+                       skew=plan.skew, plan=plan, **kw)

@@ -70,6 +70,7 @@ struct Desc {
   long long n_cst[kMaxDepth];
   unsigned first_mask[kMaxDepth];   // atoms whose first variable is d
   unsigned second_mask[kMaxDepth];  // atoms whose second variable is d
+  int fd[kMaxAtoms];                // first variable of each atom
   int n_vars;
 };
 
@@ -269,6 +270,193 @@ count_kernel(const __grid_constant__ Desc D, const int* __restrict__ c0,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Listing: the same loop nest, emitting bindings in the reference order.
+//
+// Replaces build_fused_list (src/repro/kernels/lftj_fused/kernel.py:264),
+// an XLA program that walks the candidate slots of depths 1..n-2 for all
+// depth-0 rows at once and flattens the innermost (T, K) block row-major:
+// its bindings come in lexicographic order of (slot_1, ..., slot_{n-2},
+// depth-0 row, innermost slot), where slot_d is the position within the
+// row of the first atom bound at depth d (or within the constant row of a
+// starts-only depth). The count kernel's per-thread DFS gives another
+// order, so the listing is built breadth first, one launch per stage:
+//
+// 1. expansion, depth d = 1..n-2: list_rows_kernel writes each frontier
+//    entry's candidate source length (the narrowest bound row, or the
+//    constant row); the wrapper scans it; list_expand_kernel gives each
+//    (entry, candidate) pair a thread that tests membership in the other
+//    bound rows and finds the candidate's slot in the first atom's row by
+//    the same binary search. A first launch writes a live flag per pair,
+//    the wrapper scans the flags, and a second launch writes each live
+//    pair as a new frontier entry at its place, so the frontier stays in
+//    (depth-0 row, slot_1, ..., slot_d) order;
+// 2. list_count_kernel: the number of innermost bindings of every prefix;
+// 3. the wrapper sorts the prefixes stably by (slot_1, ..., slot_{n-2}),
+//    which leaves the depth-0 row as the last key, and scans the counts in
+//    that order into output offsets;
+// 4. list_write_kernel: a thread per prefix whose offset is below the
+//    capacity writes its bindings there, innermost values ascending (rows
+//    are sets, so that is the first atom's slot order).
+//
+// The total is exact (int64) for any capacity; the buffer holds its first
+// min(total, capacity) rows, so a caller that sees total > capacity
+// rescans and gets the same prefix, extended. Frontier values are int32
+// arrays of one row per depth (vals[j * n + i] is entry i's depth-j
+// value), slots likewise.
+
+// rows of the atoms bound at depth d for frontier entry i
+__device__ __forceinline__ void bound_rows(const Desc& D, int d,
+                                           const int* __restrict__ vals,
+                                           long long n, long long i,
+                                           Row* rows) {
+  for (unsigned m = D.second_mask[d]; m; m &= m - 1) {
+    const int a = __ffs(m) - 1;
+    rows[a] = lookup(D.atom[a], __ldg(vals + (long long)D.fd[a] * n + i));
+  }
+}
+
+// the entry e with pair_off[e] <= p < pair_off[e + 1]
+__device__ __forceinline__ long long pair_entry(
+    const long long* __restrict__ pair_off, long long n, long long p) {
+  long long lo = 0, hi = n;
+  while (hi - lo > 1) {
+    const long long mid = (lo + hi) >> 1;
+    if (__ldg(pair_off + mid) <= p) {
+      lo = mid;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+__global__ void __launch_bounds__(kThreads)
+list_rows_kernel(const __grid_constant__ Desc D, int d,
+                 const int* __restrict__ vals, long long n,
+                 long long* __restrict__ row_len) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Row rows[kMaxAtoms];
+  bound_rows(D, d, vals, n, i, rows);
+  int which;
+  const Row src = source_row(D, d, rows, &which);
+  row_len[i] = src.n > 0 ? src.n : 0;
+}
+
+// one thread per (entry, candidate) pair, grid-stride. With write == 0 it
+// writes live[p]; with write == 1 it writes every live pair at pos[p]
+// (the exclusive scan of live) into the next frontier.
+__global__ void __launch_bounds__(kThreads)
+list_expand_kernel(const __grid_constant__ Desc D, int d,
+                   const int* __restrict__ vals,
+                   const int* __restrict__ slots, long long n,
+                   const long long* __restrict__ pair_off,
+                   unsigned char* __restrict__ live,
+                   const long long* __restrict__ pos, int write,
+                   long long n_next, int* __restrict__ next_vals,
+                   int* __restrict__ next_slots) {
+  const long long n_pairs = __ldg(pair_off + n);
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       p < n_pairs; p += stride) {
+    if (write && !live[p]) continue;
+    const long long e = pair_entry(pair_off, n, p);
+    const long long k = p - __ldg(pair_off + e);
+    Row rows[kMaxAtoms];
+    bound_rows(D, d, vals, n, e, rows);
+    int src_a;
+    const Row src = source_row(D, d, rows, &src_a);
+    const int v = __ldg(src.p + k);
+    long long slot = k;  // a starts-only depth: the constant row's slot
+    bool ok = true;
+    if (src_a >= 0) {
+      const int first = __ffs(D.second_mask[d]) - 1;
+      for (unsigned m = D.second_mask[d]; m; m &= m - 1) {
+        const int a = __ffs(m) - 1;
+        if (a == src_a) continue;
+        const Row r = rows[a];
+        const long long q = lower_bound(r.p, 0, r.n, v);
+        if (q >= r.n || __ldg(r.p + q) != v) {
+          ok = false;
+          break;
+        }
+        if (a == first) slot = q;
+      }
+    }
+    if (!write) {
+      live[p] = ok ? 1 : 0;
+      continue;
+    }
+    const long long o = __ldg(pos + p);
+    for (int j = 0; j < d; ++j) {
+      next_vals[(long long)j * n_next + o] = __ldg(vals + (long long)j * n + e);
+    }
+    next_vals[(long long)d * n_next + o] = v;
+    for (int j = 0; j + 1 < d; ++j) {
+      next_slots[(long long)j * n_next + o] =
+          __ldg(slots + (long long)j * n + e);
+    }
+    next_slots[(long long)(d - 1) * n_next + o] = (int)slot;
+  }
+}
+
+// innermost bindings of every prefix
+__global__ void __launch_bounds__(kThreads)
+list_count_kernel(const __grid_constant__ Desc D,
+                  const int* __restrict__ vals, long long n,
+                  long long* __restrict__ counts) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int last = D.n_vars - 1;
+  Row rows[kMaxAtoms];
+  bound_rows(D, last, vals, n, i, rows);
+  counts[i] = innermost(D, last, rows);
+}
+
+// thread i writes the bindings of prefix order[i] at rows offset[i]...,
+// keeping those below cap
+__global__ void __launch_bounds__(kThreads)
+list_write_kernel(const __grid_constant__ Desc D,
+                  const int* __restrict__ vals, long long n,
+                  const long long* __restrict__ order,
+                  const long long* __restrict__ offset, long long n_write,
+                  long long cap, int* __restrict__ out) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_write) return;
+  const long long e = __ldg(order + i);
+  long long o = __ldg(offset + i);
+  const int last = D.n_vars - 1;
+  Row rows[kMaxAtoms];
+  bound_rows(D, last, vals, n, e, rows);
+  int src_a;
+  const Row src = source_row(D, last, rows, &src_a);
+  const unsigned others = D.second_mask[last] & ~(1u << src_a);
+  long long lo[kMaxAtoms];
+  for (unsigned m = others; m; m &= m - 1) lo[__ffs(m) - 1] = 0;
+  for (long long k = 0; k < src.n && o < cap; ++k) {
+    const int v = __ldg(src.p + k);
+    bool hit = true, done = false;
+    for (unsigned m = others; m; m &= m - 1) {
+      const int a = __ffs(m) - 1;
+      const Row r = rows[a];
+      const long long q = lower_bound(r.p, lo[a], r.n, v);
+      lo[a] = q;
+      if (q >= r.n) done = true;  // no larger value left in this row
+      if (q >= r.n || __ldg(r.p + q) != v) {
+        hit = false;
+        break;
+      }
+    }
+    if (done) break;
+    if (!hit) continue;
+    int* row = out + o * D.n_vars;
+    for (int j = 0; j < last; ++j) row[j] = __ldg(vals + (long long)j * n + e);
+    row[last] = v;
+    ++o;
+  }
+}
+
 // descriptor words (ops.py _descriptor): n_vars, n_atoms, per atom (fd,
 // sd, keys, off, vals, n_keys), per depth (const row, its length)
 bool make_desc(const long long* w, Desc* D) {
@@ -287,6 +475,7 @@ bool make_desc(const long long* w, Desc* D) {
     if (fd < 0 || fd >= sd || sd >= n_vars) return false;
     D->atom[a] = Atom{(const int*)e[2], (const long long*)e[3],
                       (const int*)e[4], e[5]};
+    D->fd[a] = fd;
     D->first_mask[fd] |= 1u << a;
     D->second_mask[sd] |= 1u << a;
   }
@@ -325,5 +514,69 @@ extern "C" int lftj_fused_count_launch(const long long* desc, const void* c0,
   count_kernel<<<kBlocks, kThreads, 0, (cudaStream_t)stream>>>(
       D, (const int*)c0, n_rows, (const long long*)pair_off,
       (long long*)partials);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int lftj_list_rows_launch(const long long* desc, int d,
+                                     const void* vals, long long n,
+                                     void* row_len, void* stream) {
+  Desc D;
+  if (!make_desc(desc, &D) || d < 1 || d >= D.n_vars - 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n <= 0) return 0;
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  list_rows_kernel<<<(unsigned int)blocks, kThreads, 0,
+                     (cudaStream_t)stream>>>(D, d, (const int*)vals, n,
+                                             (long long*)row_len);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int lftj_list_expand_launch(const long long* desc, int d,
+                                       const void* vals, const void* slots,
+                                       long long n, const void* pair_off,
+                                       void* live, const void* pos,
+                                       int write, long long n_next,
+                                       void* next_vals, void* next_slots,
+                                       void* stream) {
+  Desc D;
+  if (!make_desc(desc, &D) || d < 1 || d >= D.n_vars - 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n <= 0) return 0;
+  list_expand_kernel<<<kBlocks, kThreads, 0, (cudaStream_t)stream>>>(
+      D, d, (const int*)vals, (const int*)slots, n,
+      (const long long*)pair_off, (unsigned char*)live,
+      (const long long*)pos, write, n_next, (int*)next_vals,
+      (int*)next_slots);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int lftj_list_count_launch(const long long* desc,
+                                      const void* vals, long long n,
+                                      void* counts, void* stream) {
+  Desc D;
+  if (!make_desc(desc, &D)) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return 0;
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  list_count_kernel<<<(unsigned int)blocks, kThreads, 0,
+                      (cudaStream_t)stream>>>(D, (const int*)vals, n,
+                                              (long long*)counts);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int lftj_list_write_launch(const long long* desc,
+                                      const void* vals, long long n,
+                                      const void* order, const void* offset,
+                                      long long n_write, long long cap,
+                                      void* out, void* stream) {
+  Desc D;
+  if (!make_desc(desc, &D)) return (int)cudaErrorInvalidValue;
+  if (n_write <= 0) return 0;
+  const long long blocks = (n_write + kThreads - 1) / kThreads;
+  list_write_kernel<<<(unsigned int)blocks, kThreads, 0,
+                      (cudaStream_t)stream>>>(
+      D, (const int*)vals, n, (const long long*)order,
+      (const long long*)offset, n_write, cap, (int*)out);
   return (int)cudaGetLastError();
 }

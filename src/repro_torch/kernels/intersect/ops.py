@@ -17,7 +17,8 @@ import torch
 from .. import _build, ledger
 from .ref import SENTINEL, intersect_count_ref
 
-__all__ = ["LAUNCHES", "SENTINEL", "intersect_count"]
+__all__ = ["LAUNCHES", "SENTINEL", "intersect_count",
+           "intersect_count_rows"]
 
 LAUNCHES = _build.LaunchCounter()
 
@@ -98,3 +99,51 @@ def intersect_count(a: torch.Tensor, b: torch.Tensor,
         + (2 * e if ia is not None else 0)
     ledger.note(1, bytes_in=4 * moved, bytes_out=4 * e)
     return out
+
+
+def _pad_rows(off: torch.Tensor, vals: torch.Tensor, pos: torch.Tensor,
+              deg: torch.Tensor, k: int, total: int) -> torch.Tensor:
+    """(len(pos), k) SENTINEL-padded int32 value rows gathered on the
+    tensors' device from compact CSR (``off``/``vals``) at key positions
+    ``pos``, whose rows hold ``deg`` (``total`` in all) values."""
+    out = torch.full((pos.numel(), k), SENTINEL, dtype=torch.int32,
+                     device=vals.device)
+    if total:
+        rr = torch.repeat_interleave(
+            torch.arange(pos.numel(), device=vals.device), deg,
+            output_size=total)
+        cc = torch.arange(total, device=vals.device) \
+            - (torch.cumsum(deg, 0) - deg)[rr]
+        out[rr, cc] = vals[off[pos][rr] + cc].to(torch.int32)
+    return out
+
+
+def intersect_count_rows(off_a: torch.Tensor, vals_a: torch.Tensor,
+                         pos_a: torch.Tensor, off_b: torch.Tensor,
+                         vals_b: torch.Tensor, pos_b: torch.Tensor, *,
+                         chunk: int = 8192) -> int:
+    """Σ_i |row_a(pos_a[i]) ∩ row_b(pos_b[i])| from two compact-CSR
+    relations: the QueryEngine's innermost two-atom step.
+
+    ``off_*`` are int64 offsets, ``vals_*`` the concatenated sorted rows and
+    ``pos_*`` the int64 key positions of each pair, all on one device. The
+    pairs are counted in ``chunk``-pair batches, one ``intersect_count``
+    call each, as the reference batches them; each batch's rows are
+    gathered there into SENTINEL-padded tiles as wide as the batch's widest
+    row (the reference pads every batch to the widest row of all pairs,
+    for its compiled shapes; the kernel takes any width). Returns the int64
+    total as a Python int."""
+    n = pos_a.numel()
+    if n == 0:
+        return 0
+    deg_a = (off_a[1:] - off_a[:-1])[pos_a]
+    deg_b = (off_b[1:] - off_b[:-1])[pos_b]
+    total = torch.zeros((), dtype=torch.int64, device=vals_a.device)
+    for s in range(0, n, chunk):
+        da, db = deg_a[s:s + chunk], deg_b[s:s + chunk]
+        ka, kb, ta, tb = torch.stack([da.max(), db.max(), da.sum(),
+                                      db.sum()]).tolist()
+        a = _pad_rows(off_a, vals_a, pos_a[s:s + chunk], da, max(1, ka), ta)
+        b = _pad_rows(off_b, vals_b, pos_b[s:s + chunk], db, max(1, kb), tb)
+        total += intersect_count(a, b).sum(dtype=torch.int64)
+    return int(total)

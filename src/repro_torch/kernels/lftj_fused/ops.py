@@ -8,9 +8,9 @@ on one device and runs the whole box join as a single device invocation:
   ``csrc/lftj_fused.cu`` (built with ``nvcc`` at first use) or raises; on
   CPU tensors it runs ``ref.fused_count_ref`` over the padded layout.
 * :func:`fused_list` -> (exact total, bounded deterministic-prefix binding
-  buffer) in the reference listing program's order. It runs
-  ``ref.fused_list_ref`` on CPU tensors; its CUDA kernel comes with the
-  ``QueryEngine`` slice, and CUDA tensors raise until then.
+  buffer) in the reference listing program's order. On CUDA tensors it
+  launches the listing entry points of ``csrc/lftj_fused.cu`` or raises;
+  on CPU tensors it runs ``ref.fused_list_ref``.
 
 :func:`fused_supported` is the reference's static pattern gate. The CUDA
 kernel adds its own envelope, checked for every call on any device so that
@@ -38,7 +38,7 @@ import torch
 from .. import _build, ledger
 from .ref import SENTINEL, fused_count_ref, fused_list_ref
 
-__all__ = ["LAUNCHES", "MAX_ATOMS", "MAX_DEPTH", "SENTINEL",
+__all__ = ["LAUNCHES", "LIST_LAUNCHES", "MAX_ATOMS", "MAX_DEPTH", "SENTINEL",
            "FusedUnsupported", "fused_count", "fused_list",
            "fused_supported", "padded_layout", "starts_only_depths"]
 
@@ -49,6 +49,8 @@ MAX_DEPTH = 6
 MAX_ATOMS = 16
 
 LAUNCHES = _build.LaunchCounter()
+# launches of the listing kernel (one per fused_list call on the card)
+LIST_LAUNCHES = _build.LaunchCounter()
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -57,6 +59,14 @@ _SIGNATURES = {
     "lftj_fused_count_launch": ((_P, _P, _LL, _P, _P, _P), ctypes.c_int),
     "lftj_fused_n_partials": ((), ctypes.c_int),
     "lftj_fused_desc_words": ((), ctypes.c_int),
+    "lftj_list_rows_launch": ((_P, ctypes.c_int, _P, _LL, _P, _P),
+                              ctypes.c_int),
+    "lftj_list_expand_launch": ((_P, ctypes.c_int, _P, _P, _LL, _P, _P, _P,
+                                 ctypes.c_int, _LL, _P, _P, _P),
+                                ctypes.c_int),
+    "lftj_list_count_launch": ((_P, _P, _LL, _P, _P), ctypes.c_int),
+    "lftj_list_write_launch": ((_P, _P, _LL, _P, _P, _LL, _LL, _P, _P),
+                               ctypes.c_int),
 }
 
 
@@ -241,6 +251,14 @@ def _descriptor(atom_dims, csrs, consts, n_vars: int) -> np.ndarray:
     return desc
 
 
+def _library():
+    lib = _build.load("lftj_fused", _SIGNATURES)
+    if lib.lftj_fused_desc_words() != 2 + 6 * MAX_ATOMS + 2 * MAX_DEPTH:
+        raise RuntimeError("lftj_fused: descriptor layout of the built "
+                           "library differs from ops.py")
+    return lib
+
+
 def launch_count(prep) -> torch.Tensor:
     """Run the CUDA kernel on a prepared box (``_prepare``'s result, CUDA
     tensors): one scalar int64 tensor on the card, not synchronised.
@@ -248,10 +266,7 @@ def launch_count(prep) -> torch.Tensor:
     atom_dims, csrs, c0, consts = prep
     n_vars = max(sd for _, sd in atom_dims) + 1
     dev = c0.device
-    lib = _build.load("lftj_fused", _SIGNATURES)
-    if lib.lftj_fused_desc_words() != 2 + 6 * MAX_ATOMS + 2 * MAX_DEPTH:
-        raise RuntimeError("lftj_fused: descriptor layout of the built "
-                           "library differs from ops.py")
+    lib = _library()
     desc = _descriptor(atom_dims, csrs, consts, n_vars)
     c0 = c0.contiguous()
     t = c0.numel()
@@ -273,6 +288,84 @@ def launch_count(prep) -> torch.Tensor:
     _build.check_launch("lftj_fused", rc)
     LAUNCHES.add()
     return partials.sum()
+
+
+def launch_list(prep, capacity: int) -> Tuple[int, torch.Tensor]:
+    """Run the CUDA listing kernel on a prepared box (CUDA tensors):
+    ``(exact total, (min(total, capacity), n_vars) int32 rows on the
+    card)`` in the reference listing program's order. ``fused_list``
+    calls it once per box; ``chip_smoke.py`` times it.
+
+    The frontier grows breadth first, one depth at a time (candidate
+    counts, a scan, live flags, a scan, the compacted next frontier), so it
+    stays in (depth-0 row, slot_1, ..., slot_d) order. Stable sorts by
+    slot_{n-2}, ..., slot_1 then put the prefixes in the reference's
+    (slot_1, ..., slot_{n-2}, depth-0 row) order, and a scan of their
+    innermost counts in that order gives each its output offset
+    (``csrc/lftj_fused.cu``, "Listing")."""
+    atom_dims, csrs, c0, consts = prep
+    n_vars = max(sd for _, sd in atom_dims) + 1
+    dev = c0.device
+    lib = _library()
+    desc = _descriptor(atom_dims, csrs, consts, n_vars)
+    i32, i64 = torch.int32, torch.int64
+    vals = c0.to(i32).reshape(1, -1).contiguous()
+    slots = torch.empty((0, vals.shape[1]), dtype=i32, device=dev)
+    n = vals.shape[1]
+    empty = torch.empty((0, n_vars), dtype=i32, device=dev)
+    with torch.cuda.device(dev):
+        stream = _build.stream_ptr(dev)
+
+        def run(entry, *args):
+            _build.check_launch("lftj_fused_list",
+                                entry(desc.ctypes.data, *args, stream))
+
+        for d in range(1, n_vars - 1):
+            row_len = torch.empty(n, dtype=i64, device=dev)
+            run(lib.lftj_list_rows_launch, d, vals.data_ptr(), n,
+                row_len.data_ptr())
+            pair_off = torch.zeros(n + 1, dtype=i64, device=dev)
+            torch.cumsum(row_len, 0, out=pair_off[1:])
+            n_pairs = int(pair_off[-1])
+            if n_pairs == 0:
+                LIST_LAUNCHES.add()
+                return 0, empty
+            live = torch.empty(n_pairs, dtype=torch.uint8, device=dev)
+            run(lib.lftj_list_expand_launch, d, vals.data_ptr(),
+                slots.data_ptr(), n, pair_off.data_ptr(), live.data_ptr(),
+                None, 0, 0, None, None)
+            pos = torch.cumsum(live, 0, dtype=i64)
+            n_next = int(pos[-1])
+            if n_next == 0:
+                LIST_LAUNCHES.add()
+                return 0, empty
+            pos -= live                                    # exclusive scan
+            next_vals = torch.empty((d + 1, n_next), dtype=i32, device=dev)
+            next_slots = torch.empty((d, n_next), dtype=i32, device=dev)
+            run(lib.lftj_list_expand_launch, d, vals.data_ptr(),
+                slots.data_ptr(), n, pair_off.data_ptr(), live.data_ptr(),
+                pos.data_ptr(), 1, n_next, next_vals.data_ptr(),
+                next_slots.data_ptr())
+            vals, slots, n = next_vals, next_slots, n_next
+        counts = torch.empty(n, dtype=i64, device=dev)
+        run(lib.lftj_list_count_launch, vals.data_ptr(), n,
+            counts.data_ptr())
+        order = torch.nonzero(counts).squeeze(1)
+        for j in reversed(range(slots.shape[0])):
+            order = order[torch.sort(slots[j][order], stable=True).indices]
+        cnt = counts[order]
+        offset = torch.cumsum(cnt, 0)
+        total = int(offset[-1]) if offset.numel() else 0
+        m = min(total, int(capacity))
+        out = torch.empty((m, n_vars), dtype=i32, device=dev)
+        if m:
+            offset -= cnt                                  # exclusive scan
+            n_write = int((offset < m).sum())
+            run(lib.lftj_list_write_launch, vals.data_ptr(), n,
+                order.data_ptr(), offset.data_ptr(), n_write, m,
+                out.data_ptr())
+    LIST_LAUNCHES.add()
+    return total, out
 
 
 def fused_count(atom_dims: Sequence[Tuple[int, int]],
@@ -315,12 +408,14 @@ def fused_list(atom_dims: Sequence[Tuple[int, int]],
     if prep is None:
         return 0, np.zeros((0, n_vars), np.int64)
     atom_dims, csrs, c0, consts = prep
-    if c0.device.type != "cpu":
-        raise NotImplementedError(
-            "fused_list: the CUDA listing kernel comes with the QueryEngine "
-            "slice of the port; only CPU tensors run the listing today")
-    total, rows = fused_list_ref(atom_dims, c0, _padded(csrs), consts,
-                                 n_vars, capacity)
+    dev = c0.device
+    if dev.type == "cpu":
+        total, rows = fused_list_ref(atom_dims, c0, _padded(csrs), consts,
+                                     n_vars, capacity)
+    elif dev.type == "cuda":
+        total, rows = launch_list(prep, capacity)
+    else:
+        raise ValueError(f"fused_list: unsupported device {dev}")
     ledger.note(1, bytes_in=_layout_bytes(csrs, c0, consts),
                 bytes_out=rows.numel() * 8 + 8)
-    return total, rows.numpy()
+    return total, rows.cpu().numpy().astype(np.int64)

@@ -1,12 +1,14 @@
-"""Box work-queue ordering shared by the streaming executor.
+"""Box work-queue ordering and interval bookkeeping shared by the
+streaming executor and the QueryEngine.
 
-Only the numpy scheduling policies are ported so far (``lpt_order`` and
-``box_queue_order``); multi-device sharding comes with its own slice.
+Only the numpy scheduling policies (``lpt_order`` and ``box_queue_order``)
+and the §5 interval helpers (``merge_interval``, ``interval_gaps``) are
+ported so far; multi-device sharding comes with its own slice.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 
 def lpt_order(costs: Sequence[float]) -> List[int]:
@@ -42,3 +44,49 @@ def box_queue_order(costs: Sequence[float],
     if ledger_sensitive:
         return list(range(len(costs)))
     return lpt_order(costs)
+
+
+# ---------------------------------------------------------------------------
+# interval bookkeeping (§5 slice dedup) — the QueryEngine's per-box
+# fetch walk
+# ---------------------------------------------------------------------------
+
+def merge_interval(covered: List[Tuple[int, int]], lo: int,
+                   hi: int) -> List[Tuple[int, int]]:
+    """Insert the inclusive interval [lo, hi] into a sorted disjoint
+    interval list, coalescing adjacent/overlapping entries."""
+    out: List[Tuple[int, int]] = []
+    placed = False
+    for a, b in covered:
+        if b + 1 < lo:
+            out.append((a, b))
+        elif hi + 1 < a:
+            if not placed:
+                out.append((lo, hi))
+                placed = True
+            out.append((a, b))
+        else:
+            lo, hi = min(lo, a), max(hi, b)
+    if not placed:
+        out.append((lo, hi))
+    return sorted(out)
+
+
+def interval_gaps(covered: List[Tuple[int, int]], lo: int,
+                  hi: int) -> List[Tuple[int, int]]:
+    """Sub-intervals of [lo, hi] not covered yet, ascending."""
+    gaps = []
+    cur = lo
+    for a, b in covered:
+        if b < cur:
+            continue
+        if a > hi:
+            break
+        if a > cur:
+            gaps.append((cur, a - 1))
+        cur = max(cur, b + 1)
+        if cur > hi:
+            break
+    if cur <= hi:
+        gaps.append((cur, hi))
+    return gaps

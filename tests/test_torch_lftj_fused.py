@@ -372,16 +372,39 @@ def test_fused_count_box_matches_reference():
 
 
 def test_listing_off_the_cpu_raises_until_its_kernel(monkeypatch):
-    """fused_list runs its plain version for CPU tensors only: any other
-    device raises NotImplementedError naming the QueryEngine slice (no
-    fallback to the plain version)."""
+    """fused_list runs its plain version for CPU tensors and hands CUDA
+    tensors to the listing kernel's launcher, whose rows it returns as
+    int64 (no fallback to the plain version); any other device raises
+    ValueError, as fused_count does."""
     csr = tensors([graph_csr(*er_graph(20, 0.3, 4))])[0]
     dims = DIMS["triangle"]
     _, csrs, c0, consts = fused_ops._prepare(dims, [csr] * 3, 3)
+
+    class OnCard:
+        """The depth-0 frontier as the wrapper sees a CUDA tensor."""
+        device = torch.device("cuda")
+
+        def numel(self):
+            return c0.numel()
+
+    launched = []
+
+    def launch_list(prep, capacity):
+        launched.append((prep[2], capacity))
+        return 5, torch.arange(9, dtype=torch.int32).reshape(3, 3)
+
+    monkeypatch.setattr(fused_ops, "launch_list", launch_list)
+    card = OnCard()
+    monkeypatch.setattr(fused_ops, "_prepare",
+                        lambda *a: (dims, csrs, card, consts))
+    total, rows = fused_list(dims, [csr] * 3, 3, capacity=8)
+    assert launched == [(card, 8)]
+    assert total == 5 and rows.dtype == np.int64
+    assert np.array_equal(rows, np.arange(9).reshape(3, 3))
     meta = c0.to("meta")
     monkeypatch.setattr(fused_ops, "_prepare",
                         lambda *a: (dims, csrs, meta, consts))
-    with pytest.raises(NotImplementedError, match="QueryEngine"):
+    with pytest.raises(ValueError, match="unsupported device"):
         fused_list(dims, [csr] * 3, 3, capacity=8)
     with pytest.raises(ValueError, match="unsupported device"):
         fused_count(dims, [csr] * 3, 3)

@@ -44,11 +44,20 @@ def test_importing_every_module_pulls_in_no_jax_and_no_reference():
 @pytest.mark.parametrize("module", ["repro_torch.kernels.lftj_fused.ops",
                                     "repro_torch.kernels.lftj_fused.ref",
                                     "repro_torch.core.executor",
-                                    "repro_torch.convert"])
+                                    "repro_torch.convert",
+                                    "repro_torch.core.queries",
+                                    "repro_torch.query",
+                                    "repro_torch.query.executor",
+                                    "repro_torch.query.vectorized",
+                                    "repro_torch.query.planner",
+                                    "repro_torch.query.patterns",
+                                    "repro_torch.kernels.embedding_bag.ops",
+                                    "repro_torch.kernels.embedding_bag.ref"])
 def test_fused_lane_modules_import_no_jax_and_no_reference(module):
-    """The fused lane's modules, and the executor and converter that reach
-    them, load on a host without JAX: importing each alone pulls in
-    neither ``jax`` nor ``repro``."""
+    """The fused lane's and the QueryEngine's modules, the embedding_bag
+    entry point, and the executor and converter that reach them, load on a
+    host without JAX: importing each alone pulls in neither ``jax`` nor
+    ``repro``."""
     code = (
         "import importlib, sys\n"
         f"importlib.import_module({module!r})\n"
@@ -81,12 +90,19 @@ def test_source_has_no_jax_or_reference_import(path):
 
 
 def test_entry_point_defaults_to_the_card():
-    """Without torch_device the engine runs on CUDA; on a host without it,
-    it raises instead of running on the CPU."""
+    """Without torch_device the engines run on CUDA; on a host without it,
+    they raise instead of running on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device; the default runs there")
-    from repro_torch import TriangleEngine, engine_count
+    from repro_torch import (QueryEngine, TriangleEngine, engine_count,
+                             patterns, query_count)
     src, dst = np.array([0, 1, 0]), np.array([1, 2, 2])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        QueryEngine.from_graph(patterns.triangle(), src, dst)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        query_count(patterns.triangle(), src, dst)
+    assert query_count(patterns.triangle(), src, dst,
+                       torch_device="cpu") == 1
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TriangleEngine(src, dst)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
