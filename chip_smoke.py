@@ -17,10 +17,17 @@ Phases (the kernels each main-path phase must launch in brackets):
   1. device     — card name and power limit, kernel build (one nvcc per
                   source, in parallel) with the ptxas report.
   2. kernels    — each kernel against its plain version on ragged and edge
-                  shapes: intersect and dense (exact), the fused count and
-                  listing kernels (exact, the listing at capacities below
-                  and at the total; also against the scalar ``fused_ref``)
-                  and embedding_bag in both modes (within BAG_ATOL).
+                  shapes: intersect (exact, CSR form against
+                  ``intersect_rows_ref`` per pair and in total, padded
+                  form against ``intersect_count_ref``: empty rows,
+                  degree-0 keys, 0/1/8,191/8,192/8,193 pairs, hub pairs
+                  with and without a window that fits shared memory, 10^5
+                  tiny pairs, tile edges) and dense (exact), the fused
+                  count and listing kernels (exact, the listing at
+                  capacities below and at the total, and once from a
+                  workspace too small, which must regrow; also against
+                  the scalar ``fused_ref``) and embedding_bag in both
+                  modes (within BAG_ATOL).
   3. rmat       — Graph500-style RMAT, ``backend="auto"`` [intersect]; the
                   count must equal the plain torch ``binary`` lane.
   4. clustered  — triangle-rich planted-partition graph [triangle_dense];
@@ -48,7 +55,11 @@ Phases (the kernels each main-path phase must launch in brackets):
                   8, within BAG_ATOL of the plain version; timed, freed.
  11. timing     — each kernel at the largest input the main path gave it,
                   against its plain version, a library call where one
-                  exists, and its roofline bound.
+                  exists, and its roofline bound; intersect and the
+                  listing kernel also at the main path's median call
+                  (``median_ms``) with the host synchronisations of one
+                  call (``host_syncs_per_call``, PyTorch's sync debug
+                  mode).
 
 The last three lines are the ``kernels`` JSON line, the ``nvidia-smi``
 name/power-limit line and the final ``{"ok": true, ...}`` line.
@@ -147,7 +158,9 @@ def tensor_shapes(*args):
 class Recorder:
     """Wraps a kernel wrapper in its ops module: records the shapes of every
     call the main path makes and keeps the inputs of the largest one (and,
-    with ``fits``, of the largest one ``fits`` accepts)."""
+    with ``fits``, of the largest one ``fits`` accepts). For the median
+    call it records every call's size and keeps the first call of each
+    power-of-two size bucket."""
 
     def __init__(self, module, attr: str, size, shape=tensor_shapes,
                  fits=None):
@@ -160,7 +173,20 @@ class Recorder:
         self.largest_size = -1
         self.largest_fitting = None
         self.largest_fitting_size = -1
+        self.sizes = []
+        self.by_bucket = {}
         setattr(module, attr, self)
+
+    def keep(self, size, args, kw) -> None:
+        self.sizes.append(size)
+        self.by_bucket.setdefault(max(0, int(size)).bit_length(),
+                                  (size, args, kw))
+
+    def median(self):
+        """(size, args, kw) of a kept call in the median call's size
+        bucket, and the median size itself."""
+        med = statistics.median_low(self.sizes)
+        return self.by_bucket[max(0, int(med)).bit_length()], med
 
     def summary(self) -> dict:
         """Call count, distinct shapes, and the largest extent of every
@@ -179,6 +205,7 @@ class Recorder:
     def __call__(self, *args, **kw):
         self.shapes[self.shape(*args)] += 1
         size = self.size(*args)
+        self.keep(size, args, kw)
         if size > self.largest_size:
             self.largest_size, self.largest = size, args
             self.largest_kw = kw
@@ -195,10 +222,30 @@ class ListRecorder(Recorder):
     def __call__(self, *args, **kw):
         self.shapes[self.shape(*args)] += 1
         total, rows = self.orig(*args, **kw)
+        self.keep(len(rows), args, kw)
         if len(rows) > self.largest_size:
             self.largest_size, self.largest = len(rows), args
             self.largest_kw = kw
         return total, rows
+
+
+SYNC_SITES = Counter()
+
+
+def count_syncs(torch, fn):
+    """(fn(), the host synchronisations it made), counted by PyTorch's
+    sync debug mode, which warns at every synchronising call; each
+    warning's Python call site is tallied in SYNC_SITES."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        out = fn()
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchroniz" in str(w.message).lower()]
+    for w in syncs:
+        SYNC_SITES[f"{Path(w.filename).name}:{w.lineno}"] += 1
+    return out, len(syncs)
 
 
 def profile_count(torch, eng, label: str, top: int = 10) -> dict:
@@ -267,12 +314,107 @@ def sorted_rows(rng, e: int, k: int, hi: int, np):
     return out
 
 
+def csr_rows(np, rng, degs, hi: int):
+    """Compact CSR (int64 offsets, int32 values) whose row r holds degs[r]
+    sorted distinct values below hi."""
+    off = np.concatenate([[0], np.cumsum(degs)]).astype(np.int64)
+    vals = [np.sort(rng.choice(hi, size=int(d), replace=False))
+            for d in degs]
+    return off, np.concatenate(vals + [np.zeros(0, np.int64)]) \
+        .astype(np.int32)
+
+
+def csr_pair_cases(np):
+    """The intersect kernel's CSR cases: {name: ((off_a, vals_a, pos_a),
+    (off_b, vals_b, pos_b))}: empty rows, positions on degree-0 keys, 0, 1,
+    8,191, 8,192 and 8,193 pairs, a hub pair whose wide window exceeds the
+    kernel's shared buffer and one whose windows fit, 10^5 pairs of 0-3
+    values, and pair lengths that put tile edges inside and between
+    pairs."""
+    def random_pairs(seed, n_pairs, n_keys, max_deg, hi, zero_share=0.2):
+        rng = np.random.default_rng(seed)
+        sides = []
+        for _ in range(2):
+            degs = rng.integers(0, max_deg + 1, size=n_keys)
+            degs[rng.random(n_keys) < zero_share] = 0
+            off, vals = csr_rows(np, rng, degs, hi)
+            sides.append((off, vals, rng.integers(0, n_keys, n_pairs)
+                          .astype(np.int64)))
+        return sides
+
+    def fixed_pairs(seed, degs_a, degs_b, hi):
+        rng = np.random.default_rng(seed)
+        return [csr_rows(np, rng, np.array(d), hi)
+                + (np.arange(len(d), dtype=np.int64),)
+                for d in (degs_a, degs_b)]
+
+    empty = random_pairs(1, 50, 30, 6, 40)
+    empty[0] = (np.zeros(31, np.int64), np.zeros(0, np.int32), empty[0][2])
+    cases = {"empty_rows": empty,
+             "degree0_positions": random_pairs(2, 64, 20, 9, 30, 0.5)}
+    for i, n in enumerate((0, 1, 8191, 8192, 8193)):
+        cases[f"pairs_{n}"] = random_pairs(3 + i, n, 300, 40, 100)
+    cases["hub_wide_window"] = fixed_pairs(8, [60_000], [50_000], 1_000_000)
+    cases["hub_window_fits"] = fixed_pairs(9, [60_000], [50_000], 80_000)
+    cases["many_tiny"] = random_pairs(10, 100_000, 5000, 3, 8, 0.1)
+    cases["tile_edges"] = fixed_pairs(
+        11, [2047, 1, 0, 2048, 3000, 5, 4096, 1, 2049, 0, 700],
+        [2100, 1, 9, 2048, 3100, 2, 4200, 3, 2049, 4, 800], 12_000)
+    return cases
+
+
+def padded_of(torch, off, vals):
+    """The SENTINEL-padded (rows, max(1, widest)) matrix of a CSR."""
+    deg = off[1:] - off[:-1]
+    k = max(1, int(deg.max()) if deg.numel() else 1)
+    out = torch.full((deg.numel(), k), 2 ** 31 - 1, dtype=torch.int32,
+                     device=vals.device)
+    if vals.numel():
+        rr = torch.repeat_interleave(torch.arange(deg.numel(),
+                                                  device=vals.device), deg)
+        out[rr, torch.arange(vals.numel(), device=vals.device) - off[rr]] = \
+            vals
+    return out
+
+
+def check_csr_cases(torch, np, intersect_ops) -> int:
+    """The kernel against intersect_rows_ref (per pair and in total) in
+    the CSR form, and against intersect_count_ref in the padded form with
+    row indices, on every csr_pair_cases case, exactly."""
+    from repro_torch.kernels.intersect.ref import (intersect_count_ref,
+                                                   intersect_rows_ref)
+    n_cases = 0
+    for name, sides in sorted(csr_pair_cases(np).items()):
+        t = [torch.from_numpy(a).to("cuda") for side in sides for a in side]
+        off_a, vals_a, pos_a, off_b, vals_b, pos_b = t
+        want = intersect_rows_ref(*t)
+        total = intersect_ops.intersect_count_csr(*t)
+        assert int(total) == int(want.sum(dtype=torch.int64)), name
+        n = pos_a.numel()
+        if n:
+            deg_a = off_a[pos_a + 1] - off_a[pos_a]
+            deg_b = off_b[pos_b + 1] - off_b[pos_b]
+            _, per_pair = intersect_ops._launch(
+                (off_a, off_a[1:], vals_a, pos_a),
+                (off_b, off_b[1:], vals_b, pos_b),
+                intersect_ops.work_offsets(deg_a, deg_b), n, per_pair=True)
+            assert torch.equal(per_pair, want), name
+        a, b = padded_of(torch, off_a, vals_a), padded_of(torch, off_b,
+                                                          vals_b)
+        ia, ib = pos_a.int(), pos_b.int()
+        got = intersect_ops.intersect_count(a, b, ia, ib)
+        assert torch.equal(got, intersect_count_ref(a, b, ia, ib)), name
+        assert torch.equal(got, want), name
+        n_cases += 3
+    return n_cases
+
+
 def phase_kernel_cases(torch, np, intersect_ops, dense_ops) -> dict:
     from repro_torch.kernels.intersect.ref import intersect_count_ref
     from repro_torch.kernels.triangle_dense.ref import triangle_count_ref
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
-    n_cases = 0
+    n_cases = check_csr_cases(torch, np, intersect_ops)
     for e, ka, kb, hi in ((1, 1, 1, 4), (37, 13, 100, 120),
                           (1000, 128, 128, 500), (513, 300, 7, 900),
                           (4099, 1024, 33, 5000)):
@@ -457,7 +599,38 @@ def phase_list_cases(torch, np, fused_ops) -> dict:
             assert rows.dtype == plain.dtype and rows.shape == plain.shape
             assert rows.tobytes() == plain.tobytes(), (dims, cap)
             assert launched == (0 if layout is None else 1), launched
+        if layout is not None:
+            regrow_check(dims, card, n, layout, max(1, want))
         return want
+
+    regrowths = []
+
+    def regrow_check(dims, card, n, layout, cap):
+        """A run from a workspace of only the fixed words: the kernel
+        overflows, reports its need, the workspace grows and the call
+        runs once more; rows byte-equal to the plain version, at most
+        two host synchronisations."""
+        prep = fused_ops._prepare(dims, card, n)
+        dev = prep[2].device
+        lib = fused_ops._library()
+        base = lib.lftj_list_base_words(fused_ops._list_grid(lib, dev))
+        plain_total, plain = fused_list_ref(dims, *layout, n, cap)
+        syncs = []
+        # twice: the process's first sync-debug window may hold a one-time
+        # synchronisation of PyTorch's own (SYNC_SITES names it), so the
+        # second run's count is the call's
+        for _ in range(2):
+            fused_ops._workspaces.pop(dev, None)
+            (total, rows), k = count_syncs(
+                torch, lambda: fused_ops.launch_list(prep, cap, words=base))
+            assert total == plain_total, (dims, total, plain_total)
+            assert rows.long().cpu().numpy().tobytes() == \
+                plain.cpu().numpy().tobytes(), dims
+            syncs.append(k)
+        grown = fused_ops._workspaces[dev].numel()
+        assert grown > base, (grown, base)
+        regrowths.append({"base_words": base, "grown_words": grown,
+                          "syncs": syncs[1], "first_run_syncs": syncs[0]})
 
     n_cases = 0
     counts = {}
@@ -480,7 +653,10 @@ def phase_list_cases(torch, np, fused_ops) -> dict:
     n_cases += 5
     torch.cuda.synchronize()
     return {"phase": "kernels", "of": ["lftj_fused_list"], "cases": n_cases,
-            "capacities": "1, 7, total", "exact": True, "counts": counts}
+            "capacities": "1, 7, total", "exact": True, "counts": counts,
+            "regrowth_runs": len(regrowths),
+            "regrowth_max_syncs": max(r["syncs"] for r in regrowths),
+            "regrowth_example": regrowths[0]}
 
 
 # embedding_bag shapes (V, D, B, L): single row and slot, ragged, the
@@ -1140,48 +1316,75 @@ def phase_embedding_bag(torch, np, ops, shared, bag_ops) -> dict:
 # phase 8: kernel timing at the main path's largest inputs
 # ---------------------------------------------------------------------------
 
-def time_intersect(torch, rec, launches: int, reps: int) -> dict:
-    from repro_torch.kernels.intersect.ref import intersect_count_ref
-    a, b, ia, ib = (tuple(rec.largest) + (None, None))[:4]
-    got = rec.orig(a, b, ia, ib)
-    want = intersect_count_ref(a, b, ia, ib)
-    err = int((got.long() - want.long()).abs().max()) if len(got) else 0
-    ms = cuda_ms(lambda: rec.orig(a, b, ia, ib), reps)
-    plain_ms = cuda_ms(lambda: intersect_count_ref(a, b, ia, ib),
-                       max(1, reps // 10))
-    # least bytes: each referenced row's real entries once, the two index
-    # vectors and the output; least operations: one probe step per
-    # narrower-row element per level of the wider row's binary search
-    # the index form reads rows of one matrix (the engine passes the same
-    # padded matrix twice); without indices row i of a meets row i of b
-    deg_a = (a != 2 ** 31 - 1).sum(dim=1)
-    deg_b = (b != 2 ** 31 - 1).sum(dim=1)
-    if ia is None:
-        du, dv = deg_a, deg_b
-        real = int(deg_a.sum()) + int(deg_b.sum())
-        n_idx = 0
-    else:
-        du, dv = deg_a[ia.long()], deg_b[ib.long()]
-        rows = torch.unique(torch.cat([ia, ib]).long())
-        real = int(deg_a[rows].sum())
-        n_idx = len(ia) + len(ib)
-    lo, hi = torch.minimum(du, dv), torch.maximum(du, dv)
+def intersect_bound(torch, args) -> tuple:
+    """(bytes, probe steps) one intersect_count_csr call needs: each
+    referenced row's values, its two offsets and the pair positions read
+    once, the total written once; per pair, min(deg) probes of
+    ceil(log2(max deg + 1)) binary-search steps each (the kernel merges no
+    rows, so this stays a lower bound of its design)."""
+    off_a, vals_a, pos_a, off_b, vals_b, pos_b = args
+    deg_a = off_a[pos_a + 1] - off_a[pos_a]
+    deg_b = off_b[pos_b + 1] - off_b[pos_b]
+    real = 0
+    for off, pos in ((off_a, pos_a), (off_b, pos_b)):
+        rows = torch.unique(pos)
+        real += 4 * int((off[rows + 1] - off[rows]).sum()) + 16 * len(rows)
+    lo, hi = torch.minimum(deg_a, deg_b), torch.maximum(deg_a, deg_b)
     steps = torch.ceil(torch.log2(hi.double() + 1))
-    n_bytes = 4 * real + 4 * (n_idx + len(got))
-    n_ops = float((lo.double() * steps).sum())
+    return real + 16 * len(pos_a) + 8, float((lo.double() * steps).sum())
+
+
+def time_intersect(torch, rec, rows_rec, launches: int, reps: int,
+                   rmat_args=None) -> dict:
+    """intersect_count_csr at the main path's largest call (by pairs), at
+    its median call and at the rmat phase's largest call, against
+    intersect_rows_ref and the bound; host synchronisations of one
+    intersect_count_rows call at its largest."""
+    from repro_torch.kernels.intersect.ref import intersect_rows_ref
+
+    def measure(args):
+        got = int(rec.orig(*args))
+        want = int(intersect_rows_ref(*args).sum(dtype=torch.int64))
+        return abs(got - want), cuda_ms(lambda: rec.orig(*args), reps)
+
+    args = rec.largest
+    err, ms = measure(args)
+    plain_ms = cuda_ms(lambda: intersect_rows_ref(*args), max(1, reps // 10))
+    (med_size, med_args, _), med_all = rec.median()
+    med_err, med_ms = measure(med_args)
+    syncs = None
+    if rows_rec.largest is not None:
+        _, syncs = count_syncs(torch,
+                               lambda: rows_rec.orig(*rows_rec.largest))
+    rmat = None
+    if rmat_args is not None:
+        rmat_err, rmat_ms = measure(rmat_args)
+        err = max(err, rmat_err)
+        rb, ro = intersect_bound(torch, rmat_args)
+        rmat = {"pairs": int(len(rmat_args[2])), "ms": rmat_ms,
+                "plain_ms": cuda_ms(lambda: intersect_rows_ref(*rmat_args),
+                                    max(1, reps // 10)),
+                "bound_ms": max(rb / HBM_BYTES_PER_S, ro / SCALAR_OPS_PER_S)
+                * 1e3, "max_abs_err": rmat_err}
+    n_bytes, n_ops = intersect_bound(torch, args)
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / SCALAR_OPS_PER_S * 1e3
+    off_a, vals_a, pos_a, off_b, vals_b, _ = args
     return {"name": "intersect", "route": "cuda",
             "source": "src/repro_torch/csrc/intersect.cu",
             "replaces": "src/repro/kernels/intersect/kernel.py:33",
-            "launches": launches, "max_abs_err": err, "exact": err == 0,
-            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+            "launches": launches, "max_abs_err": max(err, med_err),
+            "exact": err == 0 and med_err == 0, "ms": ms, "kernel_ms": ms,
+            "median_ms": med_ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None,
-            "shape": {"a": list(a.shape), "b": list(b.shape),
-                      "pairs": int(len(got))},
-            "bytes": n_bytes, "ops": n_ops}
+            "library_ms": None, "host_syncs_per_call": syncs,
+            "shape": {"pairs": int(len(pos_a)),
+                      "values": [int(len(vals_a)), int(len(vals_b))],
+                      "keys": [int(len(off_a)) - 1, int(len(off_b)) - 1]},
+            "median_call": {"pairs": med_size, "median_pairs": med_all,
+                            "calls": len(rec.sizes)},
+            "rmat_largest": rmat, "bytes": n_bytes, "ops": n_ops}
 
 
 def time_dense(torch, rec, launches: int, reps: int) -> dict:
@@ -1316,8 +1519,14 @@ def time_fused_list(torch, rec, launches: int, reps: int) -> dict:
     dims, csrs, n = rec.largest
     cap = rec.largest_kw["capacity"]
     prep = fused_ops._prepare(dims, csrs, n)
-    total, rows = fused_ops.launch_list(prep, cap)
+    fused_ops.launch_list(prep, cap)    # the workspace grows, if at all
+    (total, rows), syncs = count_syncs(
+        torch, lambda: fused_ops.launch_list(prep, cap))
     ms = cuda_ms(lambda: fused_ops.launch_list(prep, cap), reps)
+    (med_rows, (mdims, mcsrs, mn), mkw), med_all = rec.median()
+    mprep = fused_ops._prepare(mdims, mcsrs, mn)
+    med_ms = cuda_ms(lambda: fused_ops.launch_list(mprep, mkw["capacity"]),
+                     reps)
     layout = fused_ops.padded_layout(dims, csrs, n)
     plain_total, plain = fused_list_ref(dims, *layout, n, cap)
     plain_ms = cuda_ms(lambda: fused_list_ref(dims, *layout, n, cap),
@@ -1335,10 +1544,13 @@ def time_fused_list(torch, rec, launches: int, reps: int) -> dict:
             "source": "src/repro_torch/csrc/lftj_fused.cu",
             "replaces": "src/repro/kernels/lftj_fused/kernel.py:264",
             "launches": launches, "max_abs_err": 0 if exact else None,
-            "exact": exact, "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
+            "exact": exact, "ms": ms, "kernel_ms": ms, "median_ms": med_ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "total": total, "capacity": cap,
+            "library_ms": None, "host_syncs_per_call": syncs,
+            "median_call": {"rows": med_rows, "median_rows": med_all,
+                            "calls": len(rec.sizes)},
+            "total": total, "capacity": cap,
             "shape": {"atoms_keys_vals": fused_shape(dims, csrs, n),
                       "frontier": int(prep[2].numel()),
                       "rows": list(rows.shape)},
@@ -1415,18 +1627,22 @@ def main() -> int:
     emit(dict(phase_fused_cases(torch, np, fused_ops),
               phase_s=time.perf_counter() - t0))
     t0 = time.perf_counter()
-    emit(dict(phase_list_cases(torch, np, fused_ops),
-              phase_s=time.perf_counter() - t0))
+    list_cases = dict(phase_list_cases(torch, np, fused_ops),
+                      phase_s=time.perf_counter() - t0)
+    emit(list_cases)
     t0 = time.perf_counter()
     emit(dict(phase_bag_cases(torch, np, bag_ops),
               phase_s=time.perf_counter() - t0))
 
     kernels = []
     if not args.quick:
-        rec_i = Recorder(intersect_ops, "intersect_count",
-                         lambda a, b, ia=None, ib=None:
-                         (len(ia) if ia is not None else a.shape[0])
-                         * max(a.shape[1], b.shape[1]))
+        # every intersect launch of the main path goes through
+        # intersect_count_csr (the triangle lane and intersect_count_rows);
+        # the largest call is the one with the most pairs
+        rec_i = Recorder(intersect_ops, "intersect_count_csr",
+                         lambda *args: args[2].numel())
+        rec_r = Recorder(intersect_ops, "intersect_count_rows",
+                         lambda *args: args[2].numel())
         rec_d = Recorder(dense_ops, "triangle_count",
                          lambda a, b, m: a.shape[0] * b.shape[0]
                          * a.shape[1])
@@ -1467,14 +1683,20 @@ def main() -> int:
             runs.append(phases[name]())
             runs[-1]["phase_s"] = time.perf_counter() - t0
             emit(runs[-1])
+            if name == "rmat":
+                # the rmat phase's largest intersect call: a triangle-lane
+                # box, timed beside the main path's largest call
+                shared["rmat_intersect"] = rec_i.largest
         launches = {k: sum(r["launches"][k] for r in runs) for k in ops}
         emit({"phase": "launch_shapes", "intersect": rec_i.summary(),
+              "intersect_count_rows": rec_r.summary(),
               "triangle_dense": rec_d.summary(),
               "lftj_fused": rec_f.summary(),
               "lftj_fused_list": rec_l.summary()})
         if rec_i.largest is not None:
-            kernels.append(time_intersect(torch, rec_i,
-                                          launches["intersect"], TIMING_REPS))
+            kernels.append(time_intersect(torch, rec_i, rec_r,
+                                          launches["intersect"], TIMING_REPS,
+                                          shared.get("rmat_intersect")))
         if rec_d.largest is not None:
             kernels.append(time_dense(torch, rec_d,
                                       launches["triangle_dense"], TIMING_REPS))
@@ -1491,8 +1713,14 @@ def main() -> int:
                 + launches["embedding_bag_onehot"]))
         for k in kernels:
             assert k["exact"], k
-    emit({"phase": "done", "wall_s": time.perf_counter() - t_start})
+    emit({"phase": "done", "wall_s": time.perf_counter() - t_start,
+          "sync_sites": dict(SYNC_SITES)})
     emit({"kernels": kernels})
+    # host synchronisations: one per intersect_count_rows and launch_list
+    # call, two when the listing workspace regrows
+    assert list_cases["regrowth_max_syncs"] <= 2, list_cases
+    for k in kernels:
+        assert k.get("host_syncs_per_call") in (None, 0, 1), k
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -15,10 +15,11 @@ the executor
      per-edge intersection CUDA kernel on the card), ``fused`` (the whole
      box's LFTJ loop nest, a CUDA kernel on the card) or ``host`` (numpy).
 
-The device lanes copy only the slice's real CSR words to the torch device
-and build the box-local padded matrix there. On a CUDA device the dense
-intersect and fused lanes launch the kernels of ``kernels/``; on the CPU
-the kernel wrappers run their plain torch versions.
+The device lanes copy only the slice's real CSR words to the torch device;
+the binary and listing lanes build the box-local padded matrix there, the
+intersect and fused lanes read the CSR as it is. On a CUDA device the
+dense, intersect and fused lanes launch the kernels of ``kernels/``; on
+the CPU the kernel wrappers run their plain torch versions.
 
 Two execution modes share the per-box machinery:
 
@@ -82,9 +83,11 @@ class BoxSlice:
 
     ``padded(device)`` builds the (R, K) box-local padded neighbor matrix
     ``pad_shape`` on a torch device — all-SENTINEL pad rows from index
-    ``len(rows)`` — from the compact CSR, and caches it: the binary,
-    intersect and listing lanes need it, while the host and dense lanes
-    never materialize it.
+    ``len(rows)`` — from the compact CSR, and caches it: the binary and
+    listing lanes need it, while the host and dense lanes never
+    materialize it. The intersect lane reads the compact CSR itself but
+    charges the padded words the reference's lane builds
+    (``charge_padded``), so ``padded_words`` stays the reference's.
     """
 
     box: Tuple[int, int, int, int]
@@ -100,6 +103,7 @@ class BoxSlice:
     pad_shape: Tuple[int, int]
     _npad: Optional[torch.Tensor] = None
     _deg: Optional[torch.Tensor] = None
+    charge_padded: bool = False
 
     def padded(self, device: torch.device
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -124,6 +128,7 @@ class BoxSlice:
             deg = torch.zeros(n_rows, dtype=torch.int64, device=device)
             deg[:len(deg_r)] = deg_r
             self._npad, self._deg = npad, deg
+            self.charge_padded = True
         return self._npad, self._deg
 
     def edges(self, device: torch.device
@@ -520,7 +525,7 @@ class StreamingExecutor:
         if s is None:
             return
         with self._stats_lock:
-            if slc._npad is not None:
+            if slc.charge_padded:
                 s.padded_words += slc.padded_words
             s.actual_words += len(slc.row_vals)
 
@@ -644,11 +649,20 @@ class StreamingExecutor:
 
     def _count_intersect(self, slc: BoxSlice) -> int:
         """One intersect launch over every in-box edge: the kernel reads
-        the box's padded matrix through the edges' local row ids, so no
-        gathered (E, K) copies are made."""
-        npad, _ = slc.padded(self.torch_device)
-        eu, ev = slc.edges(self.torch_device)
-        return int(intersect_ops.intersect_count(npad, npad, eu, ev).sum())
+        the slice's compact CSR at the edges' local row ids, so no padded
+        matrix is built. The kernel ledger gets the reference's one note
+        per box, with the bytes of the padded matrix its lane reads."""
+        dev = self.torch_device
+        off = torch.from_numpy(slc.row_off).to(dev)
+        vals = torch.from_numpy(slc.row_vals).to(dev)
+        eu, ev = slc.edges(dev)
+        total = intersect_ops.intersect_count_csr(off, vals, eu.long(), off,
+                                                  vals, ev.long())
+        slc.charge_padded = True
+        e = slc.n_edges
+        kernel_ledger.note(1, bytes_in=4 * (slc.padded_words + 2 * e),
+                           bytes_out=4 * e)
+        return int(total)
 
     def _count_fused(self, slc: BoxSlice) -> Optional[int]:
         """Whole-box triangle count in ONE device invocation: the fused

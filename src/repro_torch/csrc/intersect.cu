@@ -1,25 +1,55 @@
-// Per-row sorted-set intersection counts |row_a(i) ∩ row_b(i)|.
+// Sorted-set intersection counts |row_a(pos_a[i]) ∩ row_b(pos_b[i])| over
+// compact CSR, load-balanced by work rather than by row.
 //
 // Replaces the TPU kernel src/repro/kernels/intersect/kernel.py
 // (_intersect_kernel / intersect_count_pallas), which compares a tile of
-// rows against all K lane rotations of the other side: O(K^2) work per
-// row, regardless of how many real entries the rows hold.
+// SENTINEL-padded rows against all K lane rotations of the other side:
+// O(K^2) work per row, regardless of how many real entries the rows hold.
 //
-// What bounds it here: memory. Each row pair reads the real entries of its
-// narrower row plus ~log2(K) probes into the wider row, and does one
-// compare per probe; that is far below the card's integer rate, so the
-// reads (L2 / HBM) set the pace.
+// What bounds it here: dependent probe steps. A pair costs min(d_a, d_b)
+// probes of the narrow row into the wide one, each a binary search whose
+// every step waits on a load (the min(d_x, d_y) accounting of Thm. 17);
+// the bytes of the rows, read once, take far less time at 3.35 TB/s.
 //
-// Design: one warp per row pair. Both rows are sorted, SENTINEL-padded
-// sets, so each row's real length is the lower bound of SENTINEL. The
-// lanes stride over the narrower row (it ends at its first SENTINEL) and
-// binary-search each element in the wider row, each lane resuming from
-// its previous hit position because its elements increase: the
-// min(d_x, d_y) accounting of Thm. 17, O(K log K) per row instead of
-// O(K^2). A warp-shuffle sum gives one int32 per row. Optional row-index
-// vectors (ia, ib) let the caller pass the box's padded neighbour matrix
-// and its edge endpoints directly, with no gathered (E, K) copies.
-// The kernel allocates nothing; the caller passes the output.
+// Design:
+// * Input is compact CSR: per side a value array and, per key position,
+//   the row's first and one-past-last value index (beg[r], end[r]). For
+//   CSR offsets beg = off and end = off + 1; the padded per-row API reads
+//   its (R, K) matrix as CSR with beg[r] = r * stride and end[r] = beg[r]
+//   plus the row's SENTINEL bound, found once per row (row_span_kernel).
+//   Each pair i names its rows by key positions pos_a[i], pos_b[i].
+// * Work split, not row split. The caller passes work_off, the exclusive
+//   scan of w_i = min(d_a, d_b) (n_pairs + 1 entries). A fixed grid walks
+//   tiles of kTile probes of that work space, grid-stride; the tile count
+//   is read from work_off[n_pairs] on the device, so the host never reads
+//   a size. A tile finds its first and last pair by binary search in
+//   work_off. A hub pair thus spans many blocks, and a run of small pairs
+//   shares one block.
+// * One pair in the tile (hub pairs, long rows): the block stages the
+//   window of the wide row that its narrow slice [s, e) can hit,
+//   [lb(wide, narrow[s]), lb(wide, narrow[e-1]) + 1), into shared memory
+//   with cp.async (16-byte copies for the aligned body, 4-byte at the
+//   edges). Each thread takes a contiguous run of kRun probes of the slice,
+//   binary-searches the first in the window and gallops from hit to hit
+//   (steps 1, 2, 4, ...): the dependent steps hit shared memory (~30
+//   cycles) instead of L2 or HBM (~300-600), and a probe costs O(log gap)
+//   steps, not O(log window). A window wider than the buffer (a sparse
+//   narrow slice over a dense wide row) takes the same runs in global
+//   memory.
+// * Several pairs in the tile (short rows): each thread takes a contiguous
+//   run of kRun probes, finds its first pair by binary search in the
+//   tile's range of work_off, walks the following pairs in order, and
+//   searches each wide row in global memory: a binary search for its first
+//   probe in a pair, then gallops from its last hit (its probes ascend
+//   within a pair).
+// * Merge-path splits for rows of comparable length are not used: with
+//   the window in shared memory a probe is a few shared loads, and the
+//   split would add a co-rank search per thread.
+// * Outputs from one pass: one int64 partial per block (no atomics on
+//   totals; the caller sums them on the device), and optionally per-pair
+//   int32 counts, where a pair that spans tiles adds with integer
+//   atomicAdd (exact and order-free).
+// The kernel allocates nothing; the caller passes outputs and scratch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -28,11 +58,42 @@ namespace {
 
 constexpr int kSentinel = 0x7fffffff;
 constexpr int kThreads = 256;
+// probes per work tile, and the fixed grid that walks the tiles
+constexpr long long kTile = 2048;
+constexpr long long kRun = kTile / kThreads;
+constexpr int kBlocks = 132 * 8;
+// shared-memory window of the wide row, in int32 values (16 KB: with the
+// kernel held to 32 registers a thread, eight blocks fit an SM; latency
+// hiding matters more than wide windows), plus the up to three values of
+// alignment padding in front of it
+constexpr int kWin = 4096;
+constexpr int kWinBytes = (kWin + 4) * 4;
 
-__device__ __forceinline__ int lower_bound(const int* __restrict__ row,
-                                           int lo, int hi, int x) {
+struct Side {
+  const long long* beg;  // first value index of the row at each key position
+  const long long* end;  // one past its last value index
+  const int* vals;
+  const long long* pos;  // key position of each pair's row
+};
+
+template <typename Index>
+__device__ __forceinline__ Index lower_bound(const int* __restrict__ row,
+                                             Index lo, Index hi, int x) {
   while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
+    const Index mid = (lo + hi) >> 1;
+    if (row[mid] < x) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+__device__ __forceinline__ long long global_lower_bound(
+    const int* __restrict__ row, long long lo, long long hi, int x) {
+  while (lo < hi) {
+    const long long mid = (lo + hi) >> 1;
     if (__ldg(row + mid) < x) {
       lo = mid + 1;
     } else {
@@ -42,51 +103,285 @@ __device__ __forceinline__ int lower_bound(const int* __restrict__ row,
   return lo;
 }
 
-__global__ void __launch_bounds__(kThreads)
-intersect_kernel(const int* __restrict__ a, long long lda, int ka,
-                 const int* __restrict__ b, long long ldb, int kb,
-                 const int* __restrict__ ia, const int* __restrict__ ib,
-                 long long n_rows, int* __restrict__ out) {
-  const long long warp =
-      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp >= n_rows) return;  // whole warps leave together
-  const long long ra = ia ? (long long)ia[warp] : warp;
-  const long long rb = ib ? (long long)ib[warp] : warp;
-  const int* pa = a + ra * lda;
-  const int* pb = b + rb * ldb;
-  int la = lower_bound(pa, 0, ka, kSentinel);
-  int lb = lower_bound(pb, 0, kb, kSentinel);
-  if (lb < la) {  // probe the narrower row into the wider one
-    const int* pt = pa; pa = pb; pb = pt;
-    const int lt = la; la = lb; lb = lt;
+// the first index in [lo, hi) whose value is >= x, found by galloping from
+// lo (steps 1, 2, 4, ... then a binary search): O(log gap) dependent loads
+// when consecutive probes land close together
+__device__ __forceinline__ long long gallop_lower_bound(
+    const int* __restrict__ row, long long lo, long long hi, int x) {
+  long long step = 1;
+  long long b = lo;
+  while (true) {
+    b = lo + step - 1;
+    if (b >= hi) {
+      b = hi;
+      break;
+    }
+    if (__ldg(row + b) >= x) break;
+    lo = b + 1;
+    step <<= 1;
   }
-  int cnt = 0;
-  int lo = 0;
-  for (int i = lane; i < la; i += 32) {
-    const int x = __ldg(pa + i);
-    lo = lower_bound(pb, lo, lb, x);
-    cnt += (lo < lb && __ldg(pb + lo) == x) ? 1 : 0;
+  return global_lower_bound(row, lo, b, x);
+}
+
+// gallop_lower_bound over a row in shared memory
+__device__ __forceinline__ int shared_gallop(const int* row, int lo, int hi,
+                                             int x) {
+  int step = 1;
+  int b = lo;
+  while (true) {
+    b = lo + step - 1;
+    if (b >= hi) {
+      b = hi;
+      break;
+    }
+    if (row[b] >= x) break;
+    lo = b + 1;
+    step <<= 1;
   }
+  return lower_bound<int>(row, lo, b, x);
+}
+
+// the pair p in [lo, hi) with work_off[p] <= g < work_off[p + 1]: the last
+// p with work_off[p] <= g, which skips pairs without work
+__device__ __forceinline__ long long pair_of(
+    const long long* __restrict__ work_off, long long lo, long long hi,
+    long long g) {
+  while (hi - lo > 1) {
+    const long long mid = (lo + hi) >> 1;
+    if (__ldg(work_off + mid) <= g) {
+      lo = mid;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+struct PairRows {
+  const int* narrow;
+  const int* wide;
+  long long n_narrow;
+  long long n_wide;
+};
+
+__device__ __forceinline__ PairRows pair_rows(const Side& A, const Side& B,
+                                              long long p) {
+  const long long ra = __ldg(A.pos + p);
+  const long long rb = __ldg(B.pos + p);
+  const long long ba = __ldg(A.beg + ra);
+  const long long bb = __ldg(B.beg + rb);
+  const long long la = __ldg(A.end + ra) - ba;
+  const long long lb = __ldg(B.end + rb) - bb;
+  if (lb < la) return PairRows{B.vals + bb, A.vals + ba, lb, la};
+  return PairRows{A.vals + ba, B.vals + bb, la, lb};
+}
+
+__device__ __forceinline__ void cp_async4(int* smem, const int* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async16(int* smem, const int* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+// copy src[0, n) into shared memory with cp.async; element i lands at
+// win[pad + i], where pad (returned) puts the 16-byte-aligned body of src
+// on a 16-byte boundary of win. Every thread of the block calls it.
+__device__ int stage_window(int* win, const int* src, int n) {
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(src);
+  int head = (int)(((16 - (addr & 15)) & 15) >> 2);
+  if (head > n) head = n;
+  const int pad = (4 - head) & 3;
+  const int body = (n - head) >> 2;
+  for (int i = threadIdx.x; i < head; i += kThreads) {
+    cp_async4(win + pad + i, src + i);
+  }
+  for (int i = threadIdx.x; i < body; i += kThreads) {
+    cp_async16(win + pad + head + 4 * i, src + head + 4 * i);
+  }
+  for (int i = head + 4 * body + threadIdx.x; i < n; i += kThreads) {
+    cp_async4(win + pad + i, src + i);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  return pad;
+}
+
+__device__ __forceinline__ long long warp_sum(long long v) {
   for (int off = 16; off > 0; off >>= 1) {
-    cnt += __shfl_down_sync(0xffffffffu, cnt, off);
+    v += __shfl_down_sync(0xffffffffu, v, off);
   }
-  if (lane == 0) out[warp] = cnt;
+  return v;
+}
+
+// every row's [beg, end) of a SENTINEL-padded (n_rows, k) matrix with row
+// stride lda: the real length is the lower bound of SENTINEL
+__global__ void __launch_bounds__(kThreads)
+row_span_kernel(const int* __restrict__ a, long long lda, int k,
+                long long n_rows, long long* __restrict__ beg,
+                long long* __restrict__ end) {
+  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n_rows) return;
+  const long long b = r * lda;
+  beg[r] = b;
+  end[r] = b + global_lower_bound(a + b, 0, k, kSentinel);
+}
+
+__global__ void __launch_bounds__(kThreads, 8)
+intersect_kernel(const Side A, const Side B, long long n_pairs,
+                 const long long* __restrict__ work_off,
+                 long long* __restrict__ partials,
+                 int* __restrict__ per_pair) {
+  extern __shared__ __align__(16) int win[];
+  __shared__ long long s_p[2];
+  __shared__ long long s_win[2];
+  __shared__ long long s_warp[kThreads / 32];
+  const int lane = threadIdx.x & 31;
+  const long long w_total = __ldg(work_off + n_pairs);
+  const long long n_tiles = (w_total + kTile - 1) / kTile;
+  long long acc = 0;
+  for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const long long g0 = t * kTile;
+    const long long g1 = min(w_total, g0 + kTile);
+    if (threadIdx.x == 0) s_p[0] = pair_of(work_off, 0, n_pairs, g0);
+    if (threadIdx.x == 32) s_p[1] = pair_of(work_off, 0, n_pairs, g1 - 1);
+    __syncthreads();
+    const long long p0 = s_p[0];
+    const long long p1 = s_p[1];
+    long long cnt = 0;
+    if (p0 == p1) {
+      const PairRows pr = pair_rows(A, B, p0);
+      const long long base = __ldg(work_off + p0);
+      const long long s = g0 - base;
+      const long long e = g1 - base;
+      if (threadIdx.x == 0) {
+        s_win[0] = global_lower_bound(pr.wide, 0, pr.n_wide,
+                                      __ldg(pr.narrow + s));
+      }
+      if (threadIdx.x == 32) {
+        s_win[1] = min(pr.n_wide,
+                       global_lower_bound(pr.wide, 0, pr.n_wide,
+                                          __ldg(pr.narrow + e - 1)) + 1);
+      }
+      __syncthreads();
+      const long long lo = s_win[0];
+      const long long n_win = max(0LL, s_win[1] - lo);
+      if (n_win <= kWin) {
+        const int n = (int)n_win;
+        const int pad = stage_window(win, pr.wide + lo, n);
+        __syncthreads();
+        const int* w = win + pad;
+        const long long j0 = s + (long long)threadIdx.x * kRun;
+        const long long j1 = min(e, j0 + kRun);
+        if (j0 < j1) {
+          int q = lower_bound<int>(w, 0, n, __ldg(pr.narrow + j0));
+          for (long long j = j0; j < j1; ++j) {
+            const int x = __ldg(pr.narrow + j);
+            q = shared_gallop(w, q, n, x);
+            cnt += (q < n && w[q] == x) ? 1 : 0;
+          }
+        }
+      } else {
+        const long long hi = lo + n_win;
+        const long long j0 = s + (long long)threadIdx.x * kRun;
+        const long long j1 = min(e, j0 + kRun);
+        if (j0 < j1) {
+          long long r = global_lower_bound(pr.wide, lo, hi,
+                                           __ldg(pr.narrow + j0));
+          for (long long j = j0; j < j1; ++j) {
+            const int x = __ldg(pr.narrow + j);
+            r = gallop_lower_bound(pr.wide, r, hi, x);
+            cnt += (r < hi && __ldg(pr.wide + r) == x) ? 1 : 0;
+          }
+        }
+      }
+      if (per_pair) {
+        const long long c = warp_sum(cnt);
+        if (lane == 0 && c) atomicAdd(per_pair + p0, (int)c);
+      }
+    } else {
+      // a contiguous run of kRun probes per thread: one pair search per
+      // run, then the run walks its pairs in order and gallops through
+      // each wide row from the last hit
+      const long long r0 = g0 + (long long)threadIdx.x * kRun;
+      const long long r1 = min(g1, r0 + kRun);
+      if (r0 < r1) {
+        long long p = pair_of(work_off, p0, p1 + 1, r0);
+        long long base = __ldg(work_off + p);
+        long long next = __ldg(work_off + p + 1);
+        PairRows pr = pair_rows(A, B, p);
+        long long q = -1;  // no hit yet in this pair's wide row
+        for (long long g = r0; g < r1; ++g) {
+          while (g >= next) {  // the next pair with work
+            ++p;
+            base = next;
+            next = __ldg(work_off + p + 1);
+            pr = pair_rows(A, B, p);
+            q = -1;
+          }
+          const int x = __ldg(pr.narrow + (g - base));
+          q = q < 0 ? global_lower_bound(pr.wide, 0, pr.n_wide, x)
+                    : gallop_lower_bound(pr.wide, q, pr.n_wide, x);
+          if (q < pr.n_wide && __ldg(pr.wide + q) == x) {
+            ++cnt;
+            if (per_pair) atomicAdd(per_pair + p, 1);
+          }
+        }
+      }
+    }
+    acc += cnt;
+    __syncthreads();  // the tile's shared state is free for the next one
+  }
+  acc = warp_sum(acc);
+  if (lane == 0) s_warp[threadIdx.x >> 5] = acc;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    long long v = threadIdx.x < kThreads / 32 ? s_warp[threadIdx.x] : 0;
+    v = warp_sum(v);
+    if (threadIdx.x == 0) partials[blockIdx.x] = v;
+  }
 }
 
 }  // namespace
 
-extern "C" int intersect_count_launch(const void* a, long long lda, int ka,
-                                      const void* b, long long ldb, int kb,
-                                      const void* ia, const void* ib,
-                                      long long n_rows, void* out,
-                                      void* stream) {
+extern "C" int intersect_n_partials() { return kBlocks; }
+
+extern "C" int intersect_row_span_launch(const void* a, long long lda, int k,
+                                         long long n_rows, void* beg,
+                                         void* end, void* stream) {
   if (n_rows <= 0) return 0;
-  const long long warps_per_block = kThreads / 32;
-  const long long blocks = (n_rows + warps_per_block - 1) / warps_per_block;
-  intersect_kernel<<<(unsigned int)blocks, kThreads, 0,
-                     (cudaStream_t)stream>>>(
-      (const int*)a, lda, ka, (const int*)b, ldb, kb, (const int*)ia,
-      (const int*)ib, n_rows, (int*)out);
+  const long long blocks = (n_rows + kThreads - 1) / kThreads;
+  row_span_kernel<<<(unsigned int)blocks, kThreads, 0,
+                    (cudaStream_t)stream>>>(
+      (const int*)a, lda, k, n_rows, (long long*)beg, (long long*)end);
+  return (int)cudaGetLastError();
+}
+
+// Side of each pair: (beg, end, vals, pos) per side as above; work_off has
+// n_pairs + 1 entries; partials has intersect_n_partials() entries;
+// per_pair (int32, zeroed by the caller) may be null.
+extern "C" int intersect_launch(const void* beg_a, const void* end_a,
+                                const void* vals_a, const void* pos_a,
+                                const void* beg_b, const void* end_b,
+                                const void* vals_b, const void* pos_b,
+                                long long n_pairs, const void* work_off,
+                                void* partials, void* per_pair,
+                                void* stream) {
+  if (n_pairs <= 0) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      intersect_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kWinBytes);
+  if (err != cudaSuccess) return (int)err;
+  const Side A{(const long long*)beg_a, (const long long*)end_a,
+               (const int*)vals_a, (const long long*)pos_a};
+  const Side B{(const long long*)beg_b, (const long long*)end_b,
+               (const int*)vals_b, (const long long*)pos_b};
+  intersect_kernel<<<kBlocks, kThreads, kWinBytes, (cudaStream_t)stream>>>(
+      A, B, n_pairs, (const long long*)work_off, (long long*)partials,
+      (int*)per_pair);
   return (int)cudaGetLastError();
 }

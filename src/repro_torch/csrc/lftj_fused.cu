@@ -45,8 +45,11 @@
 //
 // The kernels allocate nothing; the wrapper passes the outputs.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -271,7 +274,8 @@ count_kernel(const __grid_constant__ Desc D, const int* __restrict__ c0,
 }
 
 // ---------------------------------------------------------------------------
-// Listing: the same loop nest, emitting bindings in the reference order.
+// Listing: the same loop nest, emitting bindings in the reference order,
+// in one cooperative launch with one host read per call.
 //
 // Replaces build_fused_list (src/repro/kernels/lftj_fused/kernel.py:264),
 // an XLA program that walks the candidate slots of depths 1..n-2 for all
@@ -279,50 +283,397 @@ count_kernel(const __grid_constant__ Desc D, const int* __restrict__ c0,
 // its bindings come in lexicographic order of (slot_1, ..., slot_{n-2},
 // depth-0 row, innermost slot), where slot_d is the position within the
 // row of the first atom bound at depth d (or within the constant row of a
-// starts-only depth). The count kernel's per-thread DFS gives another
-// order, so the listing is built breadth first, one launch per stage:
+// starts-only depth).
 //
-// 1. expansion, depth d = 1..n-2: list_rows_kernel writes each frontier
-//    entry's candidate source length (the narrowest bound row, or the
-//    constant row); the wrapper scans it; list_expand_kernel gives each
-//    (entry, candidate) pair a thread that tests membership in the other
-//    bound rows and finds the candidate's slot in the first atom's row by
-//    the same binary search. A first launch writes a live flag per pair,
-//    the wrapper scans the flags, and a second launch writes each live
-//    pair as a new frontier entry at its place, so the frontier stays in
-//    (depth-0 row, slot_1, ..., slot_d) order;
-// 2. list_count_kernel: the number of innermost bindings of every prefix;
-// 3. the wrapper sorts the prefixes stably by (slot_1, ..., slot_{n-2}),
-//    which leaves the depth-0 row as the last key, and scans the counts in
-//    that order into output offsets;
-// 4. list_write_kernel: a thread per prefix whose offset is below the
-//    capacity writes its bindings there, innermost values ascending (rows
-//    are sets, so that is the first atom's slot order).
+// What bounds it on this card: not bytes (a call writes a few MB at most)
+// but the chain of dependent stages. The TPU program's compiled shapes
+// forced a host round trip for every array size; here every stage reads
+// its extents from device memory, so the host launches once and reads
+// once. list_kernel is a persistent cooperative kernel (every block
+// co-resident, cooperative_groups grid syncs between stages) over a
+// workspace the wrapper keeps per device:
 //
-// The total is exact (int64) for any capacity; the buffer holds its first
-// min(total, capacity) rows, so a caller that sees total > capacity
-// rescans and gets the same prefix, extended. Frontier values are int32
-// arrays of one row per depth (vals[j * n + i] is entry i's depth-j
-// value), slots likewise.
+// 1. expansion, depth d = 1..n-2, frontier F_d in (depth-0 row, slot_1,
+//    ..., slot_{d-1}) order: each entry's candidate source length (the
+//    narrowest bound row, or the constant row) and a device-wide scan give
+//    pair_off; each block takes a contiguous chunk of the (entry,
+//    candidate) pairs, counts the live ones (membership in the other bound
+//    rows), the block counts are scanned, and each block writes its live
+//    pairs in order (a block scan of live flags per 256 pairs) as F_{d+1},
+//    with the candidate's slot in the first atom's row. Liveness is
+//    computed twice rather than stored per pair.
+// 2. the innermost depth, split the same way: a scan of the prefixes'
+//    innermost source lengths places their (prefix, candidate) pairs, a
+//    thread per pair tests membership, and a device-wide scan of the live
+//    flags gives every prefix its binding count and every binding its rank
+//    within its prefix; also the largest slot of every depth;
+// 3. ordering: the prefixes are unique by (slot_1, ..., slot_{n-2},
+//    frontier index), and the frontier index rises with the depth-0 row,
+//    so a stable LSD radix sort of the frontier indices by slot_{n-2},
+//    then ..., then slot_1 (8-bit digits, per-block histograms in shared
+//    memory, a scan of the digit-major histogram, stable ranks by warp
+//    match) gives the reference order. Digits above a depth's largest slot
+//    are skipped;
+// 4. a scan of the counts in that order gives each prefix its first
+//    output row and the exact int64 total; the rows buffer, min(total,
+//    capacity) rows, is taken from the workspace;
+// 5. a thread per live pair whose row (its prefix's first row plus its
+//    rank) is below the capacity writes it: within a prefix the innermost
+//    values ascend (rows are sets, so that is the first atom's slot
+//    order).
+//
+// Scratch: a device-side bump pointer in the workspace header. A stage
+// whose allocation would pass the end sets the overflow word; every block
+// sees it after the next grid sync and the stages stop. Then a sizing pass
+// (a warp per depth-0 row, depth first, as the count kernel walks) counts
+// every frontier's size, the innermost pairs and the total, and the words
+// the whole call needs are computed from them with the same arithmetic
+// the stages allocate by, so one regrowth and one rerun always suffice. Header (int64 words, read
+// by the wrapper in one copy): bump, overflow, need, total, rows_at,
+// rows. Frontier values are int32 arrays of one row per depth (vals[j * n
+// + i] is entry i's depth-j value), slots likewise. Workspace arrays are
+// written inside the launch, so they are read with plain loads (never
+// __ldg); the atoms and the depth-0 frontier are read-only.
 
-// rows of the atoms bound at depth d for frontier entry i
-__device__ __forceinline__ void bound_rows(const Desc& D, int d,
-                                           const int* __restrict__ vals,
-                                           long long n, long long i,
-                                           Row* rows) {
+constexpr int kWarps = kThreads / 32;
+// grid bound of the listing kernel: the block-sum scan runs in one block
+constexpr int kMaxListBlocks = 1024;
+constexpr int kDigits = 256;
+
+enum : int {
+  kHBump = 0,
+  kHOverflow = 1,
+  kHNeed = 2,
+  kHTotal = 3,
+  kHRowsAt = 4,
+  kHRows = 5,
+  kHAt = 6,                     // word offsets passed between stages
+  kHAt2 = 7,
+  kHMaxSlot = 8,                // one word per depth
+  kHSizeN = kHMaxSlot + kMaxDepth,  // frontier sizes from the sizing pass
+  kHSizeTotal = kHSizeN + kMaxDepth + 1,
+  kHSizePairs = kHSizeTotal + 1,  // innermost pairs, from the sizing pass
+  kHeader = 32,
+};
+
+__host__ __device__ __forceinline__ long long words64(long long n) {
+  return (n + 1) & ~1LL;
+}
+
+__host__ __device__ __forceinline__ long long words32(long long n) {
+  return words64((n + 1) >> 1);
+}
+
+// the fixed part of the workspace: header, block sums (grid + 2 words) and
+// the digit-major radix histogram (kDigits words per block)
+__host__ __device__ __forceinline__ long long list_base_words(int grid) {
+  return kHeader + words64(grid + 2) + (long long)kDigits * grid;
+}
+
+struct ListArgs {
+  long long* ws;
+  long long ws_words;
+  const int* c0;
+  long long n0;
+  long long cap;
+};
+
+// rows of the atoms bound at depth d for frontier entry i (workspace
+// frontier: plain loads)
+__device__ __forceinline__ void frontier_rows(const Desc& D, int d,
+                                              const int* vals, long long n,
+                                              long long i, Row* rows) {
   for (unsigned m = D.second_mask[d]; m; m &= m - 1) {
     const int a = __ffs(m) - 1;
-    rows[a] = lookup(D.atom[a], __ldg(vals + (long long)D.fd[a] * n + i));
+    rows[a] = lookup(D.atom[a], vals[(long long)D.fd[a] * n + i]);
   }
 }
 
-// the entry e with pair_off[e] <= p < pair_off[e + 1]
-__device__ __forceinline__ long long pair_entry(
-    const long long* __restrict__ pair_off, long long n, long long p) {
+// exclusive scan of v over the block; *total gets the block's sum
+__device__ long long block_scan(long long v, long long* total) {
+  __shared__ long long s_warp[kWarps + 1];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  long long x = v;
+  for (int off = 1; off < 32; off <<= 1) {
+    const long long y = __shfl_up_sync(0xffffffffu, x, off);
+    if (lane >= off) x += y;
+  }
+  if (lane == 31) s_warp[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    const long long w = lane < kWarps ? s_warp[lane] : 0;
+    long long z = w;
+    for (int off = 1; off < 32; off <<= 1) {
+      const long long y = __shfl_up_sync(0xffffffffu, z, off);
+      if (lane >= off) z += y;
+    }
+    if (lane < kWarps) s_warp[lane] = z - w;
+    if (lane == kWarps - 1) s_warp[kWarps] = z;
+  }
+  __syncthreads();
+  const long long out = s_warp[warp] + x - v;
+  *total = s_warp[kWarps];
+  __syncthreads();
+  return out;
+}
+
+// [lo, hi) of block b's contiguous chunk of n items
+__device__ __forceinline__ void block_chunk(long long n, long long* lo,
+                                            long long* hi) {
+  const long long c = (n + gridDim.x - 1) / gridDim.x;
+  *lo = min(n, (long long)blockIdx.x * c);
+  *hi = min(n, *lo + c);
+}
+
+// block 0: exclusive scan of sums[0, n) in place, the total at sums[n]
+__device__ void scan_block_sums(long long* sums, int n) {
+  long long carry = 0;
+  for (int base = 0; base < n; base += kThreads) {
+    const int i = base + threadIdx.x;
+    const long long v = i < n ? sums[i] : 0;
+    long long round;
+    const long long x = block_scan(v, &round);
+    if (i < n) sums[i] = carry + x;
+    carry += round;
+  }
+  if (threadIdx.x == 0) sums[n] = carry;
+  __syncthreads();
+}
+
+// device-wide exclusive scan of n values src[idx[i]] (or src[i] when idx is
+// null) into dst[i] (dst may be src when idx is null); the total lands in
+// sums[gridDim.x]. Every thread of the grid calls it; ends synchronised.
+__device__ void grid_scan(cg::grid_group& g, const long long* src,
+                          const long long* idx, long long* dst, long long n,
+                          long long* sums) {
+  long long lo, hi, total;
+  block_chunk(n, &lo, &hi);
+  long long s = 0;
+  for (long long i = lo + threadIdx.x; i < hi; i += kThreads) {
+    s += src[idx ? idx[i] : i];
+  }
+  block_scan(s, &total);
+  if (threadIdx.x == 0) sums[blockIdx.x] = total;
+  g.sync();
+  if (blockIdx.x == 0) scan_block_sums(sums, gridDim.x);
+  g.sync();
+  long long carry = sums[blockIdx.x];
+  for (long long base = lo; base < hi; base += kThreads) {
+    const long long i = base + threadIdx.x;
+    const long long v = i < hi ? src[idx ? idx[i] : i] : 0;
+    const long long x = block_scan(v, &total);
+    if (i < hi) dst[i] = carry + x;
+    carry += total;
+  }
+  g.sync();
+}
+
+// one thread of the grid: take `words` from the workspace, or set the
+// overflow word; returns the word offset, or -1
+__device__ long long take(long long* H, long long ws_words, long long words) {
+  if (H[kHOverflow]) return -1;
+  const long long at = H[kHBump];
+  if (at + words > ws_words) {
+    H[kHOverflow] = 1;
+    return -1;
+  }
+  H[kHBump] = at + words;
+  return at;
+}
+
+__device__ __forceinline__ bool overflowed(const long long* H) {
+  return *(volatile const long long*)(H + kHOverflow) != 0;
+}
+
+__device__ __forceinline__ bool is_first_thread() {
+  return blockIdx.x == 0 && threadIdx.x == 0;
+}
+
+// the frontier a stage reads: n entries, depth-j values at vals[j * n + i]
+// and depth-j slots at slots[(j - 1) * n + i]
+struct Frontier {
+  const int* vals;
+  const int* slots;
+  long long n;
+};
+
+// pair p = (entry e, candidate k) of depth d: whether it is live, and its
+// value and slot (position in the first bound atom's row)
+__device__ __forceinline__ bool expand_pair(const Desc& D, int d,
+                                            const Frontier& F,
+                                            const long long* pair_off,
+                                            long long p, long long* e_out,
+                                            int* v_out, long long* slot_out) {
+  long long lo = 0, hi = F.n;
+  while (hi - lo > 1) {
+    const long long mid = (lo + hi) >> 1;
+    if (pair_off[mid] <= p) {
+      lo = mid;
+    } else {
+      hi = mid;
+    }
+  }
+  const long long e = lo;
+  const long long k = p - pair_off[e];
+  Row rows[kMaxAtoms];
+  frontier_rows(D, d, F.vals, F.n, e, rows);
+  int src_a;
+  const Row src = source_row(D, d, rows, &src_a);
+  const int v = __ldg(src.p + k);
+  long long slot = k;  // a starts-only depth: the constant row's slot
+  if (src_a >= 0) {
+    const int first = __ffs(D.second_mask[d]) - 1;
+    for (unsigned m = D.second_mask[d]; m; m &= m - 1) {
+      const int a = __ffs(m) - 1;
+      if (a == src_a) continue;
+      const Row r = rows[a];
+      const long long q = lower_bound(r.p, 0, r.n, v);
+      if (q >= r.n || __ldg(r.p + q) != v) return false;
+      if (a == first) slot = q;
+    }
+  }
+  *e_out = e;
+  *v_out = v;
+  *slot_out = slot;
+  return true;
+}
+
+// depth d's expansion of F into the next frontier; false on overflow
+__device__ bool expand_depth(cg::grid_group& g, const Desc& D,
+                             const ListArgs& A, long long* sums, int d,
+                             Frontier* F) {
+  long long* H = A.ws;
+  if (is_first_thread()) {
+    H[kHAt] = take(H, A.ws_words, words64(F->n + 1));  // pair_off
+  }
+  g.sync();
+  if (overflowed(H)) return false;
+  long long* pair_off = H + H[kHAt];
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+       i < F->n; i += (long long)gridDim.x * kThreads) {
+    Row rows[kMaxAtoms];
+    frontier_rows(D, d, F->vals, F->n, i, rows);
+    int which;
+    const Row src = source_row(D, d, rows, &which);
+    pair_off[i] = src.n > 0 ? src.n : 0;
+  }
+  g.sync();
+  grid_scan(g, pair_off, nullptr, pair_off, F->n, sums);
+  const long long n_pairs = sums[gridDim.x];
+  long long lo, hi, total;
+  block_chunk(n_pairs, &lo, &hi);
+  long long live = 0;
+  for (long long p = lo + threadIdx.x; p < hi; p += kThreads) {
+    long long e, slot;
+    int v;
+    live += expand_pair(D, d, *F, pair_off, p, &e, &v, &slot) ? 1 : 0;
+  }
+  block_scan(live, &total);
+  if (threadIdx.x == 0) sums[blockIdx.x] = total;
+  g.sync();
+  if (blockIdx.x == 0) {
+    scan_block_sums(sums, gridDim.x);
+    if (threadIdx.x == 0) {
+      const long long nn = sums[gridDim.x];
+      H[kHAt] = take(H, A.ws_words, words32((d + 1) * nn));
+      H[kHAt2] = take(H, A.ws_words, words32(d * nn));
+    }
+  }
+  g.sync();
+  if (overflowed(H)) return false;
+  const long long nn = sums[gridDim.x];
+  int* next_vals = reinterpret_cast<int*>(H + H[kHAt]);
+  int* next_slots = reinterpret_cast<int*>(H + H[kHAt2]);
+  long long carry = sums[blockIdx.x];
+  for (long long base = lo; base < hi; base += kThreads) {
+    const long long p = base + threadIdx.x;
+    long long e = 0, slot = 0;
+    int v = 0;
+    const bool ok = p < hi && expand_pair(D, d, *F, pair_off, p, &e, &v,
+                                          &slot);
+    const long long o = carry + block_scan(ok ? 1 : 0, &total);
+    carry += total;
+    if (!ok) continue;
+    for (int j = 0; j < d; ++j) {
+      next_vals[(long long)j * nn + o] = F->vals[(long long)j * F->n + e];
+    }
+    next_vals[(long long)d * nn + o] = v;
+    for (int j = 0; j + 1 < d; ++j) {
+      next_slots[(long long)j * nn + o] = F->slots[(long long)j * F->n + e];
+    }
+    next_slots[(long long)(d - 1) * nn + o] = (int)slot;
+  }
+  g.sync();
+  *F = Frontier{next_vals, next_slots, nn};
+  return true;
+}
+
+// one stable LSD pass over the 8-bit digit of slot row `key` at `shift`:
+// src -> dst (m frontier indices)
+__device__ void radix_pass(cg::grid_group& g, const int* key,
+                           const long long* src, long long* dst, long long m,
+                           int shift, long long* hist, long long* sums) {
+  __shared__ int s_hist[kDigits];
+  __shared__ int s_cnt[kWarps][kDigits + 1];
+  __shared__ long long s_run[kDigits];
+  long long lo, hi;
+  block_chunk(m, &lo, &hi);
+  for (int t = threadIdx.x; t < kDigits; t += kThreads) s_hist[t] = 0;
+  __syncthreads();
+  for (long long i = lo + threadIdx.x; i < hi; i += kThreads) {
+    atomicAdd(&s_hist[(key[src[i]] >> shift) & (kDigits - 1)], 1);
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < kDigits; t += kThreads) {
+    hist[(long long)t * gridDim.x + blockIdx.x] = s_hist[t];
+  }
+  g.sync();
+  grid_scan(g, hist, nullptr, hist, (long long)kDigits * gridDim.x, sums);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int t = threadIdx.x; t < kDigits; t += kThreads) {
+    s_run[t] = hist[(long long)t * gridDim.x + blockIdx.x];
+  }
+  for (int t = threadIdx.x; t < kWarps * (kDigits + 1); t += kThreads) {
+    s_cnt[t / (kDigits + 1)][t % (kDigits + 1)] = 0;
+  }
+  __syncthreads();
+  for (long long base = lo; base < hi; base += kThreads) {
+    const long long i = base + threadIdx.x;
+    const long long x = i < hi ? src[i] : 0;
+    const int dig = i < hi ? (key[x] >> shift) & (kDigits - 1) : kDigits;
+    const unsigned peers = __match_any_sync(0xffffffffu, dig);
+    const int wrank = __popc(peers & ((1u << lane) - 1));
+    if (wrank == 0) s_cnt[warp][dig] = __popc(peers);
+    __syncthreads();
+    if (i < hi) {
+      long long rank = s_run[dig] + wrank;
+      for (int w = 0; w < warp; ++w) rank += s_cnt[w][dig];
+      dst[rank] = x;
+    }
+    __syncthreads();
+    for (int t = threadIdx.x; t < kDigits; t += kThreads) {
+      long long c = 0;
+      for (int w = 0; w < kWarps; ++w) {
+        c += s_cnt[w][t];
+        s_cnt[w][t] = 0;
+      }
+      s_run[t] += c;
+    }
+    __syncthreads();
+  }
+  g.sync();
+}
+
+// the entry e of frontier F whose innermost pairs [pair_off[e],
+// pair_off[e + 1]) hold pair p (pair_off: plain loads)
+__device__ __forceinline__ long long entry_of(const long long* pair_off,
+                                              long long n, long long p) {
   long long lo = 0, hi = n;
   while (hi - lo > 1) {
     const long long mid = (lo + hi) >> 1;
-    if (__ldg(pair_off + mid) <= p) {
+    if (pair_off[mid] <= p) {
       lo = mid;
     } else {
       hi = mid;
@@ -331,129 +682,258 @@ __device__ __forceinline__ long long pair_entry(
   return lo;
 }
 
-__global__ void __launch_bounds__(kThreads)
-list_rows_kernel(const __grid_constant__ Desc D, int d,
-                 const int* __restrict__ vals, long long n,
-                 long long* __restrict__ row_len) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+// innermost pair p = (entry e, candidate k) of the last frontier: its
+// value, and whether it is in every other bound row
+__device__ __forceinline__ bool innermost_pair(const Desc& D,
+                                               const Frontier& F,
+                                               long long e, long long k,
+                                               int* v_out) {
+  const int last = D.n_vars - 1;
   Row rows[kMaxAtoms];
-  bound_rows(D, d, vals, n, i, rows);
-  int which;
-  const Row src = source_row(D, d, rows, &which);
-  row_len[i] = src.n > 0 ? src.n : 0;
+  frontier_rows(D, last, F.vals, F.n, e, rows);
+  int src_a;
+  const Row src = source_row(D, last, rows, &src_a);
+  const int v = __ldg(src.p + k);
+  *v_out = v;
+  return member_all(D, last, rows, v, src_a);
 }
 
-// one thread per (entry, candidate) pair, grid-stride. With write == 0 it
-// writes live[p]; with write == 1 it writes every live pair at pos[p]
-// (the exclusive scan of live) into the next frontier.
-__global__ void __launch_bounds__(kThreads)
-list_expand_kernel(const __grid_constant__ Desc D, int d,
-                   const int* __restrict__ vals,
-                   const int* __restrict__ slots, long long n,
-                   const long long* __restrict__ pair_off,
-                   unsigned char* __restrict__ live,
-                   const long long* __restrict__ pos, int write,
-                   long long n_next, int* __restrict__ next_vals,
-                   int* __restrict__ next_slots) {
-  const long long n_pairs = __ldg(pair_off + n);
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       p < n_pairs; p += stride) {
-    if (write && !live[p]) continue;
-    const long long e = pair_entry(pair_off, n, p);
-    const long long k = p - __ldg(pair_off + e);
+// stages 1-5; false when the workspace overflowed. The innermost depth is
+// split like an expansion, a thread per (prefix, candidate) pair: a
+// prefix's bindings are its live pairs, so one prefix with a long row does
+// not hold up the grid.
+__device__ bool list_stages(cg::grid_group& g, const Desc& D,
+                            const ListArgs& A, long long* sums,
+                            long long* hist) {
+  long long* H = A.ws;
+  const int last = D.n_vars - 1;
+  const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long stride = (long long)gridDim.x * kThreads;
+  Frontier F{A.c0, nullptr, A.n0};
+  for (int d = 1; d < last; ++d) {
+    if (!expand_depth(g, D, A, sums, d, &F)) return false;
+  }
+  const long long m = F.n;
+  if (is_first_thread()) H[kHAt] = take(H, A.ws_words, words64(m + 1));
+  g.sync();
+  if (overflowed(H)) return false;
+  long long* pair_off = H + H[kHAt];
+  for (long long e = tid; e < m; e += stride) {
     Row rows[kMaxAtoms];
-    bound_rows(D, d, vals, n, e, rows);
-    int src_a;
-    const Row src = source_row(D, d, rows, &src_a);
-    const int v = __ldg(src.p + k);
-    long long slot = k;  // a starts-only depth: the constant row's slot
-    bool ok = true;
-    if (src_a >= 0) {
-      const int first = __ffs(D.second_mask[d]) - 1;
-      for (unsigned m = D.second_mask[d]; m; m &= m - 1) {
-        const int a = __ffs(m) - 1;
-        if (a == src_a) continue;
-        const Row r = rows[a];
-        const long long q = lower_bound(r.p, 0, r.n, v);
-        if (q >= r.n || __ldg(r.p + q) != v) {
-          ok = false;
-          break;
-        }
-        if (a == first) slot = q;
-      }
+    frontier_rows(D, last, F.vals, m, e, rows);
+    int which;
+    const Row src = source_row(D, last, rows, &which);
+    pair_off[e] = src.n > 0 ? src.n : 0;
+  }
+  g.sync();
+  grid_scan(g, pair_off, nullptr, pair_off, m, sums);
+  const long long n_pairs = sums[gridDim.x];
+  if (is_first_thread()) {
+    pair_off[m] = n_pairs;
+    H[kHAt] = take(H, A.ws_words, words64(n_pairs + 1));
+    H[kHAt2] = take(H, A.ws_words, 5 * words64(m));
+  }
+  g.sync();
+  if (overflowed(H)) return false;
+  // live[p]: 1 for a binding, then its exclusive scan over the pairs
+  long long* live = H + H[kHAt];
+  long long* counts = H + H[kHAt2];
+  long long* order[2] = {counts + words64(m), counts + 2 * words64(m)};
+  long long* offsets = counts + 3 * words64(m);
+  long long* start = counts + 4 * words64(m);
+  for (long long p = tid; p < n_pairs; p += stride) {
+    const long long e = entry_of(pair_off, m, p);
+    int v;
+    live[p] = innermost_pair(D, F, e, p - pair_off[e], &v) ? 1 : 0;
+  }
+  unsigned max_slot[kMaxDepth] = {};
+  for (long long e = tid; e < m; e += stride) {
+    order[0][e] = e;
+    for (int j = 0; j + 1 < last; ++j) {
+      max_slot[j] = max(max_slot[j],
+                        (unsigned)F.slots[(long long)j * m + e]);
     }
-    if (!write) {
-      live[p] = ok ? 1 : 0;
+  }
+  for (int j = 0; j + 1 < last; ++j) {
+    const unsigned s = __reduce_max_sync(0xffffffffu, max_slot[j]);
+    if ((threadIdx.x & 31) == 0 && s) {
+      atomicMax(reinterpret_cast<unsigned long long*>(H + kHMaxSlot + j),
+                (unsigned long long)s);
+    }
+  }
+  g.sync();
+  grid_scan(g, live, nullptr, live, n_pairs, sums);
+  if (is_first_thread()) live[n_pairs] = sums[gridDim.x];
+  g.sync();
+  for (long long e = tid; e < m; e += stride) {
+    counts[e] = live[pair_off[e + 1]] - live[pair_off[e]];
+  }
+  g.sync();
+  int cur = 0;
+  for (int j = last - 2; j >= 0; --j) {
+    const long long top = H[kHMaxSlot + j];
+    for (int shift = 0; shift < 32 && (top >> shift) != 0; shift += 8) {
+      radix_pass(g, F.slots + (long long)j * m, order[cur], order[cur ^ 1],
+                 m, shift, hist, sums);
+      cur ^= 1;
+    }
+  }
+  grid_scan(g, counts, order[cur], offsets, m, sums);
+  for (long long i = tid; i < m; i += stride) start[order[cur][i]] = offsets[i];
+  if (is_first_thread()) {
+    const long long total = sums[gridDim.x];
+    const long long rows = min(total, A.cap);
+    H[kHTotal] = total;
+    H[kHRows] = rows;
+    H[kHRowsAt] = take(H, A.ws_words, words32(rows * D.n_vars));
+  }
+  g.sync();
+  if (overflowed(H)) return false;
+  int* out = reinterpret_cast<int*>(H + H[kHRowsAt]);
+  for (long long p = tid; p < n_pairs; p += stride) {
+    if (live[p + 1] == live[p]) continue;
+    const long long e = entry_of(pair_off, m, p);
+    const long long o = start[e] + live[p] - live[pair_off[e]];
+    if (o >= A.cap) continue;
+    int v;
+    innermost_pair(D, F, e, p - pair_off[e], &v);
+    int* row = out + o * D.n_vars;
+    for (int j = 0; j < last; ++j) row[j] = F.vals[(long long)j * m + e];
+    row[last] = v;
+  }
+  if (is_first_thread()) H[kHNeed] = H[kHBump];
+  return true;
+}
+
+// a prefix of the last frontier, found by the sizing pass: its innermost
+// pairs and bindings
+__device__ __forceinline__ void size_prefix(const Desc& D, const Row* rows,
+                                            long long* pairs,
+                                            long long* total) {
+  const int last = D.n_vars - 1;
+  int which;
+  const Row src = source_row(D, last, rows, &which);
+  *pairs += src.n > 0 ? src.n : 0;
+  *total += innermost(D, last, rows);
+}
+
+// sizing pass after an overflow: for depth-0 row r, the live prefixes of
+// every depth (size[d + 1] counts the entries of frontier F_{d + 1}), the
+// innermost pairs and the bindings below them, depth first, this lane's
+// share of the depth-1 candidates (k = lane, lane + 32, ...)
+__device__ void size_row(const Desc& D, int v0, int lane, long long* size,
+                         long long* pairs, long long* total) {
+  const int last = D.n_vars - 1;
+  Row rows[kMaxAtoms];
+  bind_rows(D, 0, v0, rows);
+  if (last == 1) {
+    if (lane == 0) size_prefix(D, rows, pairs, total);
+    return;
+  }
+  int src_a;
+  const Row src1 = source_row(D, 1, rows, &src_a);
+  const int* it_p[kMaxDepth];
+  long long it_n[kMaxDepth];
+  long long cur[kMaxDepth];
+  int it_a[kMaxDepth];
+  for (long long k = lane; k < src1.n; k += 32) {
+    const int v1 = __ldg(src1.p + k);
+    if (!member_all(D, 1, rows, v1, src_a)) continue;
+    ++size[2];
+    bind_rows(D, 1, v1, rows);
+    if (last == 2) {
+      size_prefix(D, rows, pairs, total);
       continue;
     }
-    const long long o = __ldg(pos + p);
-    for (int j = 0; j < d; ++j) {
-      next_vals[(long long)j * n_next + o] = __ldg(vals + (long long)j * n + e);
+    int d = 2;
+    {
+      const Row s = source_row(D, d, rows, &it_a[d]);
+      it_p[d] = s.p;
+      it_n[d] = s.n;
+      cur[d] = 0;
     }
-    next_vals[(long long)d * n_next + o] = v;
-    for (int j = 0; j + 1 < d; ++j) {
-      next_slots[(long long)j * n_next + o] =
-          __ldg(slots + (long long)j * n + e);
+    while (true) {
+      if (cur[d] >= it_n[d]) {
+        if (d == 2) break;
+        --d;
+        continue;
+      }
+      const int v = __ldg(it_p[d] + cur[d]);
+      ++cur[d];
+      if (!member_all(D, d, rows, v, it_a[d])) continue;
+      ++size[d + 1];
+      bind_rows(D, d, v, rows);
+      if (d + 1 == last) {
+        size_prefix(D, rows, pairs, total);
+        continue;
+      }
+      ++d;
+      const Row s = source_row(D, d, rows, &it_a[d]);
+      it_p[d] = s.p;
+      it_n[d] = s.n;
+      cur[d] = 0;
     }
-    next_slots[(long long)(d - 1) * n_next + o] = (int)slot;
   }
 }
 
-// innermost bindings of every prefix
-__global__ void __launch_bounds__(kThreads)
-list_count_kernel(const __grid_constant__ Desc D,
-                  const int* __restrict__ vals, long long n,
-                  long long* __restrict__ counts) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int last = D.n_vars - 1;
-  Row rows[kMaxAtoms];
-  bound_rows(D, last, vals, n, i, rows);
-  counts[i] = innermost(D, last, rows);
+__device__ __forceinline__ void warp_add(long long v, long long* to) {
+  for (int off = 16; off > 0; off >>= 1) {
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  }
+  if ((threadIdx.x & 31) == 0 && v) {
+    atomicAdd(reinterpret_cast<unsigned long long*>(to),
+              (unsigned long long)v);
+  }
 }
 
-// thread i writes the bindings of prefix order[i] at rows offset[i]...,
-// keeping those below cap
-__global__ void __launch_bounds__(kThreads)
-list_write_kernel(const __grid_constant__ Desc D,
-                  const int* __restrict__ vals, long long n,
-                  const long long* __restrict__ order,
-                  const long long* __restrict__ offset, long long n_write,
-                  long long cap, int* __restrict__ out) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_write) return;
-  const long long e = __ldg(order + i);
-  long long o = __ldg(offset + i);
-  const int last = D.n_vars - 1;
-  Row rows[kMaxAtoms];
-  bound_rows(D, last, vals, n, e, rows);
-  int src_a;
-  const Row src = source_row(D, last, rows, &src_a);
-  const unsigned others = D.second_mask[last] & ~(1u << src_a);
-  long long lo[kMaxAtoms];
-  for (unsigned m = others; m; m &= m - 1) lo[__ffs(m) - 1] = 0;
-  for (long long k = 0; k < src.n && o < cap; ++k) {
-    const int v = __ldg(src.p + k);
-    bool hit = true, done = false;
-    for (unsigned m = others; m; m &= m - 1) {
-      const int a = __ffs(m) - 1;
-      const Row r = rows[a];
-      const long long q = lower_bound(r.p, lo[a], r.n, v);
-      lo[a] = q;
-      if (q >= r.n) done = true;  // no larger value left in this row
-      if (q >= r.n || __ldg(r.p + q) != v) {
-        hit = false;
-        break;
-      }
+__device__ void size_call(cg::grid_group& g, const Desc& D,
+                          const ListArgs& A) {
+  long long* H = A.ws;
+  long long size[kMaxDepth + 1];
+  for (int d = 0; d <= kMaxDepth; ++d) size[d] = 0;
+  long long pairs = 0, total = 0;
+  const long long warp = ((long long)blockIdx.x * kThreads + threadIdx.x)
+      >> 5;
+  const long long n_warps = (long long)gridDim.x * kWarps;
+  for (long long r = warp; r < A.n0; r += n_warps) {
+    size_row(D, __ldg(A.c0 + r), threadIdx.x & 31, size, &pairs, &total);
+  }
+  for (int d = 2; d <= D.n_vars - 1; ++d) warp_add(size[d], H + kHSizeN + d);
+  warp_add(pairs, H + kHSizePairs);
+  warp_add(total, H + kHSizeTotal);
+  g.sync();
+  if (is_first_thread()) {
+    // the words list_stages takes, in its order
+    const int last = D.n_vars - 1;
+    long long need = list_base_words(gridDim.x);
+    long long n = A.n0;
+    for (int d = 1; d < last; ++d) {
+      const long long nn = H[kHSizeN + d + 1];
+      need += words64(n + 1) + words32((d + 1) * nn) + words32(d * nn);
+      n = nn;
     }
-    if (done) break;
-    if (!hit) continue;
-    int* row = out + o * D.n_vars;
-    for (int j = 0; j < last; ++j) row[j] = __ldg(vals + (long long)j * n + e);
-    row[last] = v;
-    ++o;
+    const long long total_all = H[kHSizeTotal];
+    need += words64(n + 1) + words64(H[kHSizePairs] + 1) + 5 * words64(n)
+        + words32(min(total_all, A.cap) * D.n_vars);
+    H[kHNeed] = need;
+    H[kHTotal] = total_all;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+list_kernel(const __grid_constant__ Desc D, const ListArgs A) {
+  cg::grid_group g = cg::this_grid();
+  long long* H = A.ws;
+  long long* sums = H + kHeader;
+  long long* hist = sums + words64(gridDim.x + 2);
+  if (is_first_thread()) {
+    for (int i = 0; i < kHeader; ++i) H[i] = 0;
+    H[kHBump] = list_base_words(gridDim.x);
+  }
+  g.sync();
+  if (!list_stages(g, D, A, sums, hist)) {
+    g.sync();
+    size_call(g, D, A);
   }
 }
 
@@ -517,66 +997,51 @@ extern "C" int lftj_fused_count_launch(const long long* desc, const void* c0,
   return (int)cudaGetLastError();
 }
 
-extern "C" int lftj_list_rows_launch(const long long* desc, int d,
-                                     const void* vals, long long n,
-                                     void* row_len, void* stream) {
+// The listing kernel's grid: every block co-resident, as the cooperative
+// launch needs; raises (returns an error) when the card cannot launch
+// cooperatively.
+extern "C" int lftj_list_grid(int* grid) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  int coop = 0;
+  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (!coop) return (int)cudaErrorNotSupported;
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, list_kernel,
+                                                      kThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
+  *grid = per_sm * sms < kMaxListBlocks ? per_sm * sms : kMaxListBlocks;
+  return 0;
+}
+
+extern "C" long long lftj_list_base_words(int grid) {
+  return list_base_words(grid);
+}
+
+extern "C" int lftj_list_header_words() { return kHeader; }
+
+// One listing call: the workspace ws (ws_words int64 words, at least
+// lftj_list_base_words(grid)) receives the header (bump, overflow, need,
+// total, rows_at, rows) and, unless it overflowed, the rows.
+extern "C" int lftj_list_launch(const long long* desc, const void* c0,
+                                long long n0, void* ws, long long ws_words,
+                                long long cap, int grid, void* stream) {
   Desc D;
-  if (!make_desc(desc, &D) || d < 1 || d >= D.n_vars - 1) {
+  if (!make_desc(desc, &D) || grid < 1 || grid > kMaxListBlocks ||
+      ws_words < list_base_words(grid) || n0 < 0 || cap < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  if (n <= 0) return 0;
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  list_rows_kernel<<<(unsigned int)blocks, kThreads, 0,
-                     (cudaStream_t)stream>>>(D, d, (const int*)vals, n,
-                                             (long long*)row_len);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int lftj_list_expand_launch(const long long* desc, int d,
-                                       const void* vals, const void* slots,
-                                       long long n, const void* pair_off,
-                                       void* live, const void* pos,
-                                       int write, long long n_next,
-                                       void* next_vals, void* next_slots,
-                                       void* stream) {
-  Desc D;
-  if (!make_desc(desc, &D) || d < 1 || d >= D.n_vars - 1) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (n <= 0) return 0;
-  list_expand_kernel<<<kBlocks, kThreads, 0, (cudaStream_t)stream>>>(
-      D, d, (const int*)vals, (const int*)slots, n,
-      (const long long*)pair_off, (unsigned char*)live,
-      (const long long*)pos, write, n_next, (int*)next_vals,
-      (int*)next_slots);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int lftj_list_count_launch(const long long* desc,
-                                      const void* vals, long long n,
-                                      void* counts, void* stream) {
-  Desc D;
-  if (!make_desc(desc, &D)) return (int)cudaErrorInvalidValue;
-  if (n <= 0) return 0;
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  list_count_kernel<<<(unsigned int)blocks, kThreads, 0,
-                      (cudaStream_t)stream>>>(D, (const int*)vals, n,
-                                              (long long*)counts);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int lftj_list_write_launch(const long long* desc,
-                                      const void* vals, long long n,
-                                      const void* order, const void* offset,
-                                      long long n_write, long long cap,
-                                      void* out, void* stream) {
-  Desc D;
-  if (!make_desc(desc, &D)) return (int)cudaErrorInvalidValue;
-  if (n_write <= 0) return 0;
-  const long long blocks = (n_write + kThreads - 1) / kThreads;
-  list_write_kernel<<<(unsigned int)blocks, kThreads, 0,
-                      (cudaStream_t)stream>>>(
-      D, (const int*)vals, n, (const long long*)order,
-      (const long long*)offset, n_write, cap, (int*)out);
+  ListArgs A{(long long*)ws, ws_words, (const int*)c0, n0, cap};
+  void* args[] = {&D, &A};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      (const void*)list_kernel, dim3(grid), dim3(kThreads), args, 0,
+      (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

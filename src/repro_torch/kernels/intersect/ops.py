@@ -1,10 +1,20 @@
-"""Public wrapper of the intersect kernel: checks, dispatch, ledger.
+"""Public wrappers of the intersect kernel: checks, dispatch, ledger.
 
-For CUDA tensors it launches ``csrc/intersect.cu`` (built with ``nvcc`` at
-first use) or raises; for CPU tensors it runs the plain version in
-``ref.py``. Either way it notes one launch on the kernel ledger, exactly
-where the reference wrapper does, so ``EngineStats.device_invocations``
-matches the reference box for box.
+For CUDA tensors they launch ``csrc/intersect.cu`` (built with ``nvcc`` at
+first use) or raise; for CPU tensors they run the plain versions in
+``ref.py``. The kernel reads compact CSR and splits its work by probes,
+not by rows (see the note at the head of the source):
+
+* :func:`intersect_count_csr` -> the int64 total over pairs of CSR rows,
+  a 0-d tensor on the inputs' device, not synchronised;
+* :func:`intersect_count` -> per-row int32 counts of SENTINEL-padded
+  matrices, the counterpart of the reference's ``intersect_count``; it
+  reads the matrices as CSR (row r starts at r * stride and ends at its
+  SENTINEL bound) and notes one launch on the kernel ledger, as the
+  reference does;
+* :func:`intersect_count_rows` -> the QueryEngine's innermost two-atom
+  count as a Python int: one kernel call and one host read, with the
+  reference's one ledger note per 8,192-pair chunk.
 """
 
 from __future__ import annotations
@@ -15,18 +25,21 @@ from typing import Optional
 import torch
 
 from .. import _build, ledger
-from .ref import SENTINEL, intersect_count_ref
+from .ref import SENTINEL, intersect_count_ref, intersect_rows_ref
 
-__all__ = ["LAUNCHES", "SENTINEL", "intersect_count",
-           "intersect_count_rows"]
+__all__ = ["LAUNCHES", "SENTINEL", "intersect_count", "intersect_count_csr",
+           "intersect_count_rows", "work_offsets"]
 
 LAUNCHES = _build.LaunchCounter()
 
 _P = ctypes.c_void_p
+_LL = ctypes.c_longlong
 _SIGNATURES = {
-    "intersect_count_launch": (
-        (_P, ctypes.c_longlong, ctypes.c_int, _P, ctypes.c_longlong,
-         ctypes.c_int, _P, _P, ctypes.c_longlong, _P, _P), ctypes.c_int),
+    "intersect_launch": ((_P, _P, _P, _P, _P, _P, _P, _P, _LL, _P, _P, _P,
+                          _P), ctypes.c_int),
+    "intersect_row_span_launch": ((_P, _LL, ctypes.c_int, _LL, _P, _P, _P),
+                                  ctypes.c_int),
+    "intersect_n_partials": ((), ctypes.c_int),
 }
 
 
@@ -60,21 +73,65 @@ def _check(a, b, ia, ib) -> int:
     return e
 
 
-def _launch(a, b, ia, ib, e: int) -> torch.Tensor:
-    out = torch.empty(e, dtype=torch.int32, device=a.device)
-    if e == 0:
-        return out
+def work_offsets(deg_a: torch.Tensor, deg_b: torch.Tensor) -> torch.Tensor:
+    """(n + 1,) int64 exclusive scan of each pair's work min(deg_a,
+    deg_b): the probes of its narrow row. The kernel splits this space
+    into fixed tiles; it stays on the tensors' device."""
+    work_off = torch.zeros(deg_a.numel() + 1, dtype=torch.int64,
+                           device=deg_a.device)
+    torch.cumsum(torch.minimum(deg_a, deg_b), 0, out=work_off[1:])
+    return work_off
+
+
+def _launch(side_a, side_b, work_off: torch.Tensor, n: int,
+            per_pair: bool):
+    """One launch of the kernel over ``n`` pairs. ``side_*`` is (beg, end,
+    vals, pos) on one CUDA device. Returns (per-block int64 partials,
+    per-pair int32 counts or None)."""
+    dev = work_off.device
     lib = _build.load("intersect", _SIGNATURES)
-    with torch.cuda.device(a.device):
-        rc = lib.intersect_count_launch(
-            a.data_ptr(), a.stride(0), a.shape[1],
-            b.data_ptr(), b.stride(0), b.shape[1],
-            ia.data_ptr() if ia is not None else None,
-            ib.data_ptr() if ib is not None else None,
-            e, out.data_ptr(), _build.stream_ptr(a.device))
+    partials = torch.empty(lib.intersect_n_partials(), dtype=torch.int64,
+                           device=dev)
+    counts = torch.zeros(n, dtype=torch.int32, device=dev) \
+        if per_pair else None
+    with torch.cuda.device(dev):
+        rc = lib.intersect_launch(
+            *(t.data_ptr() for t in side_a), *(t.data_ptr() for t in side_b),
+            n, work_off.data_ptr(), partials.data_ptr(),
+            counts.data_ptr() if per_pair else None, _build.stream_ptr(dev))
     _build.check_launch("intersect", rc)
     LAUNCHES.add()
-    return out
+    return partials, counts
+
+
+def _row_spans(m: torch.Tensor):
+    """(beg, end) int64 value indices of every row of a padded matrix read
+    as CSR: beg = r * stride, end = beg + the row's SENTINEL bound."""
+    lib = _build.load("intersect", _SIGNATURES)
+    beg = torch.empty(m.shape[0], dtype=torch.int64, device=m.device)
+    end = torch.empty_like(beg)
+    with torch.cuda.device(m.device):
+        rc = lib.intersect_row_span_launch(
+            m.data_ptr(), m.stride(0), m.shape[1], m.shape[0],
+            beg.data_ptr(), end.data_ptr(), _build.stream_ptr(m.device))
+    _build.check_launch("intersect", rc)
+    return beg, end
+
+
+def _launch_padded(a, b, ia, ib, e: int) -> torch.Tensor:
+    if e == 0 or a.shape[1] == 0 or b.shape[1] == 0:
+        return torch.zeros(e, dtype=torch.int32, device=a.device)
+    beg_a, end_a = _row_spans(a)
+    beg_b, end_b = (beg_a, end_a) if b is a else _row_spans(b)
+    if ia is None:
+        pos_a = pos_b = torch.arange(e, dtype=torch.int64, device=a.device)
+    else:
+        pos_a, pos_b = ia.long(), ib.long()
+    deg_a = end_a[pos_a] - beg_a[pos_a]
+    deg_b = end_b[pos_b] - beg_b[pos_b]
+    _, counts = _launch((beg_a, end_a, a, pos_a), (beg_b, end_b, b, pos_b),
+                        work_offsets(deg_a, deg_b), e, per_pair=True)
+    return counts
 
 
 def intersect_count(a: torch.Tensor, b: torch.Tensor,
@@ -92,7 +149,7 @@ def intersect_count(a: torch.Tensor, b: torch.Tensor,
     if a.device.type == "cpu":
         out = intersect_count_ref(a, b, ia, ib)
     elif a.device.type == "cuda":
-        out = _launch(a, b, ia, ib, e)
+        out = _launch_padded(a, b, ia, ib, e)
     else:
         raise ValueError(f"intersect_count: unsupported device {a.device}")
     moved = a.numel() + (b.numel() if b is not a else 0) \
@@ -101,21 +158,60 @@ def intersect_count(a: torch.Tensor, b: torch.Tensor,
     return out
 
 
-def _pad_rows(off: torch.Tensor, vals: torch.Tensor, pos: torch.Tensor,
-              deg: torch.Tensor, k: int, total: int) -> torch.Tensor:
-    """(len(pos), k) SENTINEL-padded int32 value rows gathered on the
-    tensors' device from compact CSR (``off``/``vals``) at key positions
-    ``pos``, whose rows hold ``deg`` (``total`` in all) values."""
-    out = torch.full((pos.numel(), k), SENTINEL, dtype=torch.int32,
-                     device=vals.device)
-    if total:
-        rr = torch.repeat_interleave(
-            torch.arange(pos.numel(), device=vals.device), deg,
-            output_size=total)
-        cc = torch.arange(total, device=vals.device) \
-            - (torch.cumsum(deg, 0) - deg)[rr]
-        out[rr, cc] = vals[off[pos][rr] + cc].to(torch.int32)
-    return out
+def _check_csr(off_a, vals_a, pos_a, off_b, vals_b, pos_b) -> None:
+    for name, t, dtype in (("off_a", off_a, torch.int64),
+                           ("vals_a", vals_a, torch.int32),
+                           ("pos_a", pos_a, torch.int64),
+                           ("off_b", off_b, torch.int64),
+                           ("vals_b", vals_b, torch.int32),
+                           ("pos_b", pos_b, torch.int64)):
+        if t.dim() != 1 or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"intersect_count_csr: {name} must be a "
+                             f"contiguous 1-D {dtype} tensor, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if pos_a.numel() != pos_b.numel():
+        raise ValueError("intersect_count_csr: pos_a and pos_b differ in "
+                         "length")
+    if len({t.device for t in (off_a, vals_a, pos_a, off_b, vals_b,
+                               pos_b)}) != 1:
+        raise ValueError("intersect_count_csr: all tensors must share a "
+                         "device")
+
+
+def intersect_count_csr(off_a: torch.Tensor, vals_a: torch.Tensor,
+                        pos_a: torch.Tensor, off_b: torch.Tensor,
+                        vals_b: torch.Tensor, pos_b: torch.Tensor
+                        ) -> torch.Tensor:
+    """Σ_i |row_a(pos_a[i]) ∩ row_b(pos_b[i])| of two compact-CSR
+    relations as a 0-d int64 tensor on their device, not synchronised.
+
+    ``off_*`` are int64 offsets, ``vals_*`` int32 sorted rows and
+    ``pos_*`` int64 key positions (in range: the kernel does not check
+    them), all contiguous on one device. Notes nothing on the kernel
+    ledger: its callers note the launches the reference makes."""
+    _check_csr(off_a, vals_a, pos_a, off_b, vals_b, pos_b)
+    dev = vals_a.device
+    if dev.type == "cpu":
+        return intersect_rows_ref(off_a, vals_a, pos_a, off_b, vals_b,
+                                  pos_b).sum(dtype=torch.int64)
+    if dev.type != "cuda":
+        raise ValueError(f"intersect_count_csr: unsupported device {dev}")
+    if pos_a.numel() == 0:
+        return torch.zeros((), dtype=torch.int64, device=dev)
+    # CSR offsets give each row's end as the next row's start: end = off[1:]
+    deg_a = off_a[pos_a + 1] - off_a[pos_a]
+    deg_b = off_b[pos_b + 1] - off_b[pos_b]
+    partials, _ = _launch((off_a, off_a[1:], vals_a, pos_a),
+                          (off_b, off_b[1:], vals_b, pos_b),
+                          work_offsets(deg_a, deg_b), pos_a.numel(),
+                          per_pair=False)
+    return partials.sum()
+
+
+def _chunk_max(deg: torch.Tensor, chunk: int) -> torch.Tensor:
+    n = deg.numel()
+    pad = -n % chunk
+    return torch.nn.functional.pad(deg, (0, pad)).view(-1, chunk).amax(1)
 
 
 def intersect_count_rows(off_a: torch.Tensor, vals_a: torch.Tensor,
@@ -123,27 +219,26 @@ def intersect_count_rows(off_a: torch.Tensor, vals_a: torch.Tensor,
                          vals_b: torch.Tensor, pos_b: torch.Tensor, *,
                          chunk: int = 8192) -> int:
     """Σ_i |row_a(pos_a[i]) ∩ row_b(pos_b[i])| from two compact-CSR
-    relations: the QueryEngine's innermost two-atom step.
+    relations: the QueryEngine's innermost two-atom step, as a Python int.
 
-    ``off_*`` are int64 offsets, ``vals_*`` the concatenated sorted rows and
-    ``pos_*`` the int64 key positions of each pair, all on one device. The
-    pairs are counted in ``chunk``-pair batches, one ``intersect_count``
-    call each, as the reference batches them; each batch's rows are
-    gathered there into SENTINEL-padded tiles as wide as the batch's widest
-    row (the reference pads every batch to the widest row of all pairs,
-    for its compiled shapes; the kernel takes any width). Returns the int64
-    total as a Python int."""
+    ``off_*`` are int64 offsets, ``vals_*`` the concatenated sorted int32
+    rows and ``pos_*`` the int64 key positions of each pair, all on one
+    device. One :func:`intersect_count_csr` call counts every pair; the
+    kernel ledger gets the reference's one note per ``chunk``-pair batch,
+    with the bytes of that batch's SENTINEL-padded tiles (as wide as its
+    widest row), computed from the row lengths without building them. The
+    total and the batch widths reach the host in one read."""
     n = pos_a.numel()
     if n == 0:
         return 0
-    deg_a = (off_a[1:] - off_a[:-1])[pos_a]
-    deg_b = (off_b[1:] - off_b[:-1])[pos_b]
-    total = torch.zeros((), dtype=torch.int64, device=vals_a.device)
-    for s in range(0, n, chunk):
-        da, db = deg_a[s:s + chunk], deg_b[s:s + chunk]
-        ka, kb, ta, tb = torch.stack([da.max(), db.max(), da.sum(),
-                                      db.sum()]).tolist()
-        a = _pad_rows(off_a, vals_a, pos_a[s:s + chunk], da, max(1, ka), ta)
-        b = _pad_rows(off_b, vals_b, pos_b[s:s + chunk], db, max(1, kb), tb)
-        total += intersect_count(a, b).sum(dtype=torch.int64)
-    return int(total)
+    deg_a = off_a[pos_a + 1] - off_a[pos_a]
+    deg_b = off_b[pos_b + 1] - off_b[pos_b]
+    total = intersect_count_csr(off_a, vals_a, pos_a, off_b, vals_b, pos_b)
+    read = torch.cat([total.view(1), _chunk_max(deg_a, chunk),
+                      _chunk_max(deg_b, chunk)]).tolist()
+    n_chunks = (len(read) - 1) // 2
+    for c in range(n_chunks):
+        e = min(chunk, n - c * chunk)
+        ka, kb = max(1, read[1 + c]), max(1, read[1 + n_chunks + c])
+        ledger.note(1, bytes_in=4 * e * (ka + kb), bytes_out=4 * e)
+    return int(read[0])

@@ -9,8 +9,9 @@ on one device and runs the whole box join as a single device invocation:
   CPU tensors it runs ``ref.fused_count_ref`` over the padded layout.
 * :func:`fused_list` -> (exact total, bounded deterministic-prefix binding
   buffer) in the reference listing program's order. On CUDA tensors it
-  launches the listing entry points of ``csrc/lftj_fused.cu`` or raises;
-  on CPU tensors it runs ``ref.fused_list_ref``.
+  launches the cooperative listing kernel of ``csrc/lftj_fused.cu`` (one
+  launch and one host read per call) or raises; on CPU tensors it runs
+  ``ref.fused_list_ref``.
 
 :func:`fused_supported` is the reference's static pattern gate. The CUDA
 kernel adds its own envelope, checked for every call on any device so that
@@ -30,7 +31,8 @@ CSR bytes the kernel reads.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence, Tuple
+import threading
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -59,14 +61,11 @@ _SIGNATURES = {
     "lftj_fused_count_launch": ((_P, _P, _LL, _P, _P, _P), ctypes.c_int),
     "lftj_fused_n_partials": ((), ctypes.c_int),
     "lftj_fused_desc_words": ((), ctypes.c_int),
-    "lftj_list_rows_launch": ((_P, ctypes.c_int, _P, _LL, _P, _P),
-                              ctypes.c_int),
-    "lftj_list_expand_launch": ((_P, ctypes.c_int, _P, _P, _LL, _P, _P, _P,
-                                 ctypes.c_int, _LL, _P, _P, _P),
-                                ctypes.c_int),
-    "lftj_list_count_launch": ((_P, _P, _LL, _P, _P), ctypes.c_int),
-    "lftj_list_write_launch": ((_P, _P, _LL, _P, _P, _LL, _LL, _P, _P),
-                               ctypes.c_int),
+    "lftj_list_grid": ((ctypes.POINTER(ctypes.c_int),), ctypes.c_int),
+    "lftj_list_base_words": ((ctypes.c_int,), _LL),
+    "lftj_list_header_words": ((), ctypes.c_int),
+    "lftj_list_launch": ((_P, _P, _LL, _P, _LL, _LL, ctypes.c_int, _P),
+                         ctypes.c_int),
 }
 
 
@@ -253,9 +252,10 @@ def _descriptor(atom_dims, csrs, consts, n_vars: int) -> np.ndarray:
 
 def _library():
     lib = _build.load("lftj_fused", _SIGNATURES)
-    if lib.lftj_fused_desc_words() != 2 + 6 * MAX_ATOMS + 2 * MAX_DEPTH:
-        raise RuntimeError("lftj_fused: descriptor layout of the built "
-                           "library differs from ops.py")
+    if lib.lftj_fused_desc_words() != 2 + 6 * MAX_ATOMS + 2 * MAX_DEPTH \
+            or lib.lftj_list_header_words() < _HEAD:
+        raise RuntimeError("lftj_fused: descriptor or workspace layout of "
+                           "the built library differs from ops.py")
     return lib
 
 
@@ -290,82 +290,104 @@ def launch_count(prep) -> torch.Tensor:
     return partials.sum()
 
 
-def launch_list(prep, capacity: int) -> Tuple[int, torch.Tensor]:
+# the listing kernel's workspace header (csrc/lftj_fused.cu, "Listing"):
+# int64 words bump, overflow, need, total, rows_at, rows
+_HEAD = 6
+# one workspace per device, grown on overflow and never shrunk; the lock
+# keeps a call's launch, header read and row copy together
+_workspaces: Dict[torch.device, torch.Tensor] = {}
+_grids: Dict[torch.device, int] = {}
+_ws_lock = threading.Lock()
+
+
+def _workspace(dev: torch.device, words: int) -> torch.Tensor:
+    """The device's kept workspace, grown to at least ``words`` int64
+    words."""
+    ws = _workspaces.get(dev)
+    if ws is None or ws.numel() < words:
+        _workspaces.pop(dev, None)
+        ws = _workspaces[dev] = torch.empty(int(words), dtype=torch.int64,
+                                            device=dev)
+    return ws
+
+
+def _list_grid(lib, dev: torch.device) -> int:
+    """The listing kernel's co-resident grid on ``dev`` (raises when the
+    card cannot launch cooperatively)."""
+    grid = _grids.get(dev)
+    if grid is None:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            _build.check_launch("lftj_fused_list",
+                                lib.lftj_list_grid(ctypes.byref(out)))
+        grid = _grids[dev] = out.value
+    return grid
+
+
+def _run_listing(dev: torch.device, words: int,
+                 run: Callable[[torch.Tensor], List[int]]):
+    """The listing protocol: ``run(ws)`` launches one call into workspace
+    ``ws`` and returns its header, read in one copy. On overflow the
+    workspace grows to the words the kernel reported and the call runs
+    once more; a second overflow raises. Returns (workspace, header)."""
+    ws = _workspace(dev, words)
+    head = run(ws)
+    if head[1]:
+        ws = _workspace(dev, head[2])
+        head = run(ws)
+        if head[1]:
+            raise RuntimeError("lftj_fused_list: the workspace overflowed "
+                               f"again after growing to {ws.numel()} words")
+    return ws, head
+
+
+def _launch_list(lib, desc: np.ndarray, c0: torch.Tensor, ws: torch.Tensor,
+                 capacity: int, grid: int) -> List[int]:
+    """One cooperative launch of the listing kernel; its header, read to
+    the host in one copy (the call's one synchronisation)."""
+    with torch.cuda.device(ws.device):
+        rc = lib.lftj_list_launch(desc.ctypes.data, c0.data_ptr(),
+                                  c0.numel(), ws.data_ptr(), ws.numel(),
+                                  capacity, grid, _build.stream_ptr(ws.device))
+    _build.check_launch("lftj_fused_list", rc)
+    return ws[:_HEAD].tolist()
+
+
+def launch_list(prep, capacity: int, *, words: Optional[int] = None
+                ) -> Tuple[int, torch.Tensor]:
     """Run the CUDA listing kernel on a prepared box (CUDA tensors):
     ``(exact total, (min(total, capacity), n_vars) int32 rows on the
     card)`` in the reference listing program's order. ``fused_list``
     calls it once per box; ``chip_smoke.py`` times it.
 
-    The frontier grows breadth first, one depth at a time (candidate
-    counts, a scan, live flags, a scan, the compacted next frontier), so it
-    stays in (depth-0 row, slot_1, ..., slot_d) order. Stable sorts by
-    slot_{n-2}, ..., slot_1 then put the prefixes in the reference's
-    (slot_1, ..., slot_{n-2}, depth-0 row) order, and a scan of their
-    innermost counts in that order gives each its output offset
-    (``csrc/lftj_fused.cu``, "Listing")."""
+    One cooperative launch runs every stage (expansion per depth, innermost
+    counts, ordering, offsets, the write; ``csrc/lftj_fused.cu``,
+    "Listing") in a workspace kept per device, and one copy brings its
+    header (total, overflow, words needed) to the host. The workspace
+    starts at a size taken from the capacity and the atoms' sizes (or at
+    ``words`` int64 words, which a check passes to force a regrowth); on
+    overflow it grows to the reported need and the call runs once more."""
     atom_dims, csrs, c0, consts = prep
     n_vars = max(sd for _, sd in atom_dims) + 1
     dev = c0.device
     lib = _library()
+    grid = _list_grid(lib, dev)
     desc = _descriptor(atom_dims, csrs, consts, n_vars)
-    i32, i64 = torch.int32, torch.int64
-    vals = c0.to(i32).reshape(1, -1).contiguous()
-    slots = torch.empty((0, vals.shape[1]), dtype=i32, device=dev)
-    n = vals.shape[1]
-    empty = torch.empty((0, n_vars), dtype=i32, device=dev)
-    with torch.cuda.device(dev):
-        stream = _build.stream_ptr(dev)
-
-        def run(entry, *args):
-            _build.check_launch("lftj_fused_list",
-                                entry(desc.ctypes.data, *args, stream))
-
-        for d in range(1, n_vars - 1):
-            row_len = torch.empty(n, dtype=i64, device=dev)
-            run(lib.lftj_list_rows_launch, d, vals.data_ptr(), n,
-                row_len.data_ptr())
-            pair_off = torch.zeros(n + 1, dtype=i64, device=dev)
-            torch.cumsum(row_len, 0, out=pair_off[1:])
-            n_pairs = int(pair_off[-1])
-            if n_pairs == 0:
-                LIST_LAUNCHES.add()
-                return 0, empty
-            live = torch.empty(n_pairs, dtype=torch.uint8, device=dev)
-            run(lib.lftj_list_expand_launch, d, vals.data_ptr(),
-                slots.data_ptr(), n, pair_off.data_ptr(), live.data_ptr(),
-                None, 0, 0, None, None)
-            pos = torch.cumsum(live, 0, dtype=i64)
-            n_next = int(pos[-1])
-            if n_next == 0:
-                LIST_LAUNCHES.add()
-                return 0, empty
-            pos -= live                                    # exclusive scan
-            next_vals = torch.empty((d + 1, n_next), dtype=i32, device=dev)
-            next_slots = torch.empty((d, n_next), dtype=i32, device=dev)
-            run(lib.lftj_list_expand_launch, d, vals.data_ptr(),
-                slots.data_ptr(), n, pair_off.data_ptr(), live.data_ptr(),
-                pos.data_ptr(), 1, n_next, next_vals.data_ptr(),
-                next_slots.data_ptr())
-            vals, slots, n = next_vals, next_slots, n_next
-        counts = torch.empty(n, dtype=i64, device=dev)
-        run(lib.lftj_list_count_launch, vals.data_ptr(), n,
-            counts.data_ptr())
-        order = torch.nonzero(counts).squeeze(1)
-        for j in reversed(range(slots.shape[0])):
-            order = order[torch.sort(slots[j][order], stable=True).indices]
-        cnt = counts[order]
-        offset = torch.cumsum(cnt, 0)
-        total = int(offset[-1]) if offset.numel() else 0
-        m = min(total, int(capacity))
-        out = torch.empty((m, n_vars), dtype=i32, device=dev)
-        if m:
-            offset -= cnt                                  # exclusive scan
-            n_write = int((offset < m).sum())
-            run(lib.lftj_list_write_launch, vals.data_ptr(), n,
-                order.data_ptr(), offset.data_ptr(), n_write, m,
-                out.data_ptr())
+    c0 = c0.to(torch.int32).contiguous()
+    capacity = int(capacity)
+    if words is None:
+        words = lib.lftj_list_base_words(grid) + 8 * (
+            c0.numel() + sum(v.numel() for _, _, v in csrs)) \
+            + (min(capacity, 1 << 22) * n_vars + 1) // 2
+    with _ws_lock:
+        ws, head = _run_listing(
+            dev, words,
+            lambda w: _launch_list(lib, desc, c0, w, capacity, grid))
+        total, rows_at, m = head[3], head[4], head[5]
+        rows = ws.view(torch.int32)[2 * rows_at:2 * rows_at + m * n_vars] \
+            .view(m, n_vars).clone()
     LIST_LAUNCHES.add()
-    return total, out
+    return total, rows
 
 
 def fused_count(atom_dims: Sequence[Tuple[int, int]],

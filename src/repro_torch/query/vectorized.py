@@ -42,6 +42,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.engine import resolve_torch_device
 from repro_torch.kernels.intersect import ops as intersect_ops
 from repro_torch.kernels.lftj_fused import ops as fused_ops
 
@@ -230,6 +231,8 @@ class VectorizedBoxJoin:
     innermost two-atom intersection onto ``kernels/intersect`` on
     ``torch_device`` (the CUDA kernel on the card, its plain torch version
     on the CPU) instead of the host ``searchsorted`` lane.
+    ``torch_device`` defaults to ``"cuda"`` and raises without CUDA, as
+    the engines do; pass ``"cpu"`` to run the plain versions.
 
     ``device`` picks the box-level lane: ``"host"`` (this module's staged
     per-level frontier machine) or ``"fused"``, which dispatches the
@@ -254,7 +257,7 @@ class VectorizedBoxJoin:
     def __init__(self, atoms: Sequence[BoundAtom], n_vars: int,
                  mode: str = "count", *,
                  kernel_lane: bool = False,
-                 torch_device="cpu",
+                 torch_device="cuda",
                  device: str = "host",
                  chunk_entries: int = 4_000_000,
                  capacity: Optional[int] = None):
@@ -263,7 +266,7 @@ class VectorizedBoxJoin:
         self.n = n_vars
         self.mode = mode
         self.kernel_lane = kernel_lane
-        self.torch_device = torch.device(torch_device)
+        self.torch_device = resolve_torch_device(torch_device)
         self.device = device
         self.chunk_entries = int(chunk_entries)
         self.capacity = None if capacity is None else int(capacity)

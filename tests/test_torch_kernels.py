@@ -13,10 +13,13 @@ import torch
 
 from repro.kernels import ledger as ref_ledger
 from repro.kernels.intersect.ops import intersect_count as ref_intersect
+from repro.kernels.intersect.ops import \
+    intersect_count_rows as ref_intersect_rows
 from repro.kernels.triangle_dense.ops import triangle_count as ref_dense
 from repro_torch.kernels import ledger as port_ledger
 from repro_torch.kernels.intersect import ops as intersect_ops
-from repro_torch.kernels.intersect.ref import SENTINEL, intersect_count_ref
+from repro_torch.kernels.intersect.ref import (SENTINEL, intersect_count_ref,
+                                               intersect_rows_ref)
 from repro_torch.kernels.triangle_dense import ops as dense_ops
 
 
@@ -162,6 +165,208 @@ def test_cpu_wrappers_do_not_count_launches():
     dense_ops.LAUNCHES.reset()
     t = torch.zeros((2, 2), dtype=torch.int32)
     intersect_ops.intersect_count(t, t)
+    off = torch.zeros(3, dtype=torch.int64)
+    intersect_ops.intersect_count_csr(off, t[0], off[:1], off, t[0], off[:1])
     u = torch.zeros((2, 2), dtype=torch.uint8)
     dense_ops.triangle_count(u, u, u)
     assert intersect_ops.LAUNCHES.n == 0 and dense_ops.LAUNCHES.n == 0
+
+
+# ---------------------------------------------------------------------------
+# the CSR form: intersect_rows_ref, intersect_count_csr, intersect_count_rows
+# ---------------------------------------------------------------------------
+
+# the kernel's work tile (csrc/intersect.cu kTile)
+KERNEL_TILE = 2048
+
+
+def csr_rows(rng, degs, hi):
+    """Compact CSR (int64 offsets, int32 values) whose row r holds degs[r]
+    sorted distinct values below hi."""
+    off = np.concatenate([[0], np.cumsum(degs)]).astype(np.int64)
+    vals = np.concatenate(
+        [np.sort(rng.choice(hi, size=int(d), replace=False))
+         for d in degs] + [np.zeros(0, np.int64)]).astype(np.int32)
+    return off, vals
+
+
+def csr_pairs(seed, n_pairs, n_keys, max_deg, hi, zero_share=0.2):
+    """Two CSR relations of n_keys rows (about zero_share of them empty)
+    and n_pairs random key positions on each side."""
+    rng = np.random.default_rng(seed)
+    sides = []
+    for _ in range(2):
+        degs = rng.integers(0, max_deg + 1, size=n_keys)
+        degs[rng.random(n_keys) < zero_share] = 0
+        off, vals = csr_rows(rng, degs, hi)
+        pos = rng.integers(0, n_keys, size=n_pairs).astype(np.int64)
+        sides.append((off, vals, pos))
+    return sides
+
+
+def hub_pair(wide, narrow, hi, seed):
+    """One pair: a wide row of `wide` values and a narrow one of `narrow`,
+    both drawn from [0, hi)."""
+    rng = np.random.default_rng(seed)
+    sides = []
+    for deg in (wide, narrow):
+        off, vals = csr_rows(rng, [deg], hi)
+        sides.append((off, vals, np.zeros(1, np.int64)))
+    return sides
+
+
+def straddling_pairs(seed):
+    """Pairs whose probe counts put tile edges inside pairs, at pair
+    boundaries and on pairs without work."""
+    rng = np.random.default_rng(seed)
+    degs_a = np.array([2047, 1, 0, 2048, 3000, 5, 4096, 1, 2049, 0, 700])
+    degs_b = np.array([2100, 1, 9, 2048, 3100, 2, 4200, 3, 2049, 4, 800])
+    sides = []
+    for degs in (degs_a, degs_b):
+        off, vals = csr_rows(rng, degs, 12_000)
+        sides.append((off, vals, np.arange(len(degs), dtype=np.int64)))
+    return sides
+
+
+def empty_side(seed):
+    (off_a, vals_a, pos_a), b = csr_pairs(seed, 50, 30, 6, 40)
+    return [(np.zeros(31, np.int64), np.zeros(0, np.int32), pos_a), b]
+
+
+CSR_CASES = {
+    # name: (input maker, also run the reference's Pallas kernel in
+    # interpret mode)
+    "empty_rows": (lambda: empty_side(1), True),
+    "degree0_positions": (lambda: csr_pairs(2, 64, 20, 9, 30, 0.5), True),
+    "pairs_0": (lambda: csr_pairs(3, 0, 10, 4, 20), False),
+    "pairs_1": (lambda: csr_pairs(4, 1, 10, 40, 60, 0.0), True),
+    "pairs_8191": (lambda: csr_pairs(5, 8191, 300, 5, 40), False),
+    "pairs_8192": (lambda: csr_pairs(6, 8192, 300, 5, 40), False),
+    "pairs_8193": (lambda: csr_pairs(7, 8193, 300, 5, 40), False),
+    "hub_wide_window": (lambda: hub_pair(60_000, 50_000, 1_000_000, 8),
+                        False),
+    "hub_dense": (lambda: hub_pair(60_000, 50_000, 80_000, 9), False),
+    "many_tiny": (lambda: csr_pairs(10, 100_000, 5000, 3, 8, 0.1), False),
+    "tile_edges": (lambda: straddling_pairs(11), False),
+}
+
+
+def brute_pairs(sides):
+    (off_a, vals_a, pos_a), (off_b, vals_b, pos_b) = sides
+    return np.array([len(np.intersect1d(vals_a[off_a[i]:off_a[i + 1]],
+                                        vals_b[off_b[j]:off_b[j + 1]]))
+                     for i, j in zip(pos_a, pos_b)], dtype=np.int64)
+
+
+def torch_sides(sides):
+    return [t for side in sides for t in map(torch.from_numpy, side)]
+
+
+@pytest.mark.parametrize("case", sorted(CSR_CASES))
+def test_intersect_rows_match_reference(case):
+    """intersect_rows_ref (the CPU lane and the card's oracle) per pair,
+    and intersect_count_csr / intersect_count_rows totals, against brute
+    force and the reference's intersect_count_rows (its plain version, and
+    its Pallas kernel in interpret mode on the small cases)."""
+    build, interpret = CSR_CASES[case]
+    sides = build()
+    (off_a, vals_a, pos_a), (off_b, vals_b, pos_b) = sides
+    brute = brute_pairs(sides)
+    want = ref_intersect_rows(off_a, vals_a, pos_a, off_b, vals_b, pos_b,
+                              use_pallas=False)
+    assert want == int(brute.sum())
+    if interpret:
+        assert ref_intersect_rows(off_a, vals_a, pos_a, off_b, vals_b,
+                                  pos_b, use_pallas=True,
+                                  interpret=True) == want
+    t = torch_sides(sides)
+    per_pair = intersect_rows_ref(*t)
+    assert per_pair.dtype == torch.int32
+    np.testing.assert_array_equal(per_pair.numpy(), brute)
+    total = intersect_ops.intersect_count_csr(*t)
+    assert total.dtype == torch.int64 and total.dim() == 0
+    assert int(total) == want
+    with ref_ledger.attach() as rl:
+        ref_intersect_rows(off_a, vals_a, pos_a, off_b, vals_b, pos_b,
+                           use_pallas=False)
+    with port_ledger.attach() as pl:
+        assert intersect_ops.intersect_count_rows(*t) == want
+    assert pl.invocations == rl.invocations == -(-len(pos_a) // 8192)
+
+
+def test_intersect_rows_note_the_padded_tile_bytes():
+    """intersect_count_rows notes each 8,192-pair chunk with the bytes of
+    its SENTINEL-padded tiles as wide as the chunk's widest row (at least
+    1), computed without building them."""
+    t = torch_sides(csr_pairs(12, 20_000, 400, 30, 200))
+    off_a, _, pos_a, off_b, _, pos_b = t
+    deg_a = (off_a[1:] - off_a[:-1])[pos_a]
+    deg_b = (off_b[1:] - off_b[:-1])[pos_b]
+    want_in = want_out = 0
+    for s in range(0, len(pos_a), 8192):
+        e = len(pos_a[s:s + 8192])
+        ka = max(1, int(deg_a[s:s + 8192].max()))
+        kb = max(1, int(deg_b[s:s + 8192].max()))
+        want_in += 4 * e * (ka + kb)
+        want_out += 4 * e
+    with port_ledger.attach() as pl:
+        intersect_ops.intersect_count_rows(*t)
+    assert (pl.invocations, pl.bytes_in, pl.bytes_out) == \
+        (3, want_in, want_out)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_work_split_matches_brute_force(seed):
+    """work_offsets is the exclusive scan of min(deg_a, deg_b); the
+    kernel's split of that space into fixed tiles (each tile's first and
+    last pair by binary search; one pair's slice, or runs of
+    KERNEL_TILE / 256 probes per thread that walk their pairs in order)
+    covers every probe of every pair exactly once."""
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(1, 400))
+    deg_a = rng.integers(0, 3 * KERNEL_TILE, size=n)
+    deg_b = rng.integers(0, 3 * KERNEL_TILE, size=n)
+    deg_a[rng.random(n) < 0.3] = 0
+    work_off = intersect_ops.work_offsets(torch.from_numpy(deg_a),
+                                          torch.from_numpy(deg_b)).numpy()
+    w = np.minimum(deg_a, deg_b)
+    np.testing.assert_array_equal(work_off,
+                                  np.concatenate([[0], np.cumsum(w)]))
+    covered = []
+    n_tiles = -(-int(work_off[n]) // KERNEL_TILE)
+    for t in range(n_tiles):
+        g0 = t * KERNEL_TILE
+        g1 = min(int(work_off[n]), g0 + KERNEL_TILE)
+        p0 = int(np.searchsorted(work_off[:n], g0, side="right")) - 1
+        p1 = int(np.searchsorted(work_off[:n], g1 - 1, side="right")) - 1
+        if p0 == p1:
+            base = work_off[p0]
+            covered += [(p0, k) for k in range(g0 - base, g1 - base)]
+        else:
+            run = KERNEL_TILE // 256
+            for r0 in range(g0, g1, run):
+                p = p0 + int(np.searchsorted(work_off[p0:p1 + 1], r0,
+                                             side="right")) - 1
+                for g in range(r0, min(g1, r0 + run)):
+                    while g >= work_off[p + 1]:
+                        p += 1
+                    covered.append((p, g - int(work_off[p])))
+    brute = [(p, k) for p in range(n) for k in range(int(w[p]))]
+    assert covered == brute
+
+
+def test_intersect_csr_rejects_bad_inputs():
+    t = torch_sides(csr_pairs(13, 5, 6, 3, 10))
+    off_a, vals_a, pos_a, off_b, vals_b, pos_b = t
+    with pytest.raises(ValueError, match="vals_a must be"):
+        intersect_ops.intersect_count_csr(off_a, vals_a.long(), pos_a,
+                                          off_b, vals_b, pos_b)
+    with pytest.raises(ValueError, match="pos_b must be"):
+        intersect_ops.intersect_count_csr(off_a, vals_a, pos_a, off_b,
+                                          vals_b, pos_b.int())
+    with pytest.raises(ValueError, match="differ in length"):
+        intersect_ops.intersect_count_csr(off_a, vals_a, pos_a, off_b,
+                                          vals_b, pos_b[:2])
+    meta = [x.to("meta") for x in t]
+    with pytest.raises(ValueError, match="unsupported device"):
+        intersect_ops.intersect_count_csr(*meta)

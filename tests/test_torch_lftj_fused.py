@@ -27,7 +27,7 @@ from repro_torch.kernels.lftj_fused import ops as fused_ops
 from repro_torch.kernels.lftj_fused.ops import (FusedUnsupported, fused_count,
                                                 fused_list, fused_supported)
 from repro_torch.kernels.lftj_fused.ref import (SENTINEL, fused_count_ref,
-                                                fused_ref)
+                                                fused_list_ref, fused_ref)
 
 # atom shapes over the variable order, as the reference's planner emits
 # them (tests/test_lftj_fused.py): the diamond leaves variable 1
@@ -371,7 +371,7 @@ def test_fused_count_box_matches_reference():
         assert getattr(p_ex.stats, f) == getattr(r_ex.stats, f), f
 
 
-def test_listing_off_the_cpu_raises_until_its_kernel(monkeypatch):
+def test_listing_hands_card_tensors_to_its_kernel(monkeypatch):
     """fused_list runs its plain version for CPU tensors and hands CUDA
     tensors to the listing kernel's launcher, whose rows it returns as
     int64 (no fallback to the plain version); any other device raises
@@ -408,3 +408,64 @@ def test_listing_off_the_cpu_raises_until_its_kernel(monkeypatch):
         fused_list(dims, [csr] * 3, 3, capacity=8)
     with pytest.raises(ValueError, match="unsupported device"):
         fused_count(dims, [csr] * 3, 3)
+
+
+def test_listing_workspace_regrows_and_reruns_once(monkeypatch):
+    """launch_list's protocol around the listing kernel, with a launcher
+    that computes the call with the plain version: one launch and one
+    header read per call; when the kept workspace is too small the kernel
+    reports overflow and the words it needs, the workspace grows to that
+    and the call runs once more (rows byte-equal to the plain version);
+    the workspace is kept and never shrinks; a second overflow raises."""
+    csr = tensors([graph_csr(*er_graph(40, 0.3, 5))])[0]
+    dims = DIMS["four_clique"]
+    prep = fused_ops._prepare(dims, [csr] * 6, 4)
+    layout = fused_ops.padded_layout(dims, [csr] * 6, 4)
+    base, need = 16, [1 << 16]
+    runs = []
+
+    class Lib:
+        @staticmethod
+        def lftj_list_base_words(grid):
+            return base
+
+    def launch(lib, desc, c0, ws, capacity, grid):
+        runs.append(ws.numel())
+        if ws.numel() < need[0]:
+            ws[:6] = torch.tensor([base, 1, need[0], 0, 0, 0])
+        else:
+            total, rows = fused_list_ref(dims, *layout, 4, capacity)
+            flat = rows.to(torch.int32).flatten()
+            ws.view(torch.int32)[2 * base:2 * base + flat.numel()] = flat
+            ws[:6] = torch.tensor([base + flat.numel(), 0, need[0], total,
+                                   base, rows.shape[0]])
+        return ws[:6].tolist()
+
+    monkeypatch.setattr(fused_ops, "_library", lambda: Lib)
+    monkeypatch.setattr(fused_ops, "_list_grid", lambda lib, dev: 4)
+    monkeypatch.setattr(fused_ops, "_launch_list", launch)
+    monkeypatch.setattr(fused_ops, "_workspaces", {})
+    before = fused_ops.LIST_LAUNCHES.n
+    for cap in (7, 10_000):
+        want_total, want = fused_list_ref(dims, *layout, 4, cap)
+        total, rows = fused_ops.launch_list(prep, cap)
+        assert total == want_total > 7
+        assert rows.dtype == torch.int32
+        assert rows.long().numpy().tobytes() == want.numpy().tobytes()
+    # the first call overflowed the first workspace and ran again in one
+    # of the reported size; the second ran once in the kept workspace
+    assert len(runs) == 3 and runs[0] < need[0] and runs[1:] == [need[0]] * 2
+    assert fused_ops.LIST_LAUNCHES.n - before == 2
+    need[0] = 1 << 10                   # a smaller call keeps the workspace
+    fused_ops.launch_list(prep, 7)
+    assert runs[-1] == 1 << 16
+    need[0] = 1 << 30
+    Lib.lftj_list_base_words = staticmethod(lambda grid: 1 << 17)
+
+    def always_short(lib, desc, c0, ws, capacity, grid):
+        runs.append(ws.numel())
+        return [base, 1, ws.numel() + 1, 0, 0, 0]
+
+    monkeypatch.setattr(fused_ops, "_launch_list", always_short)
+    with pytest.raises(RuntimeError, match="overflowed again"):
+        fused_ops.launch_list(prep, 7)

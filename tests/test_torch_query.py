@@ -34,7 +34,7 @@ from repro_torch.core.lftj_torch import orient_edges
 from repro_torch.kernels import ledger
 from repro_torch.kernels.intersect import ops as intersect_ops
 from repro_torch.kernels.lftj_fused import ops as fused_ops
-from repro_torch.query.vectorized import build_atom_slice
+from repro_torch.query.vectorized import VectorizedBoxJoin, build_atom_slice
 
 
 def er_graph(n, p, seed):
@@ -156,10 +156,12 @@ def test_query_engine_matches_reference(ref_interpret, pattern, graph,
 
 def test_lanes_reach_their_kernel_wrappers(monkeypatch):
     """Which wrapper each lane reaches, counted on the port's own ledger:
-    the intersect lane calls intersect_count once per 8,192 innermost
-    pairs, the fused lane one fused_count / fused_list per box."""
+    the intersect lane calls intersect_count_csr once per innermost
+    two-atom step (the ledger notes one launch per 8,192 pairs, as the
+    reference does, and no step here reaches 8,192 pairs), the fused lane
+    one fused_count / fused_list per box."""
     calls = {"intersect": 0, "count": 0, "list": 0}
-    real = (intersect_ops.intersect_count, fused_ops.fused_count,
+    real = (intersect_ops.intersect_count_csr, fused_ops.fused_count,
             fused_ops.fused_list)
 
     def counted(key, fn):
@@ -168,7 +170,7 @@ def test_lanes_reach_their_kernel_wrappers(monkeypatch):
             return fn(*a, **kw)
         return wrap
 
-    monkeypatch.setattr(intersect_ops, "intersect_count",
+    monkeypatch.setattr(intersect_ops, "intersect_count_csr",
                         counted("intersect", real[0]))
     monkeypatch.setattr(fused_ops, "fused_count", counted("count", real[1]))
     monkeypatch.setattr(fused_ops, "fused_list", counted("list", real[2]))
@@ -319,3 +321,19 @@ def test_options_not_ported_and_devices():
             QueryEngine.from_graph(q, src, dst)
     assert query_count(q, src, dst, torch_device="cpu") == \
         RefEngine.from_graph(ref_patterns.triangle(), src, dst).count()
+
+
+def test_box_join_defaults_to_the_card():
+    """VectorizedBoxJoin, which repro_torch.query exports, runs on the card
+    unless the caller asks for the CPU, as the engines do: its default
+    device is "cuda", which raises without CUDA; "cpu" is taken as asked
+    and other devices raise ValueError."""
+    join = VectorizedBoxJoin([], 2, torch_device="cpu")
+    assert join.torch_device == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert VectorizedBoxJoin([], 2).torch_device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            VectorizedBoxJoin([], 2)
+    with pytest.raises(ValueError, match="only 'cuda' and 'cpu'"):
+        VectorizedBoxJoin([], 2, torch_device="meta")
