@@ -392,12 +392,9 @@ def check_csr_cases(torch, np, intersect_ops) -> int:
         assert int(total) == int(want.sum(dtype=torch.int64)), name
         n = pos_a.numel()
         if n:
-            deg_a = off_a[pos_a + 1] - off_a[pos_a]
-            deg_b = off_b[pos_b + 1] - off_b[pos_b]
             _, per_pair = intersect_ops._launch(
                 (off_a, off_a[1:], vals_a, pos_a),
-                (off_b, off_b[1:], vals_b, pos_b),
-                intersect_ops.work_offsets(deg_a, deg_b), n, per_pair=True)
+                (off_b, off_b[1:], vals_b, pos_b), n, per_pair=True)
             assert torch.equal(per_pair, want), name
         a, b = padded_of(torch, off_a, vals_a), padded_of(torch, off_b,
                                                           vals_b)
@@ -619,14 +616,17 @@ def phase_list_cases(torch, np, fused_ops) -> dict:
         # twice: the process's first sync-debug window may hold a one-time
         # synchronisation of PyTorch's own (SYNC_SITES names it), so the
         # second run's count is the call's
+        start_words = fused_ops._start_words
+        fused_ops._start_words = lambda *_: base
         for _ in range(2):
             fused_ops._workspaces.pop(dev, None)
             (total, rows), k = count_syncs(
-                torch, lambda: fused_ops.launch_list(prep, cap, words=base))
+                torch, lambda: fused_ops.launch_list(prep, cap))
             assert total == plain_total, (dims, total, plain_total)
             assert rows.long().cpu().numpy().tobytes() == \
                 plain.cpu().numpy().tobytes(), dims
             syncs.append(k)
+        fused_ops._start_words = start_words
         grown = fused_ops._workspaces[dev].numel()
         assert grown > base, (grown, base)
         regrowths.append({"base_words": base, "grown_words": grown,
@@ -1317,11 +1317,12 @@ def phase_embedding_bag(torch, np, ops, shared, bag_ops) -> dict:
 # ---------------------------------------------------------------------------
 
 def intersect_bound(torch, args) -> tuple:
-    """(bytes, probe steps) one intersect_count_csr call needs: each
+    """(bytes, comparisons) one intersect_count_csr call needs: each
     referenced row's values, its two offsets and the pair positions read
-    once, the total written once; per pair, min(deg) probes of
-    ceil(log2(max deg + 1)) binary-search steps each (the kernel merges no
-    rows, so this stays a lower bound of its design)."""
+    once, the total written once; per pair of lengths lo <= hi,
+    lo·log2(1 + hi/lo) comparisons, the least that any comparison-based
+    intersection of two sorted sets needs (a merge, a binary search per
+    probe or a gallop from hit to hit all need at least as many)."""
     off_a, vals_a, pos_a, off_b, vals_b, pos_b = args
     deg_a = off_a[pos_a + 1] - off_a[pos_a]
     deg_b = off_b[pos_b + 1] - off_b[pos_b]
@@ -1329,9 +1330,22 @@ def intersect_bound(torch, args) -> tuple:
     for off, pos in ((off_a, pos_a), (off_b, pos_b)):
         rows = torch.unique(pos)
         real += 4 * int((off[rows + 1] - off[rows]).sum()) + 16 * len(rows)
+    lo = torch.minimum(deg_a, deg_b).double()
+    hi = torch.maximum(deg_a, deg_b).double()
+    steps = torch.where(lo > 0, torch.log2(1 + hi / lo.clamp(min=1)), 0)
+    return real + 16 * len(pos_a) + 8, float((lo * steps).sum())
+
+
+def intersect_bound_per_probe(torch, args) -> float:
+    """The comparisons of a coarser bound for the same call, one full
+    binary search per probe: min(deg)·ceil(log2(max deg + 1)). Printed
+    beside the bound so that readings taken against it can be compared."""
+    off_a, _, pos_a, off_b, _, pos_b = args
+    deg_a = off_a[pos_a + 1] - off_a[pos_a]
+    deg_b = off_b[pos_b + 1] - off_b[pos_b]
     lo, hi = torch.minimum(deg_a, deg_b), torch.maximum(deg_a, deg_b)
     steps = torch.ceil(torch.log2(hi.double() + 1))
-    return real + 16 * len(pos_a) + 8, float((lo.double() * steps).sum())
+    return float((lo.double() * steps).sum())
 
 
 def time_intersect(torch, rec, rows_rec, launches: int, reps: int,
@@ -1361,11 +1375,18 @@ def time_intersect(torch, rec, rows_rec, launches: int, reps: int,
         rmat_err, rmat_ms = measure(rmat_args)
         err = max(err, rmat_err)
         rb, ro = intersect_bound(torch, rmat_args)
+        ro_probe = intersect_bound_per_probe(torch, rmat_args)
+        t_rb = rb / HBM_BYTES_PER_S * 1e3
+        t_ro = ro / SCALAR_OPS_PER_S * 1e3
         rmat = {"pairs": int(len(rmat_args[2])), "ms": rmat_ms,
                 "plain_ms": cuda_ms(lambda: intersect_rows_ref(*rmat_args),
                                     max(1, reps // 10)),
-                "bound_ms": max(rb / HBM_BYTES_PER_S, ro / SCALAR_OPS_PER_S)
-                * 1e3, "max_abs_err": rmat_err}
+                "bound_ms": max(t_rb, t_ro),
+                "bound_by": "bytes" if t_rb >= t_ro else "operations",
+                "bytes_ms": t_rb, "ops_ms": t_ro,
+                "per_probe_ops_ms": ro_probe / SCALAR_OPS_PER_S * 1e3,
+                "bytes": rb, "ops": ro, "per_probe_ops": ro_probe,
+                "max_abs_err": rmat_err}
     n_bytes, n_ops = intersect_bound(torch, args)
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / SCALAR_OPS_PER_S * 1e3

@@ -13,7 +13,17 @@ Runs, each on a graph made from a fixed seed:
   workers) at RMAT scale ``--scale``: the wall of a warm ``count()``, and
   ``intersect_count_rows`` timed at its largest and median call;
 * ``engine_intersect``: ``TriangleEngine(backend="intersect")`` count at
-  RMAT scale ``--scale``: the wall of a warm ``count()``.
+  RMAT scale ``--scale``: the wall of a warm ``count()``, and the lane's
+  intersect call timed at its largest and median box;
+* ``rmat_box``: ``TriangleEngine`` on ``auto`` at RMAT scale 20 with
+  ``mem_words=2^21`` (chip_smoke.py's rmat phase): the lane's intersect
+  call timed at its largest box (the smoke's "rmat box") and its median
+  box.
+
+A box's intersect call is timed as the tree's own lane makes it: through
+``intersect_count_csr`` on the box's compact CSR where the tree has that
+wrapper, else through ``intersect_count`` on the box's padded matrix
+(built before the timing).
 
 Counts and listing sizes are printed so the trees can be checked against
 each other. One JSON line per run, tagged with ``--tag``. Run from the
@@ -22,6 +32,9 @@ parent:
 
     python3 scripts/kernel_ab_probe.py --src build/parent/src --tag parent
     python3 scripts/kernel_ab_probe.py --tag change
+
+``--runs`` picks the runs (default: listing, query_triangle,
+engine_intersect).
 """
 
 from __future__ import annotations
@@ -78,6 +91,59 @@ class Calls:
         setattr(self.module, self.attr, self.orig)
 
 
+class Boxes:
+    """Wraps ``StreamingExecutor._count_intersect``: keeps the slice of
+    the largest box (by in-box edges) and the first slice of each
+    power-of-two size bucket, for the median."""
+
+    def __init__(self, cls):
+        self.cls, self.orig = cls, cls._count_intersect
+        self.sizes, self.by_bucket, self.largest = [], {}, None
+        boxes = self
+
+        def record(executor, slc):
+            boxes.sizes.append(slc.n_edges)
+            boxes.by_bucket.setdefault(slc.n_edges.bit_length(), slc)
+            if boxes.largest is None or slc.n_edges > boxes.largest.n_edges:
+                boxes.largest = slc
+            return boxes.orig(executor, slc)
+
+        cls._count_intersect = record
+
+    def pick(self):
+        """(largest, median) slices."""
+        med = statistics.median_low(self.sizes)
+        return self.largest, self.by_bucket[med.bit_length()]
+
+    def restore(self):
+        self.cls._count_intersect = self.orig
+
+
+def box_call(torch, iops, slc, dev):
+    """The tree's own intersect call for one box, as its lane makes it."""
+    eu, ev = slc.edges(dev)
+    if hasattr(iops, "intersect_count_csr"):
+        off = torch.from_numpy(slc.row_off).to(dev)
+        vals = torch.from_numpy(slc.row_vals).to(dev)
+        args = (off, vals, eu.long(), off, vals, ev.long())
+        return lambda: iops.intersect_count_csr(*args)
+    npad, _ = slc.padded(dev)
+    return lambda: iops.intersect_count(npad, npad, eu, ev).sum(
+        dtype=torch.int64)
+
+
+def time_boxes(torch, iops, boxes) -> dict:
+    """ms of the lane's intersect call at the largest and median box."""
+    dev = torch.device("cuda")
+    out = {"boxes": len(boxes.sizes)}
+    for name, slc in zip(("largest", "median"), boxes.pick()):
+        fn = box_call(torch, iops, slc, dev)
+        out[name] = {"edges": int(slc.n_edges),
+                     "pad_shape": list(slc.pad_shape),
+                     "count": int(fn()), "ms": cuda_ms(torch, fn)}
+    return out
+
+
 def walled(torch, fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -92,7 +158,12 @@ def main() -> int:
                     help="the src/ directory of the tree to time")
     ap.add_argument("--tag", default="change")
     ap.add_argument("--scale", type=int, default=18)
+    ap.add_argument("--runs", default="listing,query_triangle,"
+                    "engine_intersect",
+                    help="comma list of listing, query_triangle, "
+                    "engine_intersect, rmat_box")
     args = ap.parse_args()
+    runs = set(args.runs.split(","))
     sys.path.insert(0, str(Path(args.src).resolve()))
     import torch
     if not torch.cuda.is_available():
@@ -100,6 +171,7 @@ def main() -> int:
         return 2
     import repro_torch
     from repro_torch import TriangleEngine
+    from repro_torch.core.executor import StreamingExecutor
     from repro_torch.core.lftj_torch import csr_from_edges, orient_edges
     from repro_torch.data.edgestore import InMemoryEdgeSource
     from repro_torch.data.graphs import rmat_graph
@@ -114,52 +186,69 @@ def main() -> int:
         csr = csr_from_edges(a, b, n_nodes=int(max(a.max(), b.max())) + 1)
         return {"E": InMemoryEdgeSource(*csr, orientation="minmax")}
 
-    # listing
-    src, dst = rmat_graph(1 << 12, 16 << 12, seed=1)
-    eng = QueryEngine(patterns.four_clique(), relations=relations(src, dst),
-                      mem_words=1 << 14, backend="fused")
-    eng.list()
-    calls = Calls(fops, "fused_list", lambda a, out: len(out[1]))
-    rows, wall = walled(torch, eng.list)
-    calls.restore()
-    timed = {}
-    for name, (size, (dims, csrs, n), kw) in zip(("largest", "median"),
-                                                 calls.pick()):
-        prep = fops._prepare(dims, csrs, n)
-        cap = kw["capacity"]
-        timed[name] = {"rows": size, "capacity": cap,
-                       "ms": cuda_ms(torch,
-                                     lambda: fops.launch_list(prep, cap))}
-    emit(dict(tag, run="listing", rows=len(rows), list_s=wall,
-              calls=len(calls.calls), launch_list=timed))
+    if "listing" in runs:
+        src, dst = rmat_graph(1 << 12, 16 << 12, seed=1)
+        eng = QueryEngine(patterns.four_clique(),
+                          relations=relations(src, dst), mem_words=1 << 14,
+                          backend="fused")
+        eng.list()
+        calls = Calls(fops, "fused_list", lambda a, out: len(out[1]))
+        rows, wall = walled(torch, eng.list)
+        calls.restore()
+        timed = {}
+        for name, (size, (dims, csrs, n), kw) in zip(("largest", "median"),
+                                                     calls.pick()):
+            prep = fops._prepare(dims, csrs, n)
+            cap = kw["capacity"]
+            timed[name] = {"rows": size, "capacity": cap,
+                           "ms": cuda_ms(torch,
+                                         lambda: fops.launch_list(prep, cap))}
+        emit(dict(tag, run="listing", rows=len(rows), list_s=wall,
+                  calls=len(calls.calls), launch_list=timed))
 
-    # QueryEngine triangle
-    src, dst = rmat_graph(1 << args.scale, 16 << args.scale, seed=0)
-    rel = relations(src, dst)
-    eng = QueryEngine(patterns.triangle(), relations=rel,
-                      mem_words=1 << (args.scale + 1), workers=8)
-    eng.count()
-    calls = Calls(iops, "intersect_count_rows",
-                  lambda a, out: int(a[2].numel()))
-    count, wall = walled(torch, eng.count)
-    calls.restore()
-    timed = {}
-    for name, (size, a, kw) in zip(("largest", "median"), calls.pick()):
-        timed[name] = {"pairs": size,
-                       "ms": cuda_ms(torch,
-                                     lambda: iops.intersect_count_rows(*a))}
-    emit(dict(tag, run="query_triangle", scale=args.scale, count=count,
-              count_s=wall, calls=len(calls.calls),
-              intersect_count_rows=timed))
+    if runs & {"query_triangle", "engine_intersect"}:
+        src, dst = rmat_graph(1 << args.scale, 16 << args.scale, seed=0)
+    if "query_triangle" in runs:
+        eng = QueryEngine(patterns.triangle(), relations=relations(src, dst),
+                          mem_words=1 << (args.scale + 1), workers=8)
+        eng.count()
+        calls = Calls(iops, "intersect_count_rows",
+                      lambda a, out: int(a[2].numel()))
+        count, wall = walled(torch, eng.count)
+        calls.restore()
+        timed = {}
+        for name, (size, a, kw) in zip(("largest", "median"), calls.pick()):
+            timed[name] = {"pairs": size,
+                           "ms": cuda_ms(torch,
+                                         lambda: iops.intersect_count_rows(
+                                             *a))}
+        emit(dict(tag, run="query_triangle", scale=args.scale, count=count,
+                  count_s=wall, calls=len(calls.calls),
+                  intersect_count_rows=timed))
 
-    # TriangleEngine, every box through the intersect lane
-    eng = TriangleEngine(src, dst, mem_words=1 << (args.scale + 1),
-                         backend="intersect")
-    eng.count()
-    count, wall = walled(torch, eng.count)
-    emit(dict(tag, run="engine_intersect", scale=args.scale, count=count,
-              count_s=wall, boxes=eng.stats.n_boxes,
-              intersect_boxes=eng.stats.n_intersect_boxes))
+    if "engine_intersect" in runs:
+        # every box through the intersect lane
+        eng = TriangleEngine(src, dst, mem_words=1 << (args.scale + 1),
+                             backend="intersect")
+        eng.count()
+        boxes = Boxes(StreamingExecutor)
+        count, wall = walled(torch, eng.count)
+        boxes.restore()
+        emit(dict(tag, run="engine_intersect", scale=args.scale, count=count,
+                  count_s=wall, boxes=eng.stats.n_boxes,
+                  intersect_boxes=eng.stats.n_intersect_boxes,
+                  box_call=time_boxes(torch, iops, boxes)))
+
+    if "rmat_box" in runs:
+        src, dst = rmat_graph(1 << 20, 16 << 20, seed=0)
+        eng = TriangleEngine(src, dst, mem_words=1 << 21)
+        eng.plan()
+        boxes = Boxes(StreamingExecutor)
+        count, wall = walled(torch, eng.count)
+        boxes.restore()
+        emit(dict(tag, run="rmat_box", count=count, count_s=wall,
+                  intersect_boxes=eng.stats.n_intersect_boxes,
+                  box_call=time_boxes(torch, iops, boxes)))
     return 0
 
 

@@ -85,9 +85,9 @@ class BoxSlice:
     ``pad_shape`` on a torch device — all-SENTINEL pad rows from index
     ``len(rows)`` — from the compact CSR, and caches it: the binary and
     listing lanes need it, while the host and dense lanes never
-    materialize it. The intersect lane reads the compact CSR itself but
-    charges the padded words the reference's lane builds
-    (``charge_padded``), so ``padded_words`` stays the reference's.
+    materialize it. ``charge_padded`` says whether the reference's lane for
+    this slice builds that matrix: set by ``padded`` and by the intersect
+    lane, which reads the compact CSR and builds none.
     """
 
     box: Tuple[int, int, int, int]
@@ -517,9 +517,12 @@ class StreamingExecutor:
     def _note_padding(self, slc: BoxSlice) -> None:
         """Charge the padded-vs-actual ledger for one finished slice.
 
-        ``padded_words`` counts only *materialized* padded neighbor-matrix
-        words: the slice's padded matrix is charged iff some lane built it.
-        The host and dense lanes never do.
+        ``padded_words`` is the reference's figure: the padded
+        neighbor-matrix words its lanes materialize, charged iff the slice
+        ran a lane that builds one there (``charge_padded``). The host and
+        dense lanes never do. It is not the port's device memory: the
+        port's intersect lane builds no padded matrix but charges the one
+        the reference's builds.
         """
         s = self.stats
         if s is None:
@@ -651,7 +654,7 @@ class StreamingExecutor:
         """One intersect launch over every in-box edge: the kernel reads
         the slice's compact CSR at the edges' local row ids, so no padded
         matrix is built. The kernel ledger gets the reference's one note
-        per box, with the bytes of the padded matrix its lane reads."""
+        per box, for the padded matrix its lane reads."""
         dev = self.torch_device
         off = torch.from_numpy(slc.row_off).to(dev)
         vals = torch.from_numpy(slc.row_vals).to(dev)
@@ -659,9 +662,7 @@ class StreamingExecutor:
         total = intersect_ops.intersect_count_csr(off, vals, eu.long(), off,
                                                   vals, ev.long())
         slc.charge_padded = True
-        e = slc.n_edges
-        kernel_ledger.note(1, bytes_in=4 * (slc.padded_words + 2 * e),
-                           bytes_out=4 * e)
+        intersect_ops.note_padded(slc.padded_words, slc.n_edges)
         return int(total)
 
     def _count_fused(self, slc: BoxSlice) -> Optional[int]:

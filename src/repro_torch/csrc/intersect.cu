@@ -16,39 +16,52 @@
 //   the row's first and one-past-last value index (beg[r], end[r]). For
 //   CSR offsets beg = off and end = off + 1; the padded per-row API reads
 //   its (R, K) matrix as CSR with beg[r] = r * stride and end[r] = beg[r]
-//   plus the row's SENTINEL bound, found once per row (row_span_kernel).
-//   Each pair i names its rows by key positions pos_a[i], pos_b[i].
-// * Work split, not row split. The caller passes work_off, the exclusive
-//   scan of w_i = min(d_a, d_b) (n_pairs + 1 entries). A fixed grid walks
-//   tiles of kTile probes of that work space, grid-stride; the tile count
-//   is read from work_off[n_pairs] on the device, so the host never reads
-//   a size. A tile finds its first and last pair by binary search in
-//   work_off. A hub pair thus spans many blocks, and a run of small pairs
-//   shares one block.
-// * One pair in the tile (hub pairs, long rows): the block stages the
-//   window of the wide row that its narrow slice [s, e) can hit,
-//   [lb(wide, narrow[s]), lb(wide, narrow[e-1]) + 1), into shared memory
-//   with cp.async (16-byte copies for the aligned body, 4-byte at the
-//   edges). Each thread takes a contiguous run of kRun probes of the slice,
-//   binary-searches the first in the window and gallops from hit to hit
-//   (steps 1, 2, 4, ...): the dependent steps hit shared memory (~30
-//   cycles) instead of L2 or HBM (~300-600), and a probe costs O(log gap)
-//   steps, not O(log window). A window wider than the buffer (a sparse
-//   narrow slice over a dense wide row) takes the same runs in global
-//   memory.
-// * Several pairs in the tile (short rows): each thread takes a contiguous
-//   run of kRun probes, finds its first pair by binary search in the
-//   tile's range of work_off, walks the following pairs in order, and
-//   searches each wide row in global memory: a binary search for its first
-//   probe in a pair, then gallops from its last hit (its probes ascend
-//   within a pair).
-// * Merge-path splits for rows of comparable length are not used: with
-//   the window in shared memory a probe is a few shared loads, and the
-//   split would add a co-rank search per thread.
+//   plus the row's real length (ops.py). Each pair i names its rows by key
+//   positions pos_a[i], pos_b[i].
+// * Work split, not row split. work_kernel writes each pair's work
+//   w_i = min(d_a, d_b) and the caller scans it into work_off (n_pairs + 1
+//   entries). A fixed grid walks
+//   tiles of that work space, grid-stride. The tile size is read from
+//   work_off[n_pairs] on the device, so the host never reads a size: the
+//   least multiple of kThreads probes that spreads the call over the grid,
+//   at most kTileMax, so a small call still reaches every SM. A tile finds
+//   its first and last pair by binary search in work_off. A hub pair thus
+//   spans many blocks, and a run of small pairs shares one block.
+// * One pair in the tile whose window fits (hub pairs over dense rows):
+//   the block stages the window of the wide row that its narrow slice
+//   [s, e) can hit, [lb(wide, narrow[s]), lb(wide, narrow[e-1]) + 1), into
+//   shared memory with cp.async (16-byte copies for the aligned body,
+//   4-byte at the edges). Each thread takes a contiguous run of tile /
+//   kThreads probes, binary-searches the first in the window and gallops from hit
+//   to hit (steps 1, 2, 4, ...): the dependent steps hit shared memory
+//   (~30 cycles) instead of L2 or HBM (~300-600), and a probe costs
+//   O(log gap) steps, not O(log window).
+// * Tiles of many pairs (at least one a warp): warp w takes the tile's
+//   pairs w, w + 8, ..., its lanes the pair's probes in the tile with
+//   stride 32, as the warp-per-pair kernel this replaced did: the pair's
+//   row lookups are warp-uniform loads and the lanes' searches share
+//   their path down the wide row. Threads that each walk their own short
+//   pairs scatter every load of a warp over 32 sectors, and lost to it
+//   2-3x on boxes of short pairs.
+// * Every other tile (a few pairs, or one pair whose window is wider than
+//   the buffer): thread t takes the tile's probes t, t + kThreads,
+//   ..., so the 32 lanes of a warp probe 32 consecutive values of one
+//   narrow row. Each probe finds its pair by binary search in the tile's
+//   range of work_off (only when it leaves the previous one) and
+//   binary-searches the wide row in global memory from the thread's last
+//   hit. The lanes' searches follow one path down the wide row until the
+//   last few levels, so a warp's load is one or two sectors, as in the
+//   warp-per-pair kernel this replaced; a thread running alone through
+//   its own probes (runs with galloping) scatters the warp's loads over as
+//   many sectors as lanes, and lost to it on mid-size pairs (about 1,000
+//   probes into rows of up to 65,536 values).
+// * Merge-path splits for rows of comparable length are not used: a
+//   window in shared memory makes such a pair's probes a few shared loads,
+//   and the split would add a co-rank search per thread.
 // * Outputs from one pass: one int64 partial per block (no atomics on
 //   totals; the caller sums them on the device), and optionally per-pair
-//   int32 counts, where a pair that spans tiles adds with integer
-//   atomicAdd (exact and order-free).
+//   int32 counts, where a pair that spans tiles or threads adds with
+//   integer atomicAdd (exact and order-free).
 // The kernel allocates nothing; the caller passes outputs and scratch.
 
 #include <cuda_runtime.h>
@@ -56,16 +69,15 @@
 
 namespace {
 
-constexpr int kSentinel = 0x7fffffff;
 constexpr int kThreads = 256;
 // probes per work tile, and the fixed grid that walks the tiles
-constexpr long long kTile = 2048;
-constexpr long long kRun = kTile / kThreads;
+constexpr long long kTileMax = 2048;
 constexpr int kBlocks = 132 * 8;
 // shared-memory window of the wide row, in int32 values (16 KB: with the
 // kernel held to 32 registers a thread, eight blocks fit an SM; latency
 // hiding matters more than wide windows), plus the up to three values of
-// alignment padding in front of it
+// alignment padding in front of it; under the 48 KB a launch may take
+// without opting in
 constexpr int kWin = 4096;
 constexpr int kWinBytes = (kWin + 4) * 4;
 
@@ -90,10 +102,11 @@ __device__ __forceinline__ Index lower_bound(const int* __restrict__ row,
   return lo;
 }
 
-__device__ __forceinline__ long long global_lower_bound(
-    const int* __restrict__ row, long long lo, long long hi, int x) {
+// lower_bound over a row in global memory, through the read-only cache
+__device__ __forceinline__ int global_lower_bound(const int* __restrict__ row,
+                                                  int lo, int hi, int x) {
   while (lo < hi) {
-    const long long mid = (lo + hi) >> 1;
+    const int mid = (lo + hi) >> 1;
     if (__ldg(row + mid) < x) {
       lo = mid + 1;
     } else {
@@ -103,27 +116,9 @@ __device__ __forceinline__ long long global_lower_bound(
   return lo;
 }
 
-// the first index in [lo, hi) whose value is >= x, found by galloping from
-// lo (steps 1, 2, 4, ... then a binary search): O(log gap) dependent loads
-// when consecutive probes land close together
-__device__ __forceinline__ long long gallop_lower_bound(
-    const int* __restrict__ row, long long lo, long long hi, int x) {
-  long long step = 1;
-  long long b = lo;
-  while (true) {
-    b = lo + step - 1;
-    if (b >= hi) {
-      b = hi;
-      break;
-    }
-    if (__ldg(row + b) >= x) break;
-    lo = b + 1;
-    step <<= 1;
-  }
-  return global_lower_bound(row, lo, b, x);
-}
-
-// gallop_lower_bound over a row in shared memory
+// the first index in [lo, hi) of a row in shared memory whose value is
+// >= x, found by galloping from lo (steps 1, 2, 4, ... then a binary
+// search): O(log gap) steps when consecutive probes land close together
 __device__ __forceinline__ int shared_gallop(const int* row, int lo, int hi,
                                              int x) {
   int step = 1;
@@ -157,11 +152,12 @@ __device__ __forceinline__ long long pair_of(
   return lo;
 }
 
+// a pair's rows, narrow (probed) and wide (searched); a row holds fewer
+// than 2^31 values (its values are distinct int32 ids)
 struct PairRows {
   const int* narrow;
   const int* wide;
-  long long n_narrow;
-  long long n_wide;
+  int n_wide;
 };
 
 __device__ __forceinline__ PairRows pair_rows(const Side& A, const Side& B,
@@ -170,10 +166,10 @@ __device__ __forceinline__ PairRows pair_rows(const Side& A, const Side& B,
   const long long rb = __ldg(B.pos + p);
   const long long ba = __ldg(A.beg + ra);
   const long long bb = __ldg(B.beg + rb);
-  const long long la = __ldg(A.end + ra) - ba;
-  const long long lb = __ldg(B.end + rb) - bb;
-  if (lb < la) return PairRows{B.vals + bb, A.vals + ba, lb, la};
-  return PairRows{A.vals + ba, B.vals + bb, la, lb};
+  const int la = (int)(__ldg(A.end + ra) - ba);
+  const int lb = (int)(__ldg(B.end + rb) - bb);
+  if (lb < la) return PairRows{B.vals + bb, A.vals + ba, la};
+  return PairRows{A.vals + ba, B.vals + bb, lb};
 }
 
 __device__ __forceinline__ void cp_async4(int* smem, const int* gmem) {
@@ -218,17 +214,69 @@ __device__ __forceinline__ long long warp_sum(long long v) {
   return v;
 }
 
-// every row's [beg, end) of a SENTINEL-padded (n_rows, k) matrix with row
-// stride lda: the real length is the lower bound of SENTINEL
-__global__ void __launch_bounds__(kThreads)
-row_span_kernel(const int* __restrict__ a, long long lda, int k,
-                long long n_rows, long long* __restrict__ beg,
-                long long* __restrict__ end) {
-  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n_rows) return;
-  const long long b = r * lda;
-  beg[r] = b;
-  end[r] = b + global_lower_bound(a + b, 0, k, kSentinel);
+// the probes [g0, g1) of a tile over pairs [p0, p1], thread t taking
+// probes g0 + t, g0 + t + kThreads, ...: a warp probes consecutive values
+// of a narrow row, and its binary searches in the wide row share their
+// path (and their loads) down to the last few levels. A probe's search
+// starts at the thread's last hit in the same pair, or at lo0 (the tile's
+// window start when the tile is one pair, else 0).
+__device__ __forceinline__ long long strided_probes(
+    const Side& A, const Side& B, const long long* __restrict__ work_off,
+    long long g0, long long g1, long long p0, long long p1, int lo0,
+    int* __restrict__ per_pair) {
+  long long cnt = 0;
+  long long p = p0 - 1;     // the pair of the thread's last probe
+  long long base = 0;       // its first probe, work_off[p]
+  long long next = -1;      // the first probe of the pair after it
+  PairRows pr{nullptr, nullptr, 0};
+  int q = 0;                // the last hit's index in the wide row
+  for (long long g = g0 + threadIdx.x; g < g1; g += kThreads) {
+    if (g >= next) {        // a later pair: the last one starting <= g
+      p = pair_of(work_off, max(p + 1, p0), p1 + 1, g);
+      base = __ldg(work_off + p);
+      next = __ldg(work_off + p + 1);
+      pr = pair_rows(A, B, p);
+      q = p0 == p1 ? lo0 : 0;
+    }
+    const int x = __ldg(pr.narrow + (g - base));
+    q = global_lower_bound(pr.wide, q, pr.n_wide, x);
+    if (q < pr.n_wide && __ldg(pr.wide + q) == x) {
+      ++cnt;
+      if (per_pair) atomicAdd(per_pair + p, 1);
+    }
+  }
+  return cnt;
+}
+
+// the pairs [p0, p1] of a tile [g0, g1), warp w taking pairs p0 + w,
+// p0 + w + 8, ... and its lanes a pair's probes in the tile with stride 32,
+// each a binary search in the wide row from the lane's last hit
+__device__ __forceinline__ long long warp_pairs(
+    const Side& A, const Side& B, const long long* __restrict__ work_off,
+    long long g0, long long g1, long long p0, long long p1,
+    int* __restrict__ per_pair) {
+  const int lane = threadIdx.x & 31;
+  long long cnt = 0;
+  for (long long p = p0 + (threadIdx.x >> 5); p <= p1; p += kThreads / 32) {
+    const long long base = __ldg(work_off + p);
+    const long long s = max(g0, base) - base;
+    const long long e = min(g1, __ldg(work_off + p + 1)) - base;
+    if (s >= e) continue;  // no work: the whole warp skips the pair
+    const PairRows pr = pair_rows(A, B, p);
+    int q = 0;
+    long long c = 0;
+    for (long long j = s + lane; j < e; j += 32) {
+      const int x = __ldg(pr.narrow + j);
+      q = global_lower_bound(pr.wide, q, pr.n_wide, x);
+      c += (q < pr.n_wide && __ldg(pr.wide + q) == x) ? 1 : 0;
+    }
+    cnt += c;
+    if (per_pair) {
+      c = warp_sum(c);
+      if (lane == 0 && c) atomicAdd(per_pair + p, (int)c);
+    }
+  }
+  return cnt;
 }
 
 __global__ void __launch_bounds__(kThreads, 8)
@@ -238,100 +286,71 @@ intersect_kernel(const Side A, const Side B, long long n_pairs,
                  int* __restrict__ per_pair) {
   extern __shared__ __align__(16) int win[];
   __shared__ long long s_p[2];
-  __shared__ long long s_win[2];
+  __shared__ int s_win[2];
   __shared__ long long s_warp[kThreads / 32];
   const int lane = threadIdx.x & 31;
   const long long w_total = __ldg(work_off + n_pairs);
-  const long long n_tiles = (w_total + kTile - 1) / kTile;
+  // the least multiple of kThreads probes that spreads the work over the
+  // grid, at most kTileMax
+  const long long per_block = (w_total + gridDim.x - 1) / gridDim.x;
+  const long long tile =
+      min(kTileMax, max(1LL, (per_block + kThreads - 1) / kThreads) * kThreads);
+  const long long run = tile / kThreads;
+  const long long n_tiles = (w_total + tile - 1) / tile;
   long long acc = 0;
   for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    const long long g0 = t * kTile;
-    const long long g1 = min(w_total, g0 + kTile);
+    const long long g0 = t * tile;
+    const long long g1 = min(w_total, g0 + tile);
     if (threadIdx.x == 0) s_p[0] = pair_of(work_off, 0, n_pairs, g0);
     if (threadIdx.x == 32) s_p[1] = pair_of(work_off, 0, n_pairs, g1 - 1);
     __syncthreads();
     const long long p0 = s_p[0];
     const long long p1 = s_p[1];
-    long long cnt = 0;
+    int lo = 0;
+    int n_win = kWin + 1;  // several pairs: no window
     if (p0 == p1) {
+      // the window of the wide row that the tile's narrow slice can hit
       const PairRows pr = pair_rows(A, B, p0);
       const long long base = __ldg(work_off + p0);
-      const long long s = g0 - base;
-      const long long e = g1 - base;
       if (threadIdx.x == 0) {
         s_win[0] = global_lower_bound(pr.wide, 0, pr.n_wide,
-                                      __ldg(pr.narrow + s));
+                                      __ldg(pr.narrow + (g0 - base)));
       }
       if (threadIdx.x == 32) {
         s_win[1] = min(pr.n_wide,
                        global_lower_bound(pr.wide, 0, pr.n_wide,
-                                          __ldg(pr.narrow + e - 1)) + 1);
+                                          __ldg(pr.narrow + (g1 - 1 - base)))
+                           + 1);
       }
       __syncthreads();
-      const long long lo = s_win[0];
-      const long long n_win = max(0LL, s_win[1] - lo);
-      if (n_win <= kWin) {
-        const int n = (int)n_win;
-        const int pad = stage_window(win, pr.wide + lo, n);
-        __syncthreads();
-        const int* w = win + pad;
-        const long long j0 = s + (long long)threadIdx.x * kRun;
-        const long long j1 = min(e, j0 + kRun);
-        if (j0 < j1) {
-          int q = lower_bound<int>(w, 0, n, __ldg(pr.narrow + j0));
-          for (long long j = j0; j < j1; ++j) {
-            const int x = __ldg(pr.narrow + j);
-            q = shared_gallop(w, q, n, x);
-            cnt += (q < n && w[q] == x) ? 1 : 0;
-          }
-        }
-      } else {
-        const long long hi = lo + n_win;
-        const long long j0 = s + (long long)threadIdx.x * kRun;
-        const long long j1 = min(e, j0 + kRun);
-        if (j0 < j1) {
-          long long r = global_lower_bound(pr.wide, lo, hi,
-                                           __ldg(pr.narrow + j0));
-          for (long long j = j0; j < j1; ++j) {
-            const int x = __ldg(pr.narrow + j);
-            r = gallop_lower_bound(pr.wide, r, hi, x);
-            cnt += (r < hi && __ldg(pr.wide + r) == x) ? 1 : 0;
-          }
+      lo = s_win[0];
+      n_win = max(0, s_win[1] - lo);
+    }
+    long long cnt = 0;
+    if (n_win <= kWin) {
+      const PairRows pr = pair_rows(A, B, p0);
+      const long long base = __ldg(work_off + p0);
+      const int pad = stage_window(win, pr.wide + lo, n_win);
+      __syncthreads();
+      const int* w = win + pad;
+      const long long j0 = g0 - base + (long long)threadIdx.x * run;
+      const long long j1 = min(g1 - base, j0 + run);
+      if (j0 < j1) {
+        int q = lower_bound<int>(w, 0, n_win, __ldg(pr.narrow + j0));
+        for (long long j = j0; j < j1; ++j) {
+          const int x = __ldg(pr.narrow + j);
+          q = shared_gallop(w, q, n_win, x);
+          cnt += (q < n_win && w[q] == x) ? 1 : 0;
         }
       }
       if (per_pair) {
         const long long c = warp_sum(cnt);
         if (lane == 0 && c) atomicAdd(per_pair + p0, (int)c);
       }
+    } else if (p1 - p0 + 1 >= kThreads / 32) {
+      cnt = warp_pairs(A, B, work_off, g0, g1, p0, p1, per_pair);
     } else {
-      // a contiguous run of kRun probes per thread: one pair search per
-      // run, then the run walks its pairs in order and gallops through
-      // each wide row from the last hit
-      const long long r0 = g0 + (long long)threadIdx.x * kRun;
-      const long long r1 = min(g1, r0 + kRun);
-      if (r0 < r1) {
-        long long p = pair_of(work_off, p0, p1 + 1, r0);
-        long long base = __ldg(work_off + p);
-        long long next = __ldg(work_off + p + 1);
-        PairRows pr = pair_rows(A, B, p);
-        long long q = -1;  // no hit yet in this pair's wide row
-        for (long long g = r0; g < r1; ++g) {
-          while (g >= next) {  // the next pair with work
-            ++p;
-            base = next;
-            next = __ldg(work_off + p + 1);
-            pr = pair_rows(A, B, p);
-            q = -1;
-          }
-          const int x = __ldg(pr.narrow + (g - base));
-          q = q < 0 ? global_lower_bound(pr.wide, 0, pr.n_wide, x)
-                    : gallop_lower_bound(pr.wide, q, pr.n_wide, x);
-          if (q < pr.n_wide && __ldg(pr.wide + q) == x) {
-            ++cnt;
-            if (per_pair) atomicAdd(per_pair + p, 1);
-          }
-        }
-      }
+      cnt = strided_probes(A, B, work_off, g0, g1, p0, p1, lo, per_pair);
     }
     acc += cnt;
     __syncthreads();  // the tile's shared state is free for the next one
@@ -346,24 +365,45 @@ intersect_kernel(const Side A, const Side B, long long n_pairs,
   }
 }
 
+// work_off[0] = 0 and work_off[1 + i] = min(d_a, d_b) of pair i
+__global__ void __launch_bounds__(kThreads)
+work_kernel(const Side A, const Side B, long long n_pairs,
+            long long* __restrict__ work_off) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i == 0) work_off[0] = 0;
+  if (i >= n_pairs) return;
+  const long long ra = __ldg(A.pos + i);
+  const long long rb = __ldg(B.pos + i);
+  work_off[1 + i] = min(__ldg(A.end + ra) - __ldg(A.beg + ra),
+                        __ldg(B.end + rb) - __ldg(B.beg + rb));
+}
+
 }  // namespace
 
 extern "C" int intersect_n_partials() { return kBlocks; }
 
-extern "C" int intersect_row_span_launch(const void* a, long long lda, int k,
-                                         long long n_rows, void* beg,
-                                         void* end, void* stream) {
-  if (n_rows <= 0) return 0;
-  const long long blocks = (n_rows + kThreads - 1) / kThreads;
-  row_span_kernel<<<(unsigned int)blocks, kThreads, 0,
-                    (cudaStream_t)stream>>>(
-      (const int*)a, lda, k, n_rows, (long long*)beg, (long long*)end);
+// work_off (n_pairs + 1 int64) <- 0, then each pair's work min(d_a, d_b);
+// the caller scans work_off[1:] in place before intersect_launch
+extern "C" int intersect_work_launch(const void* beg_a, const void* end_a,
+                                     const void* pos_a, const void* beg_b,
+                                     const void* end_b, const void* pos_b,
+                                     long long n_pairs, void* work_off,
+                                     void* stream) {
+  if (n_pairs <= 0) return (int)cudaErrorInvalidValue;
+  const Side A{(const long long*)beg_a, (const long long*)end_a, nullptr,
+               (const long long*)pos_a};
+  const Side B{(const long long*)beg_b, (const long long*)end_b, nullptr,
+               (const long long*)pos_b};
+  const long long blocks = (n_pairs + kThreads - 1) / kThreads;
+  work_kernel<<<(unsigned int)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      A, B, n_pairs, (long long*)work_off);
   return (int)cudaGetLastError();
 }
 
 // Side of each pair: (beg, end, vals, pos) per side as above; work_off has
-// n_pairs + 1 entries; partials has intersect_n_partials() entries;
-// per_pair (int32, zeroed by the caller) may be null.
+// n_pairs + 1 entries, the exclusive scan of the pairs' work;
+// partials has intersect_n_partials() entries; per_pair (int32, zeroed by
+// the caller) may be null.
 extern "C" int intersect_launch(const void* beg_a, const void* end_a,
                                 const void* vals_a, const void* pos_a,
                                 const void* beg_b, const void* end_b,
@@ -372,10 +412,6 @@ extern "C" int intersect_launch(const void* beg_a, const void* end_a,
                                 void* partials, void* per_pair,
                                 void* stream) {
   if (n_pairs <= 0) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = cudaFuncSetAttribute(
-      intersect_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kWinBytes);
-  if (err != cudaSuccess) return (int)err;
   const Side A{(const long long*)beg_a, (const long long*)end_a,
                (const int*)vals_a, (const long long*)pos_a};
   const Side B{(const long long*)beg_b, (const long long*)end_b,

@@ -9,12 +9,15 @@ not by rows (see the note at the head of the source):
   a 0-d tensor on the inputs' device, not synchronised;
 * :func:`intersect_count` -> per-row int32 counts of SENTINEL-padded
   matrices, the counterpart of the reference's ``intersect_count``; it
-  reads the matrices as CSR (row r starts at r * stride and ends at its
-  SENTINEL bound) and notes one launch on the kernel ledger, as the
+  reads the matrices as CSR (row r starts at r * stride and holds its
+  non-SENTINEL values) and notes one launch on the kernel ledger, as the
   reference does;
 * :func:`intersect_count_rows` -> the QueryEngine's innermost two-atom
   count as a Python int: one kernel call and one host read, with the
-  reference's one ledger note per 8,192-pair chunk.
+  reference's one ledger note per 8,192-pair chunk;
+* :func:`note_padded` -> the ledger note of one reference launch on
+  padded matrices, for callers that count through the CSR form where the
+  reference's lane reads a padded matrix.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from .. import _build, ledger
 from .ref import SENTINEL, intersect_count_ref, intersect_rows_ref
 
 __all__ = ["LAUNCHES", "SENTINEL", "intersect_count", "intersect_count_csr",
-           "intersect_count_rows", "work_offsets"]
+           "intersect_count_rows", "note_padded"]
 
 LAUNCHES = _build.LaunchCounter()
 
@@ -37,8 +40,8 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "intersect_launch": ((_P, _P, _P, _P, _P, _P, _P, _P, _LL, _P, _P, _P,
                           _P), ctypes.c_int),
-    "intersect_row_span_launch": ((_P, _LL, ctypes.c_int, _LL, _P, _P, _P),
-                                  ctypes.c_int),
+    "intersect_work_launch": ((_P, _P, _P, _P, _P, _P, _LL, _P, _P),
+                              ctypes.c_int),
     "intersect_n_partials": ((), ctypes.c_int),
 }
 
@@ -73,32 +76,32 @@ def _check(a, b, ia, ib) -> int:
     return e
 
 
-def work_offsets(deg_a: torch.Tensor, deg_b: torch.Tensor) -> torch.Tensor:
-    """(n + 1,) int64 exclusive scan of each pair's work min(deg_a,
-    deg_b): the probes of its narrow row. The kernel splits this space
-    into fixed tiles; it stays on the tensors' device."""
-    work_off = torch.zeros(deg_a.numel() + 1, dtype=torch.int64,
-                           device=deg_a.device)
-    torch.cumsum(torch.minimum(deg_a, deg_b), 0, out=work_off[1:])
-    return work_off
-
-
-def _launch(side_a, side_b, work_off: torch.Tensor, n: int,
-            per_pair: bool):
-    """One launch of the kernel over ``n`` pairs. ``side_*`` is (beg, end,
-    vals, pos) on one CUDA device. Returns (per-block int64 partials,
-    per-pair int32 counts or None)."""
-    dev = work_off.device
+def _launch(side_a, side_b, n: int, per_pair: bool):
+    """One call of the kernel over ``n`` pairs. ``side_*`` is (beg, end,
+    vals, pos) on one CUDA device. A small kernel writes each pair's work
+    min(d_a, d_b), a cumsum scans it into ``work_off`` on the device, and
+    the intersect kernel splits that space. Returns (per-block int64
+    partials, per-pair int32 counts or None)."""
+    dev = side_a[2].device
     lib = _build.load("intersect", _SIGNATURES)
+    work_off = torch.empty(n + 1, dtype=torch.int64, device=dev)
     partials = torch.empty(lib.intersect_n_partials(), dtype=torch.int64,
                            device=dev)
     counts = torch.zeros(n, dtype=torch.int32, device=dev) \
         if per_pair else None
+    (beg_a, end_a, _, pos_a), (beg_b, end_b, _, pos_b) = side_a, side_b
     with torch.cuda.device(dev):
+        stream = _build.stream_ptr(dev)
+        rc = lib.intersect_work_launch(
+            beg_a.data_ptr(), end_a.data_ptr(), pos_a.data_ptr(),
+            beg_b.data_ptr(), end_b.data_ptr(), pos_b.data_ptr(), n,
+            work_off.data_ptr(), stream)
+        _build.check_launch("intersect", rc)
+        work_off[1:].cumsum_(0)
         rc = lib.intersect_launch(
             *(t.data_ptr() for t in side_a), *(t.data_ptr() for t in side_b),
             n, work_off.data_ptr(), partials.data_ptr(),
-            counts.data_ptr() if per_pair else None, _build.stream_ptr(dev))
+            counts.data_ptr() if per_pair else None, stream)
     _build.check_launch("intersect", rc)
     LAUNCHES.add()
     return partials, counts
@@ -106,16 +109,11 @@ def _launch(side_a, side_b, work_off: torch.Tensor, n: int,
 
 def _row_spans(m: torch.Tensor):
     """(beg, end) int64 value indices of every row of a padded matrix read
-    as CSR: beg = r * stride, end = beg + the row's SENTINEL bound."""
-    lib = _build.load("intersect", _SIGNATURES)
-    beg = torch.empty(m.shape[0], dtype=torch.int64, device=m.device)
-    end = torch.empty_like(beg)
-    with torch.cuda.device(m.device):
-        rc = lib.intersect_row_span_launch(
-            m.data_ptr(), m.stride(0), m.shape[1], m.shape[0],
-            beg.data_ptr(), end.data_ptr(), _build.stream_ptr(m.device))
-    _build.check_launch("intersect", rc)
-    return beg, end
+    as CSR: beg = r * stride, end = beg + the row's real length (its
+    values below SENTINEL, which a sorted padded row holds in front)."""
+    beg = torch.arange(m.shape[0], dtype=torch.int64, device=m.device) \
+        * m.stride(0)
+    return beg, beg + (m != SENTINEL).sum(1)
 
 
 def _launch_padded(a, b, ia, ib, e: int) -> torch.Tensor:
@@ -127,11 +125,18 @@ def _launch_padded(a, b, ia, ib, e: int) -> torch.Tensor:
         pos_a = pos_b = torch.arange(e, dtype=torch.int64, device=a.device)
     else:
         pos_a, pos_b = ia.long(), ib.long()
-    deg_a = end_a[pos_a] - beg_a[pos_a]
-    deg_b = end_b[pos_b] - beg_b[pos_b]
     _, counts = _launch((beg_a, end_a, a, pos_a), (beg_b, end_b, b, pos_b),
-                        work_offsets(deg_a, deg_b), e, per_pair=True)
+                        e, per_pair=True)
     return counts
+
+
+def note_padded(words: int, e: int, indexed: bool = True) -> None:
+    """Note one launch of the reference's padded intersect kernel on the
+    kernel ledger: ``words`` padded int32 words read (a matrix passed as
+    both sides counts once), the 2·``e`` index words when ``indexed``, and
+    ``e`` int32 counts written."""
+    ledger.note(1, bytes_in=4 * (words + (2 * e if indexed else 0)),
+                bytes_out=4 * e)
 
 
 def intersect_count(a: torch.Tensor, b: torch.Tensor,
@@ -152,9 +157,8 @@ def intersect_count(a: torch.Tensor, b: torch.Tensor,
         out = _launch_padded(a, b, ia, ib, e)
     else:
         raise ValueError(f"intersect_count: unsupported device {a.device}")
-    moved = a.numel() + (b.numel() if b is not a else 0) \
-        + (2 * e if ia is not None else 0)
-    ledger.note(1, bytes_in=4 * moved, bytes_out=4 * e)
+    note_padded(a.numel() + (b.numel() if b is not a else 0), e,
+                indexed=ia is not None)
     return out
 
 
@@ -199,11 +203,8 @@ def intersect_count_csr(off_a: torch.Tensor, vals_a: torch.Tensor,
     if pos_a.numel() == 0:
         return torch.zeros((), dtype=torch.int64, device=dev)
     # CSR offsets give each row's end as the next row's start: end = off[1:]
-    deg_a = off_a[pos_a + 1] - off_a[pos_a]
-    deg_b = off_b[pos_b + 1] - off_b[pos_b]
     partials, _ = _launch((off_a, off_a[1:], vals_a, pos_a),
-                          (off_b, off_b[1:], vals_b, pos_b),
-                          work_offsets(deg_a, deg_b), pos_a.numel(),
+                          (off_b, off_b[1:], vals_b, pos_b), pos_a.numel(),
                           per_pair=False)
     return partials.sum()
 
@@ -240,5 +241,5 @@ def intersect_count_rows(off_a: torch.Tensor, vals_a: torch.Tensor,
     for c in range(n_chunks):
         e = min(chunk, n - c * chunk)
         ka, kb = max(1, read[1 + c]), max(1, read[1 + n_chunks + c])
-        ledger.note(1, bytes_in=4 * e * (ka + kb), bytes_out=4 * e)
+        note_padded(e * (ka + kb), e, indexed=False)
     return int(read[0])

@@ -353,8 +353,18 @@ def _launch_list(lib, desc: np.ndarray, c0: torch.Tensor, ws: torch.Tensor,
     return ws[:_HEAD].tolist()
 
 
-def launch_list(prep, capacity: int, *, words: Optional[int] = None
-                ) -> Tuple[int, torch.Tensor]:
+def _start_words(lib, grid: int, c0: torch.Tensor, csrs, capacity: int,
+                 n_vars: int) -> int:
+    """The int64 words a listing call asks of the kept workspace before
+    its first launch: the kernel's fixed words, room for the frontiers
+    (eight words a depth-0 row or atom value) and for the rows up to the
+    capacity (at most 2^22 of them)."""
+    return lib.lftj_list_base_words(grid) + 8 * (
+        c0.numel() + sum(v.numel() for _, _, v in csrs)) \
+        + (min(capacity, 1 << 22) * n_vars + 1) // 2
+
+
+def launch_list(prep, capacity: int) -> Tuple[int, torch.Tensor]:
     """Run the CUDA listing kernel on a prepared box (CUDA tensors):
     ``(exact total, (min(total, capacity), n_vars) int32 rows on the
     card)`` in the reference listing program's order. ``fused_list``
@@ -364,9 +374,9 @@ def launch_list(prep, capacity: int, *, words: Optional[int] = None
     counts, ordering, offsets, the write; ``csrc/lftj_fused.cu``,
     "Listing") in a workspace kept per device, and one copy brings its
     header (total, overflow, words needed) to the host. The workspace
-    starts at a size taken from the capacity and the atoms' sizes (or at
-    ``words`` int64 words, which a check passes to force a regrowth); on
-    overflow it grows to the reported need and the call runs once more."""
+    starts at ``_start_words`` (from the capacity and the atoms' sizes);
+    on overflow it grows to the reported need and the call runs once
+    more."""
     atom_dims, csrs, c0, consts = prep
     n_vars = max(sd for _, sd in atom_dims) + 1
     dev = c0.device
@@ -375,10 +385,7 @@ def launch_list(prep, capacity: int, *, words: Optional[int] = None
     desc = _descriptor(atom_dims, csrs, consts, n_vars)
     c0 = c0.to(torch.int32).contiguous()
     capacity = int(capacity)
-    if words is None:
-        words = lib.lftj_list_base_words(grid) + 8 * (
-            c0.numel() + sum(v.numel() for _, _, v in csrs)) \
-            + (min(capacity, 1 << 22) * n_vars + 1) // 2
+    words = _start_words(lib, grid, c0, csrs, capacity, n_vars)
     with _ws_lock:
         ws, head = _run_listing(
             dev, words,

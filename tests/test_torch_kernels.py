@@ -176,8 +176,10 @@ def test_cpu_wrappers_do_not_count_launches():
 # the CSR form: intersect_rows_ref, intersect_count_csr, intersect_count_rows
 # ---------------------------------------------------------------------------
 
-# the kernel's work tile (csrc/intersect.cu kTile)
+# the kernel's largest work tile and its grid (csrc/intersect.cu kTileMax,
+# kBlocks)
 KERNEL_TILE = 2048
+KERNEL_GRID = 132 * 8
 
 
 def csr_rows(rng, degs, hi):
@@ -315,42 +317,62 @@ def test_intersect_rows_note_the_padded_tile_bytes():
         (3, want_in, want_out)
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
 def test_work_split_matches_brute_force(seed):
-    """work_offsets is the exclusive scan of min(deg_a, deg_b); the
-    kernel's split of that space into fixed tiles (each tile's first and
-    last pair by binary search; one pair's slice, or runs of
-    KERNEL_TILE / 256 probes per thread that walk their pairs in order)
-    covers every probe of every pair exactly once."""
+    """The kernel's split of the work space, the exclusive scan of each
+    pair's min(deg_a, deg_b) (csrc/intersect.cu), covers every probe of
+    every pair exactly once: tiles of the least multiple of 256 probes
+    that spreads the work over the grid (at most KERNEL_TILE), each
+    tile's first and last pair by binary search; one pair's slice in runs
+    of tile / 256 probes per thread, or a warp per pair with its lanes
+    striding the pair's probes (tiles of at least 8 pairs), or thread t
+    taking the tile's probes t, t + 256, ..., each finding its pair by
+    binary search after the thread's last pair."""
     rng = np.random.default_rng(seed)
     n = int(rng.integers(1, 400))
     deg_a = rng.integers(0, 3 * KERNEL_TILE, size=n)
     deg_b = rng.integers(0, 3 * KERNEL_TILE, size=n)
     deg_a[rng.random(n) < 0.3] = 0
-    work_off = intersect_ops.work_offsets(torch.from_numpy(deg_a),
-                                          torch.from_numpy(deg_b)).numpy()
+    if seed == 3:  # short pairs: small tiles of many pairs
+        deg_a, deg_b = deg_a % 40, deg_b % 40
     w = np.minimum(deg_a, deg_b)
-    np.testing.assert_array_equal(work_off,
-                                  np.concatenate([[0], np.cumsum(w)]))
+    work_off = np.concatenate([[0], np.cumsum(w)])
+    total = int(work_off[n])
+    per_block = -(-total // KERNEL_GRID)
+    tile = min(KERNEL_TILE, max(1, -(-per_block // 256)) * 256)
     covered = []
-    n_tiles = -(-int(work_off[n]) // KERNEL_TILE)
-    for t in range(n_tiles):
-        g0 = t * KERNEL_TILE
-        g1 = min(int(work_off[n]), g0 + KERNEL_TILE)
+    for t in range(-(-total // tile)):
+        g0 = t * tile
+        g1 = min(total, g0 + tile)
         p0 = int(np.searchsorted(work_off[:n], g0, side="right")) - 1
         p1 = int(np.searchsorted(work_off[:n], g1 - 1, side="right")) - 1
-        if p0 == p1:
-            base = work_off[p0]
-            covered += [(p0, k) for k in range(g0 - base, g1 - base)]
-        else:
-            run = KERNEL_TILE // 256
+        # one pair whose window fits: one run per thread (a one-pair tile
+        # takes either path, by its window: the check alternates them)
+        if p0 == p1 and t % 2 == 0:
+            base = int(work_off[p0])
+            run = tile // 256
             for r0 in range(g0, g1, run):
-                p = p0 + int(np.searchsorted(work_off[p0:p1 + 1], r0,
-                                             side="right")) - 1
-                for g in range(r0, min(g1, r0 + run)):
-                    while g >= work_off[p + 1]:
-                        p += 1
+                covered += [(p0, g - base)
+                            for g in range(r0, min(g1, r0 + run))]
+        elif p1 - p0 + 1 >= 8:  # a warp per pair, lanes striding by 32
+            for warp in range(8):
+                for p in range(p0 + warp, p1 + 1, 8):
+                    base = int(work_off[p])
+                    s, e = max(g0, base) - base, \
+                        min(g1, int(work_off[p + 1])) - base
+                    for lane in range(32):
+                        covered += [(p, j) for j in range(s + lane, e, 32)]
+        else:  # strided probes, each finding its pair
+            for thread in range(256):
+                p, nxt = p0 - 1, -1
+                for g in range(g0 + thread, g1, 256):
+                    if g >= nxt:
+                        lo = max(p + 1, p0)
+                        p = lo + int(np.searchsorted(work_off[lo:p1 + 1], g,
+                                                     side="right")) - 1
+                        nxt = int(work_off[p + 1])
                     covered.append((p, g - int(work_off[p])))
+    covered.sort()
     brute = [(p, k) for p in range(n) for k in range(int(w[p]))]
     assert covered == brute
 
