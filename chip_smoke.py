@@ -55,11 +55,15 @@ Phases (the kernels each main-path phase must launch in brackets):
                   8, within BAG_ATOL of the plain version; timed, freed.
  11. timing     — each kernel at the largest input the main path gave it,
                   against its plain version, a library call where one
-                  exists, and its roofline bound; intersect and the
-                  listing kernel also at the main path's median call
-                  (``median_ms``) with the host synchronisations of one
-                  call (``host_syncs_per_call``, PyTorch's sync debug
-                  mode).
+                  exists, and its roofline bound; intersect, the dense
+                  kernel, the fused count and the listing kernel also at
+                  the main path's median call (``median_ms``), with the
+                  host synchronisations of one call where they matter
+                  (``host_syncs_per_call``, PyTorch's sync debug mode;
+                  the fused count's over a whole ``fused_count`` call)
+                  and the launches of each phase (``launches_by_phase``).
+                  The dense kernel's yardsticks are a float32 product
+                  (TF32 off) and ``torch._int_mm`` with the masked sum.
 
 The last three lines are the ``kernels`` JSON line, the ``nvidia-smi``
 name/power-limit line and the final ``{"ok": true, ...}`` line.
@@ -106,9 +110,9 @@ QUERY_SCALE, QUERY_MEM_WORDS = 13, 1 << 14
 QUERY_LIST_SCALE, QUERY_LIST_MEM_WORDS = 12, 1 << 14
 # the query phase's worker threads on `auto` (its host lane is numpy,
 # which releases the GIL), as in the skew phase; the fused runs take one:
-# there every box synchronises with the card several times, and eight
-# threads sharing its stream wait on each other (four-clique at scale 13:
-# 87.2 s with 8 workers against 35.9 s with 1, PERF.md §5)
+# every box synchronises with the card twice, and threads sharing its
+# stream wait on each other (four-clique at scale 13 with 8 workers:
+# PERF.md §7)
 QUERY_WORKERS = 8
 # embedding_bag: the dlrm-mlperf configuration's largest field (Criteo's
 # 39,979,771 rows padded to 512) and its seventh (7,120 padded to 512:
@@ -157,15 +161,18 @@ def tensor_shapes(*args):
 
 class Recorder:
     """Wraps a kernel wrapper in its ops module: records the shapes of every
-    call the main path makes and keeps the inputs of the largest one (and,
-    with ``fits``, of the largest one ``fits`` accepts). For the median
-    call it records every call's size and keeps the first call of each
-    power-of-two size bucket."""
+    call the main path makes and keeps the inputs of the largest one by
+    ``rank`` (default: ``size``; and, with ``fits``, of the largest one
+    ``fits`` accepts). For the median call it records every call's size
+    and keeps the first call of each power-of-two size bucket (the last
+    with ``keep_last``)."""
 
     def __init__(self, module, attr: str, size, shape=tensor_shapes,
-                 fits=None):
+                 fits=None, rank=None, keep_last=False):
         self.module, self.attr, self.size = module, attr, size
         self.shape, self.fits = shape, fits
+        self.rank = size if rank is None else rank
+        self.keep_last = keep_last
         self.orig = getattr(module, attr)
         self.shapes = Counter()
         self.largest = None
@@ -179,8 +186,9 @@ class Recorder:
 
     def keep(self, size, args, kw) -> None:
         self.sizes.append(size)
-        self.by_bucket.setdefault(max(0, int(size)).bit_length(),
-                                  (size, args, kw))
+        bucket = max(0, int(size)).bit_length()
+        if self.keep_last or bucket not in self.by_bucket:
+            self.by_bucket[bucket] = (size, args, kw)
 
     def median(self):
         """(size, args, kw) of a kept call in the median call's size
@@ -204,8 +212,8 @@ class Recorder:
 
     def __call__(self, *args, **kw):
         self.shapes[self.shape(*args)] += 1
-        size = self.size(*args)
-        self.keep(size, args, kw)
+        self.keep(self.size(*args), args, kw)
+        size = self.rank(*args)
         if size > self.largest_size:
             self.largest_size, self.largest = size, args
             self.largest_kw = kw
@@ -273,6 +281,54 @@ def profile_count(torch, eng, label: str, top: int = 10) -> dict:
             "idle_share": 1.0 - device_ms / wall_ms if wall_ms else None,
             "top": [{"name": k[:80], "calls": c, "ms": ms}
                     for ms, k, c in rows[:top]]}
+
+
+def demangle(name: str) -> str:
+    """A kernel's short name from its Itanium-mangled symbol: the last
+    identifier of its (nested) name, with an int template argument as
+    ``<n>``: ``_ZN12_GLOBAL__N_112count_kernelILi3EEEvNS_4DescE`` ->
+    ``count_kernel<3>``."""
+    import re
+    i = 2 + (name[2:3] == "N")
+    last = name
+    while i < len(name) and name[i].isdigit():
+        m = re.match(r"\d+", name[i:])
+        n = int(m.group())
+        i += len(m.group())
+        last = name[i:i + n]
+        i += n
+    arg = re.match(r"ILi(\d+)E", name[i:])
+    return f"{last}<{arg.group(1)}>" if arg else last
+
+
+def ptxas_report(log: str) -> dict:
+    """{function: registers, stack bytes, spill stores and loads} of every
+    function ptxas reports in an ``nvcc -Xptxas=-v`` log."""
+    import re
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = demangle(m.group(1))
+            out[cur] = {}
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = demangle(m.group(1))
+            out.setdefault(cur, {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[cur].update(stack=int(m.group(1)),
+                            spill_stores=int(m.group(2)),
+                            spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+    return out
 
 
 def lane_stats(stats) -> dict:
@@ -406,6 +462,20 @@ def check_csr_cases(torch, np, intersect_ops) -> int:
     return n_cases
 
 
+# dense shapes (nx, ny, d, density): ragged and degenerate ones, widths
+# that are not a multiple of 16 (the wrapper pads them), and the kernel's
+# tile edges: nx and ny at and around multiples of 64 and 128 (a
+# warpgroup's rows, a block's tile), d at multiples of 16 around the
+# 128-byte stage and the split-K chunks, up to a few thousand
+DENSE_CASES = ((1, 7, 64, 0.3), (100, 140, 300, 0.15), (257, 129, 641, 0.2),
+               (64, 64, 1, 0.5), (65, 3, 4099, 0.9), (300, 500, 2, 1.0),
+               (63, 65, 16, 0.5), (64, 128, 112, 0.4), (127, 129, 128, 0.3),
+               (128, 127, 144, 0.3), (129, 256, 512, 0.2),
+               (255, 257, 1008, 0.2), (256, 256, 2048, 0.1),
+               (384, 191, 4096, 0.1), (513, 640, 3072, 0.05),
+               (192, 64, 16, 1.0))
+
+
 def phase_kernel_cases(torch, np, intersect_ops, dense_ops) -> dict:
     from repro_torch.kernels.intersect.ref import intersect_count_ref
     from repro_torch.kernels.triangle_dense.ref import triangle_count_ref
@@ -428,9 +498,7 @@ def phase_kernel_cases(torch, np, intersect_ops, dense_ops) -> dict:
         want = intersect_count_ref(a, b, ia, ib)
         assert torch.equal(got, want), ("intersect idx", e, ka, kb)
         n_cases += 2
-    for nx, ny, d, p in ((1, 7, 64, 0.3), (100, 140, 300, 0.15),
-                         (257, 129, 641, 0.2), (64, 64, 1, 0.5),
-                         (65, 3, 4099, 0.9), (300, 500, 2, 1.0)):
+    for nx, ny, d, p in DENSE_CASES:
         a = torch.from_numpy((rng.random((nx, d)) < p).astype(np.uint8))
         b = torch.from_numpy((rng.random((ny, d)) < p).astype(np.uint8))
         m = torch.from_numpy((rng.random((nx, ny)) < 0.5).astype(np.uint8))
@@ -559,8 +627,23 @@ def phase_fused_cases(torch, np, fused_ops) -> dict:
     counts["two_vars"] = check(((0, 1),), [csr])
     counts["two_vars_pruned"] = check(((0, 1), (0, 1)), [csr, other])
     n_cases += 5
+    # frontier regions of 1, 7 and 100 entries (every frontier expanded in
+    # chunks, depth first over them) and the default ones
+    cap = fused_ops._COUNT_CAP
+    csr = graph_csr(np, *fused_case_graphs(np)["rmat"](0))
+    try:
+        for size in (1, 7, 100, None):
+            fused_ops._COUNT_CAP = cap if size is None else (size, size)
+            for pname, dims in sorted(LIST_DIMS.items()):
+                check(dims, [csr] * len(dims))
+                n_cases += 1
+            check(TRIANGLE, hub_row_csrs(np, 1 << 10), want=(1 << 10) - 1)
+            n_cases += 1
+    finally:
+        fused_ops._COUNT_CAP = cap
     torch.cuda.synchronize()
     return {"phase": "kernels", "of": ["lftj_fused"], "cases": n_cases,
+            "chunked_caps": [1, 7, 100],
             "exact": True, "counts": counts}
 
 
@@ -1408,33 +1491,108 @@ def time_intersect(torch, rec, rows_rec, launches: int, reps: int,
             "rmat_largest": rmat, "bytes": n_bytes, "ops": n_ops}
 
 
-def time_dense(torch, rec, launches: int, reps: int) -> dict:
+def graph_ms(torch, fn, reps: int) -> float:
+    """Median milliseconds of the kernels ``fn`` launches, without its
+    host work: ``fn`` captured once into a CUDA graph and replayed."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, reps)
+
+
+def int_mm_masked(torch, a, b, m):
+    """Σ m ⊙ (a · bᵀ) by ``torch._int_mm`` (int8 tensor cores, int32 out)
+    and the masked sum, as a callable, with its inputs padded once to the
+    shapes ``_int_mm`` takes (rows above 16, widths a multiple of 8; zero
+    rows and columns add nothing); None where it refuses them."""
+    def pad(n, k):
+        return max(k, -(-n // k) * k)
+
+    nx, d = a.shape
+    ny = b.shape[0]
+    px, py, pd = pad(nx, 32), pad(ny, 8), pad(d, 8)
+    a8 = torch.zeros((px, pd), dtype=torch.int8, device=a.device)
+    b8 = torch.zeros((py, pd), dtype=torch.int8, device=a.device)
+    m32 = torch.zeros((px, py), dtype=torch.int32, device=a.device)
+    a8[:nx, :d] = a
+    b8[:ny, :d] = b
+    m32[:nx, :ny] = m
+    fn = lambda: (m32 * torch._int_mm(a8, b8.T)).sum(dtype=torch.int64)
+    try:
+        fn()
+    except RuntimeError:
+        return None
+    return fn
+
+
+def dense_bytes_bound(nx: int, ny: int, d: int) -> tuple:
+    """(bytes, operations) of one triangle_count call: each operand byte
+    read once, the partial written once; 2·nx·ny·d byte operations."""
+    return nx * d + ny * d + nx * ny + 8, 2.0 * nx * ny * d
+
+
+def time_dense(torch, rec, launches: dict, reps: int) -> dict:
+    """The dense kernel at the main path's largest and median call, against
+    its plain version, two exact library yardsticks (a float32 product with
+    TF32 off, exact while a cell stays below 2^24; ``torch._int_mm`` and
+    the masked sum) and its bound. ``ms`` times the wrapper call,
+    ``kernel_ms`` the kernels it launches alone (a CUDA graph replay), and
+    ``library_int_mm_kernel_ms`` the ``_int_mm`` yardstick's the same
+    way."""
     from repro_torch.kernels.triangle_dense.ref import triangle_count_ref
     a, b, m = rec.largest
     got = int(rec.orig(a, b, m))
     want = int(triangle_count_ref(a, b, m))
     ms = cuda_ms(lambda: rec.orig(a, b, m), reps)
+    kernel_ms = graph_ms(torch, lambda: rec.orig(a, b, m), reps)
     plain_ms = cuda_ms(lambda: triangle_count_ref(a, b, m), reps)
-    # one PyTorch call computing the same function: a float32 product (TF32
-    # off, so every partial sum below 2^24 is exact) and the masked sum
+    (med_size, (ma, mb, mm), _), med_all = rec.median()
+    med_err = abs(int(rec.orig(ma, mb, mm)) - int(triangle_count_ref(ma, mb,
+                                                                     mm)))
+    med_ms = cuda_ms(lambda: rec.orig(ma, mb, mm), reps)
+    med_kernel_ms = graph_ms(torch, lambda: rec.orig(ma, mb, mm), reps)
     torch.backends.cuda.matmul.allow_tf32 = False
     af, bf, mf = a.float(), b.float(), m.float()
-    lib_ms = cuda_ms(lambda: (mf * (af @ bf.T)).sum(), reps)
+    f32_ms = cuda_ms(lambda: (mf * (af @ bf.T)).sum(), reps)
+    int_mm = int_mm_masked(torch, a, b, m)
+    int_mm_ms = int_mm_kernel_ms = None
+    if int_mm is not None:
+        assert int(int_mm()) == want, (int(int_mm()), want)
+        int_mm_ms = cuda_ms(int_mm, reps)
+        int_mm_kernel_ms = graph_ms(torch, int_mm, reps)
     nx, d = a.shape
     ny = b.shape[0]
-    n_bytes = nx * d + ny * d + nx * ny + 8
-    n_ops = 2.0 * nx * ny * d
+    n_bytes, n_ops = dense_bytes_bound(nx, ny, d)
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / INT8_OPS_PER_S * 1e3
+    mb_bytes, mb_ops = dense_bytes_bound(ma.shape[0], mb.shape[0],
+                                         ma.shape[1])
     return {"name": "triangle_dense", "route": "cuda",
             "source": "src/repro_torch/csrc/triangle_dense.cu",
             "replaces": "src/repro/kernels/triangle_dense/kernel.py:29",
-            "launches": launches, "max_abs_err": abs(got - want),
-            "exact": got == want, "ms": ms, "kernel_ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "launches": sum(launches.values()),
+            "launches_by_phase": launches,
+            "max_abs_err": max(abs(got - want), med_err),
+            "exact": got == want and med_err == 0, "ms": ms,
+            "kernel_ms": kernel_ms, "median_ms": med_ms,
+            "median_kernel_ms": med_kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms,
+            "library_ms": min(t for t in (f32_ms, int_mm_ms)
+                              if t is not None),
+            "library_f32_ms": f32_ms, "library_int_mm_ms": int_mm_ms,
+            "library_int_mm_kernel_ms": int_mm_kernel_ms,
             "shape": {"a": list(a.shape), "b": list(b.shape)},
+            "median_call": {"a": list(ma.shape), "b": list(mb.shape),
+                            "bound_ms": max(mb_bytes / HBM_BYTES_PER_S,
+                                            mb_ops / INT8_OPS_PER_S) * 1e3,
+                            "size": med_size, "median_size": med_all,
+                            "calls": len(rec.sizes)},
             "bytes": n_bytes, "ops": n_ops}
 
 
@@ -1458,9 +1616,13 @@ def fused_padded_fits(dims, csrs, n_vars) -> bool:
 
 
 def fused_bound(torch, prep) -> tuple:
-    """(bytes, dependent probe steps) the triangle box join needs: each
-    touched CSR row's real entries once plus the frontier and the output;
-    per in-box edge (x, y), min(deg) · ⌈log2(max deg + 1)⌉ probe steps."""
+    """(bytes, comparisons, per-probe comparisons) the triangle box join
+    needs: each touched CSR row's real entries once plus the frontier and
+    the output; per in-box edge (x, y) with bound rows of lengths lo <= hi,
+    lo·log2(1 + hi/lo) comparisons, the least any comparison-based
+    intersection needs (the same count as the intersect bound). The
+    coarser min(deg)·⌈log2(max deg + 1)⌉ of one binary search a probe is
+    printed beside it."""
     dims, csrs, c0, _ = prep
     assert dims == TRIANGLE, dims
     (kr, orr, vr), (ks, os_, vs), (kt, ot, vt) = csrs
@@ -1473,15 +1635,29 @@ def fused_bound(torch, prep) -> tuple:
 
     x = torch.repeat_interleave(kr, orr[1:] - orr[:-1])
     du, dv = degree_of(ks, os_, x), degree_of(kt, ot, vr)
-    lo, hi = torch.minimum(du, dv), torch.maximum(du, dv)
-    steps = torch.ceil(torch.log2(hi.double() + 1))
-    n_ops = float((lo.double() * steps).sum())
+    lo = torch.minimum(du, dv).double()
+    hi = torch.maximum(du, dv).double()
+    n_ops = float((lo * torch.where(lo > 0, torch.log2(1 + hi / lo.clamp(
+        min=1)), 0)).sum())
+    per_probe = float((lo * torch.ceil(torch.log2(hi + 1))).sum())
     touched = int(vr.numel()) + int(degree_of(ks, os_, c0).sum()) \
         + int(degree_of(kt, ot, torch.unique(vr)).sum())
-    return 4 * touched + 4 * int(c0.numel()) + 8, n_ops
+    return 4 * touched + 4 * int(c0.numel()) + 8, n_ops, per_probe
 
 
-def time_fused(torch, rec, launches: int, reps: int) -> dict:
+def fused_call_bytes(prep) -> int:
+    """Bytes a fused_count call must move at least: its atoms' compact CSR
+    and the depth-0 and constant rows read once, the count written."""
+    dims, csrs, c0, consts = prep
+    return sum(4 * k.numel() + 8 * o.numel() + 4 * v.numel()
+               for k, o, v in csrs) + 4 * c0.numel() \
+        + sum(4 * c.numel() for c in consts) + 8
+
+
+def time_fused(torch, rec, launches: dict, reps: int) -> dict:
+    """The count kernel at the main path's largest triangle box and at its
+    median call (a QueryEngine box), against its plain version and its
+    bound; host synchronisations of a whole fused_count call."""
     from repro_torch.kernels.lftj_fused import ops as fused_ops
     from repro_torch.kernels.lftj_fused.ref import fused_count_ref
 
@@ -1491,6 +1667,10 @@ def time_fused(torch, rec, launches: int, reps: int) -> dict:
         got = int(fused_ops.launch_count(prep))
         ms = cuda_ms(lambda: fused_ops.launch_count(prep), reps)
         return prep, got, ms
+
+    def plain(args):
+        layout = fused_ops.padded_layout(*args)
+        return int(fused_count_ref(args[0], *layout, args[2]).sum())
 
     prep, got, ms = run(rec.largest)
     plain_args = rec.largest if rec.largest_fitting is rec.largest \
@@ -1511,21 +1691,40 @@ def time_fused(torch, rec, launches: int, reps: int) -> dict:
         out["plain_at"] = {"shape": fused_shape(*plain_args),
                            "kernel_ms": ms_fit,
                            "padded_words_cap": FUSED_PLAIN_WORDS_CAP}
-    n_bytes, n_ops = fused_bound(torch, prep)
+    (med_size, med_args, _), med_all = rec.median()
+    mprep, med_got, med_ms = run(med_args)
+    err = max(err, abs(med_got - plain(med_args)))
+    # a whole fused_count call, twice: the process's first sync-debug
+    # window may hold a one-time synchronisation of PyTorch's own
+    syncs = [count_syncs(torch, lambda: rec.orig(*a))[1]
+             for a in (rec.largest, rec.largest, med_args)]
+    n_bytes, n_ops, per_probe = fused_bound(torch, prep)
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / SCALAR_OPS_PER_S * 1e3
+    med_bytes = fused_call_bytes(mprep)
     out.update({
         "name": "lftj_fused", "route": "cuda",
         "source": "src/repro_torch/csrc/lftj_fused.cu",
         "replaces": "src/repro/kernels/lftj_fused/kernel.py:110",
-        "launches": launches, "max_abs_err": err, "exact": err == 0,
-        "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
+        "launches": sum(launches.values()), "launches_by_phase": launches,
+        "max_abs_err": err, "exact": err == 0,
+        "ms": ms, "kernel_ms": ms, "median_ms": med_ms,
+        "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None, "count": got,
+        "host_syncs_per_call": syncs[1],
+        "host_syncs_first_call": syncs[0],
+        "host_syncs_median_call": syncs[2],
         "shape": {"atoms_keys_vals": fused_shape(*rec.largest),
                   "frontier": int(prep[2].numel())},
-        "bytes": n_bytes, "ops": n_ops})
+        "median_call": {"dims": [list(x) for x in med_args[0]],
+                        "atoms_keys_vals": fused_shape(*med_args),
+                        "words": med_size, "median_words": med_all,
+                        "calls": len(rec.sizes), "bytes": med_bytes,
+                        "bound_ms": med_bytes / HBM_BYTES_PER_S * 1e3,
+                        "bound_by": "bytes"},
+        "bytes": n_bytes, "ops": n_ops, "per_probe_ops": per_probe,
+        "per_probe_ops_ms": per_probe / SCALAR_OPS_PER_S * 1e3})
     return out
 
 
@@ -1634,15 +1833,16 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build()
     build_s = time.perf_counter() - t0
-    ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
+    ptxas = {name: ptxas_report(log)
              for name, log in _build.BUILD_LOG.items()}
     emit({"phase": "device", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": build_s, "nvcc_flags": list(_build.NVCC_FLAGS),
-          "ptxas": ptxas})
+          "ptxas": ptxas,
+          "count_kernels": {k: v for k, v in ptxas.get("lftj_fused", {})
+                            .items() if k.startswith("count_kernel")}})
     t0 = time.perf_counter()
     emit(phase_kernel_cases(torch, np, intersect_ops, dense_ops))
     emit(dict(phase_fused_cases(torch, np, fused_ops),
@@ -1668,11 +1868,14 @@ def main() -> int:
                          lambda a, b, m: a.shape[0] * b.shape[0]
                          * a.shape[1])
         # the fused kernel is timed at its largest triangle box, the input
-        # its bound is written for (fused_bound)
-        rec_f = Recorder(fused_ops, "fused_count",
-                         lambda dims, csrs, n: fused_csr_words(dims, csrs, n)
-                         if tuple(dims) == TRIANGLE else -1,
-                         shape=fused_shape, fits=fused_padded_fits)
+        # its bound is written for (fused_bound), and at its median call,
+        # a QueryEngine box (the query phase makes most of the calls and
+        # the last ones)
+        rec_f = Recorder(fused_ops, "fused_count", fused_csr_words,
+                         shape=fused_shape, fits=fused_padded_fits,
+                         rank=lambda dims, csrs, n:
+                         fused_csr_words(dims, csrs, n)
+                         if tuple(dims) == TRIANGLE else -1, keep_last=True)
         rec_l = ListRecorder(fused_ops, "fused_list", None,
                              shape=fused_shape)
         shared = {}
@@ -1709,6 +1912,8 @@ def main() -> int:
                 # box, timed beside the main path's largest call
                 shared["rmat_intersect"] = rec_i.largest
         launches = {k: sum(r["launches"][k] for r in runs) for k in ops}
+        by_phase = {k: {r["phase"]: r["launches"][k] for r in runs
+                        if r["launches"][k]} for k in ops}
         emit({"phase": "launch_shapes", "intersect": rec_i.summary(),
               "intersect_count_rows": rec_r.summary(),
               "triangle_dense": rec_d.summary(),
@@ -1719,10 +1924,10 @@ def main() -> int:
                                           launches["intersect"], TIMING_REPS,
                                           shared.get("rmat_intersect")))
         if rec_d.largest is not None:
-            kernels.append(time_dense(torch, rec_d,
-                                      launches["triangle_dense"], TIMING_REPS))
+            kernels.append(time_dense(torch, rec_d, by_phase["triangle_dense"],
+                                      TIMING_REPS))
         if rec_f.largest is not None:
-            kernels.append(time_fused(torch, rec_f, launches["lftj_fused"],
+            kernels.append(time_fused(torch, rec_f, by_phase["lftj_fused"],
                                       TIMING_REPS))
         if rec_l.largest is not None:
             kernels.append(time_fused_list(torch, rec_l,
@@ -1738,10 +1943,12 @@ def main() -> int:
           "sync_sites": dict(SYNC_SITES)})
     emit({"kernels": kernels})
     # host synchronisations: one per intersect_count_rows and launch_list
-    # call, two when the listing workspace regrows
+    # call, two when the listing workspace regrows; two per fused_count
+    # call (the envelope and the total)
     assert list_cases["regrowth_max_syncs"] <= 2, list_cases
     for k in kernels:
-        assert k.get("host_syncs_per_call") in (None, 0, 1), k
+        limit = 2 if k["name"] == "lftj_fused" else 1
+        assert k.get("host_syncs_per_call") in (None, *range(limit + 1)), k
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the intersect and fused-listing paths of one ``repro_torch`` tree on
-the card, so that two trees (a parent commit unpacked beside the checkout,
-and the checkout) can be compared in one call on one card.
+"""Time the kernel paths of one ``repro_torch`` tree on the card, so that
+two trees (a parent commit unpacked beside the checkout, and the checkout)
+can be compared in one call on one card.
 
 Runs, each on a graph made from a fixed seed:
 
@@ -18,7 +18,30 @@ Runs, each on a graph made from a fixed seed:
 * ``rmat_box``: ``TriangleEngine`` on ``auto`` at RMAT scale 20 with
   ``mem_words=2^21`` (chip_smoke.py's rmat phase): the lane's intersect
   call timed at its largest box (the smoke's "rmat box") and its median
-  box.
+  box;
+* ``engine_fused``: ``TriangleEngine(backend="fused")`` on chip_smoke.py's
+  clustered graph (two 4096-vertex clusters, ``p_in=0.5``,
+  ``mem_words=2^20``): the wall of a warm ``count()``, and
+  ``fused_ops.launch_count`` timed at its largest and median box;
+* ``query_fused``: ``QueryEngine`` four-clique and diamond counts on
+  ``backend="fused"`` (one worker, as chip_smoke.py's query phase) at RMAT
+  scale 13 with ``mem_words=2^14``: the wall of each ``count()``, and
+  ``launch_count`` at its largest and median call; with ``--workers8``
+  the four-clique once more on eight workers (wall only);
+* ``dense``: ``TriangleEngine`` on ``auto`` on the clustered graph: the
+  wall of a warm ``count()``, and ``triangle_count`` timed at its largest
+  and median call;
+* ``dense_listing``: ``TriangleEngine`` on ``auto`` on chip_smoke.py's
+  listing graph (RMAT scale 16, ``seed=1``, ``mem_words=2^18``), whose
+  dense box is the main path's largest ``triangle_count`` call
+  (427 × 227 × 31,184): that call timed.
+
+With ``--intersect-variant NAME`` the tree's intersect kernel is built a
+second time with ``-DNAME`` (``INTERSECT_WARP_CHUNKS``: the fused count's
+warp-chunk scheduler in place of the block tiles), and ``rmat_box`` and
+``engine_intersect`` time every box call with both libraries in one
+process, in the order own, variant, variant, own, checking that the
+counts agree.
 
 A box's intersect call is timed as the tree's own lane makes it: through
 ``intersect_count_csr`` on the box's compact CSR where the tree has that
@@ -34,7 +57,7 @@ parent:
     python3 scripts/kernel_ab_probe.py --tag change
 
 ``--runs`` picks the runs (default: listing, query_triangle,
-engine_intersect).
+engine_intersect). Every kernel is built before the first run.
 """
 
 from __future__ import annotations
@@ -132,8 +155,25 @@ def box_call(torch, iops, slc, dev):
         dtype=torch.int64)
 
 
-def time_boxes(torch, iops, boxes) -> dict:
-    """ms of the lane's intersect call at the largest and median box."""
+def intersect_variant(build, iops, define: str):
+    """(own, variant) intersect libraries: the tree's, and the same source
+    built with ``-D<define>``; the own one stays loaded."""
+    own = build.load("intersect", iops._SIGNATURES)
+    flags = build.NVCC_FLAGS
+    build.NVCC_FLAGS = flags + (f"-D{define}",)
+    try:
+        del build._libs["intersect"]
+        variant = build.load("intersect", iops._SIGNATURES)
+    finally:
+        build.NVCC_FLAGS = flags
+        build._libs["intersect"] = own
+    return own, variant
+
+
+def time_boxes(torch, iops, boxes, libs=None, build=None) -> dict:
+    """ms of the lane's intersect call at the largest and median box; with
+    ``libs`` (own, variant), ms of each library in the order own, variant,
+    variant, own."""
     dev = torch.device("cuda")
     out = {"boxes": len(boxes.sizes)}
     for name, slc in zip(("largest", "median"), boxes.pick()):
@@ -141,6 +181,44 @@ def time_boxes(torch, iops, boxes) -> dict:
         out[name] = {"edges": int(slc.n_edges),
                      "pad_shape": list(slc.pad_shape),
                      "count": int(fn()), "ms": cuda_ms(torch, fn)}
+        if libs is None:
+            continue
+        own, variant = libs
+        # the per-pair counts of the padded API, from both libraries
+        npad, _ = slc.padded(dev)
+        eu, ev = slc.edges(dev)
+        ab = {"own": [], "variant": []}
+        per_pair = {}
+        try:
+            for which in ("own", "variant", "variant", "own"):
+                build._libs["intersect"] = own if which == "own" else variant
+                if int(fn()) != out[name]["count"]:
+                    raise AssertionError(f"{which} intersect count differs "
+                                         f"at the {name} box")
+                per_pair.setdefault(which, iops.intersect_count(
+                    npad, npad, eu, ev))
+                ab[which].append(cuda_ms(torch, fn))
+        finally:
+            build._libs["intersect"] = own
+        if not torch.equal(per_pair["own"], per_pair["variant"]):
+            raise AssertionError(f"per-pair counts differ at the {name} box")
+        out[name]["ab_ms"] = ab
+    return out
+
+
+def fused_words(args, out) -> int:
+    """A fused_count call's size: its atoms' keys and values."""
+    return sum(int(k.numel()) + int(v.numel()) for k, _, v in args[1])
+
+
+def time_fused_calls(torch, fops, calls) -> dict:
+    """ms of launch_count (the tree's count kernel alone) at the largest
+    and median fused_count call."""
+    out = {}
+    for name, (size, args, _) in zip(("largest", "median"), calls.pick()):
+        prep = fops._prepare(*args)
+        out[name] = {"words": size, "count": int(fops.launch_count(prep)),
+                     "ms": cuda_ms(torch, lambda: fops.launch_count(prep))}
     return out
 
 
@@ -161,7 +239,15 @@ def main() -> int:
     ap.add_argument("--runs", default="listing,query_triangle,"
                     "engine_intersect",
                     help="comma list of listing, query_triangle, "
-                    "engine_intersect, rmat_box")
+                    "engine_intersect, rmat_box, engine_fused, "
+                    "query_fused, dense, dense_listing")
+    ap.add_argument("--intersect-variant", default=None,
+                    help="a macro to build the intersect kernel a second "
+                    "time with (INTERSECT_WARP_CHUNKS), timed beside the "
+                    "tree's at the rmat_box and engine_intersect boxes")
+    ap.add_argument("--workers8", action="store_true",
+                    help="query_fused: the four-clique once more on eight "
+                    "workers")
     args = ap.parse_args()
     runs = set(args.runs.split(","))
     sys.path.insert(0, str(Path(args.src).resolve()))
@@ -175,11 +261,25 @@ def main() -> int:
     from repro_torch.core.lftj_torch import csr_from_edges, orient_edges
     from repro_torch.data.edgestore import InMemoryEdgeSource
     from repro_torch.data.graphs import rmat_graph
+    from repro_torch.convert import engine_from_state
+    from repro_torch.data.graphs import clustered_graph
+    from repro_torch.kernels import _build
     from repro_torch.kernels.intersect import ops as iops
     from repro_torch.kernels.lftj_fused import ops as fops
+    from repro_torch.kernels.triangle_dense import ops as dops
     from repro_torch.query import QueryEngine, patterns
     tag = {"tag": args.tag, "package": str(Path(repro_torch.__file__)
                                            .resolve().parent)}
+    t0 = time.perf_counter()
+    _build.build()
+    libs = None
+    if args.intersect_variant:
+        libs = intersect_variant(_build, iops, args.intersect_variant)
+        emit(dict(tag, run="variant", define=args.intersect_variant,
+                  ptxas=[line.strip() for line in
+                         _build.BUILD_LOG.get("intersect", "").splitlines()
+                         if "Used" in line or "stack frame" in line]))
+    emit(dict(tag, run="build", build_s=time.perf_counter() - t0))
 
     def relations(src, dst):
         a, b = orient_edges(src, dst)
@@ -237,7 +337,86 @@ def main() -> int:
         emit(dict(tag, run="engine_intersect", scale=args.scale, count=count,
                   count_s=wall, boxes=eng.stats.n_boxes,
                   intersect_boxes=eng.stats.n_intersect_boxes,
-                  box_call=time_boxes(torch, iops, boxes)))
+                  box_call=time_boxes(torch, iops, boxes, libs,
+                                            _build)))
+
+    if runs & {"engine_fused", "dense"}:
+        src, dst = rmat_graph(1 << 10, 1 << 12, seed=0)  # warm-up graph
+        TriangleEngine(src, dst, mem_words=1 << 12, backend="fused").count()
+        src, dst = clustered_graph(2, 4096, seed=0, p_in=0.5)
+        eng = TriangleEngine(src, dst, mem_words=1 << 20)
+        state = {"indptr": eng.indptr, "indices": eng.indices,
+                 "orientation": eng.orientation, "nv": eng.nv,
+                 "plan": eng.plan()}
+
+    if "engine_fused" in runs:
+        eng = engine_from_state(state, mem_words=1 << 20, backend="fused")
+        eng.count()
+        calls = Calls(fops, "fused_count", fused_words)
+        count, wall = walled(torch, eng.count)
+        calls.restore()
+        emit(dict(tag, run="engine_fused", count=count, count_s=wall,
+                  fused_boxes=eng.stats.n_fused_boxes,
+                  calls=len(calls.calls),
+                  launch_count=time_fused_calls(torch, fops, calls)))
+
+    if "dense" in runs:
+        eng = engine_from_state(state, mem_words=1 << 20)
+        eng.count()
+        calls = Calls(dops, "triangle_count",
+                      lambda a, out: a[0].shape[0] * a[1].shape[0]
+                      * a[0].shape[1])
+        count, wall = walled(torch, eng.count)
+        calls.restore()
+        timed = {}
+        for name, (size, a, kw) in zip(("largest", "median"), calls.pick()):
+            timed[name] = {"shape": [list(a[0].shape), list(a[1].shape)],
+                           "ms": cuda_ms(torch,
+                                         lambda: dops.triangle_count(*a))}
+        emit(dict(tag, run="dense", count=count, count_s=wall,
+                  dense_boxes=eng.stats.n_dense_boxes,
+                  calls=len(calls.calls), triangle_count=timed))
+
+    if "dense_listing" in runs:
+        src, dst = rmat_graph(1 << 16, 16 << 16, seed=1)
+        eng = TriangleEngine(src, dst, mem_words=1 << 18)
+        calls = Calls(dops, "triangle_count",
+                      lambda a, out: a[0].shape[0] * a[1].shape[0]
+                      * a[0].shape[1])
+        count = eng.count()
+        calls.restore()
+        (size, a, kw), _ = calls.pick()
+        want = int(dops.triangle_count(*a))
+        emit(dict(tag, run="dense_listing", count=count,
+                  calls=len(calls.calls),
+                  triangle_count={"shape": [list(a[0].shape),
+                                            list(a[1].shape)],
+                                  "count": want,
+                                  "ms": cuda_ms(torch, lambda:
+                                                dops.triangle_count(*a))}))
+
+    if "query_fused" in runs:
+        src, dst = rmat_graph(1 << 10, 1 << 14, seed=2)  # warm-up graph
+        QueryEngine(patterns.four_clique(), relations=relations(src, dst),
+                    mem_words=1 << 12, backend="fused").count()
+        src, dst = rmat_graph(1 << 13, 16 << 13, seed=0)
+        rel = relations(src, dst)
+        for name in ("four_clique", "diamond"):
+            eng = QueryEngine(patterns.PATTERNS[name](), relations=rel,
+                              mem_words=1 << 14, backend="fused", workers=1)
+            calls = Calls(fops, "fused_count", fused_words)
+            count, wall = walled(torch, eng.count)
+            calls.restore()
+            emit(dict(tag, run="query_fused", pattern=name, workers=1,
+                      count=count, count_s=wall, calls=len(calls.calls),
+                      fused_boxes=eng.stats.n_fused_boxes,
+                      launch_count=time_fused_calls(torch, fops, calls)))
+        if args.workers8:
+            eng = QueryEngine(patterns.four_clique(), relations=rel,
+                              mem_words=1 << 14, backend="fused", workers=8)
+            count, wall = walled(torch, eng.count)
+            emit(dict(tag, run="query_fused", pattern="four_clique",
+                      workers=8, count=count, count_s=wall))
 
     if "rmat_box" in runs:
         src, dst = rmat_graph(1 << 20, 16 << 20, seed=0)
@@ -248,7 +427,8 @@ def main() -> int:
         boxes.restore()
         emit(dict(tag, run="rmat_box", count=count, count_s=wall,
                   intersect_boxes=eng.stats.n_intersect_boxes,
-                  box_call=time_boxes(torch, iops, boxes)))
+                  box_call=time_boxes(torch, iops, boxes, libs,
+                                            _build)))
     return 0
 
 

@@ -3,8 +3,9 @@ with a plain C interface, bound with ``ctypes``.
 
 Each ``csrc/<name>.cu`` compiles on first use into
 ``build/repro_torch/<name>-<hash>.so`` at the root of the checkout, keyed
-by a hash of the source and the flags, so an edit rebuilds and an
-unchanged source loads the library already built. ``build()`` starts one
+by a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edit rebuilds and an unchanged source loads the library
+already built. ``build()`` starts one
 ``nvcc`` per source, all at once. Nothing here falls back: a missing
 ``nvcc`` or a failed compile raises.
 
@@ -15,6 +16,7 @@ wrappers raise when that is not 0.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -74,7 +76,8 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
+    src = (SRC_DIR / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(SRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
@@ -134,3 +137,11 @@ def check_launch(name: str, rc: int) -> None:
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def on_device(device: torch.device):
+    """A context that makes ``device`` the current CUDA device for a
+    launch, or nothing when it is current already."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

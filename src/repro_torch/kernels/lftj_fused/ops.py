@@ -4,9 +4,13 @@ ledger.
 Takes one box's atoms as compact-CSR tensor triples ``(keys, off, vals)``
 on one device and runs the whole box join as a single device invocation:
 
-* :func:`fused_count` -> exact count. On CUDA tensors it launches
-  ``csrc/lftj_fused.cu`` (built with ``nvcc`` at first use) or raises; on
-  CPU tensors it runs ``ref.fused_count_ref`` over the padded layout.
+* :func:`fused_count` -> exact count. On CUDA tensors it launches the
+  count kernel of ``csrc/lftj_fused.cu`` (built with ``nvcc`` at first
+  use; one cooperative launch over a workspace kept per device) or
+  raises; on CPU tensors it runs ``ref.fused_count_ref`` over the padded
+  layout. A call on the card reads it twice: once for every envelope
+  check and the sizes of the depth-0 and starts-only candidate sets, once
+  for the total.
 * :func:`fused_list` -> (exact total, bounded deterministic-prefix binding
   buffer) in the reference listing program's order. On CUDA tensors it
   launches the cooperative listing kernel of ``csrc/lftj_fused.cu`` (one
@@ -20,7 +24,9 @@ CPU and card runs take the same boxes: vertex ids in ``[0, 2^31 - 1)``
 increasing (sets), and at most ``MAX_ATOMS`` atoms (the kernel's by-value
 descriptor). Offsets are int64 and the work split counts in int64, so no
 box is too large. A call outside the envelope raises
-:class:`FusedUnsupported`; the engine then takes the staged lanes.
+:class:`FusedUnsupported`; the engine then takes the staged lanes. The
+checks run on the atoms' device and reach the host in one read; the first
+failing check, in atom order, raises the exception it would raise alone.
 
 An empty depth-0 frontier, or an empty starts-only depth, returns 0 (or an
 empty buffer) with no launch and no ledger note, as in the reference;
@@ -57,9 +63,12 @@ LIST_LAUNCHES = _build.LaunchCounter()
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _SIGNATURES = {
-    "lftj_fused_rows_launch": ((_P, _P, _LL, _P, _P), ctypes.c_int),
-    "lftj_fused_count_launch": ((_P, _P, _LL, _P, _P, _P), ctypes.c_int),
-    "lftj_fused_n_partials": ((), ctypes.c_int),
+    "lftj_count_grid": ((ctypes.c_int, ctypes.POINTER(ctypes.c_int)),
+                        ctypes.c_int),
+    "lftj_count_words": ((_P, _LL, _LL, ctypes.c_int), _LL),
+    "lftj_count_n_partials": ((ctypes.c_int,), _LL),
+    "lftj_count_launch": ((_P, _P, _LL, _P, _LL, _LL, ctypes.c_int, _P, _P),
+                          ctypes.c_int),
     "lftj_fused_desc_words": ((), ctypes.c_int),
     "lftj_list_grid": ((ctypes.POINTER(ctypes.c_int),), ctypes.c_int),
     "lftj_list_base_words": ((ctypes.c_int,), _LL),
@@ -112,24 +121,110 @@ def starts_only_depths(n_vars: int,
     return [d for d in range(1, n_vars - 1) if d not in seen_second]
 
 
-def _key_intersection(atom_dims, keys: Sequence[torch.Tensor],
-                      depth: int) -> torch.Tensor:
-    """Sorted key intersection of the atoms starting at ``depth``."""
-    cand: Optional[torch.Tensor] = None
-    for (fd, _), k in zip(atom_dims, keys):
-        if fd != depth:
-            continue
-        cand = k if cand is None else cand[torch.isin(cand, k)]
-        if cand.numel() == 0:
-            break
-    if cand is None:
-        return torch.zeros(0, dtype=torch.int32, device=keys[0].device)
-    return cand
+def _key_mask(atom_dims, keys: Sequence[torch.Tensor], depth: int):
+    """(keys of the first atom starting at ``depth``, mask of those in
+    every other such atom's keys, or None when there is no other), or None
+    when no atom starts there. Keys are sorted; nothing synchronises."""
+    starting = [k for (fd, _), k in zip(atom_dims, keys) if fd == depth]
+    if not starting:
+        return None
+    base, mask = starting[0], None
+    for k in starting[1:]:
+        if k.numel() == 0:
+            hit = torch.zeros(base.shape, dtype=torch.bool,
+                              device=base.device)
+        else:
+            pos = torch.searchsorted(k, base).clamp_(max=k.numel() - 1)
+            hit = k[pos] == base
+        mask = hit if mask is None else mask & hit
+    return base, mask
 
 
-def _envelope(atom_dims, atom_csrs):
-    """Checked int32 keys / int64 offsets / int32 values per atom, all on
-    one device; raises FusedUnsupported outside the kernel's envelope."""
+def _compact(base: torch.Tensor, mask: Optional[torch.Tensor],
+             n: int) -> torch.Tensor:
+    """The ``n`` entries of ``base`` that ``mask`` keeps, in order, without
+    a host read: each kept entry is scattered to its rank, the others all
+    to one spare slot past the end."""
+    if mask is None:
+        return base
+    rank = torch.where(mask, torch.cumsum(mask, 0) - 1, n)
+    out = torch.empty(n + 1, dtype=base.dtype, device=base.device)
+    out.scatter_(0, rank, base)
+    return out[:n]
+
+
+def _shape_error(ai: int, keys, off, vals) -> Optional[ValueError]:
+    """The malformed-input error that atom ``ai``'s metadata alone shows,
+    or None."""
+    for name, t in (("keys", keys), ("off", off), ("vals", vals)):
+        if t.dim() != 1 or t.dtype not in (torch.int32, torch.int64):
+            return ValueError(f"fused: atom {ai} {name} must be a 1-D "
+                              f"int32/int64 tensor, got {t.dtype} "
+                              f"{tuple(t.shape)}")
+    if off.numel() != keys.numel() + 1:
+        return ValueError(f"fused: atom {ai} has {keys.numel()} keys "
+                          f"but {off.numel()} offsets")
+    return None
+
+
+# an atom's checks on its device, in the order they raise
+_CHECKS = ("offsets", "keys", "vals", "sets")
+
+
+def _atom_flags(keys, off, vals) -> torch.Tensor:
+    """(4,) int64 flags of an atom's device checks in ``_CHECKS`` order, 1
+    where it fails: offsets that do not index the values; key or value ids
+    outside ``[0, SENTINEL)``; keys or a row not strictly increasing.
+    Malformed offsets are clamped, so the later checks never fault."""
+    dev = vals.device
+    nv = vals.numel()
+    off = off.to(torch.int64)
+    bad_off = (off[0] != 0) | (off[-1] != nv) | (off[1:] < off[:-1]).any()
+
+    def out_of_range(t):
+        if t.numel() == 0:
+            return torch.zeros((), dtype=torch.bool, device=dev)
+        return (t.min() < 0) | (t.max() >= SENTINEL)
+
+    # strictly increasing keys, and within every row strictly increasing
+    # values (the step onto a row's first value is exempt): rows are sets
+    step = vals[1:] > vals[:-1]
+    if nv > 1:
+        starts = torch.zeros(nv + 1, dtype=torch.bool, device=dev)
+        starts.index_fill_(0, off.clamp(0, nv), True)
+        step = step | starts[1:nv]
+    not_set = ~step.all() | ~(keys[1:] > keys[:-1]).all()
+    return torch.stack([bad_off, out_of_range(keys), out_of_range(vals),
+                        not_set]).to(torch.int64)
+
+
+def _check_error(ai: int, check: str, n_vals: int) -> ValueError:
+    """The exception of atom ``ai``'s failed device check."""
+    if check == "offsets":
+        return ValueError(f"fused: atom {ai} offsets do not index its "
+                          f"{n_vals} values")
+    if check in ("keys", "vals"):
+        return FusedUnsupported(f"atom {ai} {check}: vertex ids must lie "
+                                f"in [0, {SENTINEL})")
+    return FusedUnsupported(f"atom {ai}: keys and adjacency rows must be "
+                            "strictly increasing sets")
+
+
+def _prepare(atom_dims, atom_csrs, n_vars: int):
+    """(checked CSRs, depth-0 frontier, constant rows), or None when the
+    box result is empty without a launch (empty frontier or an empty
+    starts-only depth).
+
+    One host read covers the envelope: every atom's device checks and the
+    sizes of the depth-0 and starts-only candidate sets come to the host
+    together. The first failure in atom order (its metadata, then
+    ``_CHECKS``) raises: ``ValueError`` for malformed inputs,
+    :class:`FusedUnsupported` outside the envelope. Atoms after the first
+    one with malformed metadata are not examined."""
+    atom_dims = tuple((int(fd), int(sd)) for fd, sd in atom_dims)
+    reason = fused_supported(atom_dims, n_vars)
+    if reason is not None:
+        raise FusedUnsupported(reason)
     if len(atom_dims) > MAX_ATOMS:
         raise FusedUnsupported(f"{len(atom_dims)} atoms exceed the fused "
                                f"kernel's MAX_ATOMS={MAX_ATOMS}")
@@ -139,64 +234,40 @@ def _envelope(atom_dims, atom_csrs):
     devices = {t.device for csr in atom_csrs for t in csr}
     if len(devices) != 1:
         raise ValueError("fused: all atom tensors must share one device")
-    out = []
-    for ai, (keys, off, vals) in enumerate(atom_csrs):
-        for name, t in (("keys", keys), ("off", off), ("vals", vals)):
-            if t.dim() != 1 or t.dtype not in (torch.int32, torch.int64):
-                raise ValueError(f"fused: atom {ai} {name} must be a 1-D "
-                                 f"int32/int64 tensor, got {t.dtype} "
-                                 f"{tuple(t.shape)}")
-        if off.numel() != keys.numel() + 1:
-            raise ValueError(f"fused: atom {ai} has {keys.numel()} keys "
-                             f"but {off.numel()} offsets")
-        off = off.to(torch.int64).contiguous()
-        if int(off[0]) != 0 or int(off[-1]) != vals.numel() \
-                or bool((off[1:] < off[:-1]).any()):
-            raise ValueError(f"fused: atom {ai} offsets do not index its "
-                             f"{vals.numel()} values")
-        for name, t in (("keys", keys), ("vals", vals)):
-            if t.numel() and (int(t.min()) < 0 or int(t.max()) >= SENTINEL):
-                raise FusedUnsupported(
-                    f"atom {ai} {name}: vertex ids must lie in "
-                    f"[0, {SENTINEL})")
-        # strictly increasing keys, and within every row strictly
-        # increasing values: rows are sets
-        step = vals[1:] > vals[:-1]
-        if vals.numel() > 1:
-            inner = torch.ones(vals.numel() - 1, dtype=torch.bool,
-                               device=vals.device)
-            starts = off[1:-1]
-            starts = starts[(starts > 0) & (starts < vals.numel())]
-            inner[starts - 1] = False
-            step = step | ~inner
-        if not bool(step.all()) or not bool((keys[1:] > keys[:-1]).all()):
-            raise FusedUnsupported(f"atom {ai}: keys and adjacency rows must "
-                                   "be strictly increasing sets")
-        out.append((keys.to(torch.int32).contiguous(), off,
-                    vals.to(torch.int32).contiguous()))
-    return out
-
-
-def _prepare(atom_dims, atom_csrs, n_vars: int):
-    """(checked CSRs, depth-0 frontier, constant rows), or None when the
-    box result is empty without a launch (empty frontier or an empty
-    starts-only depth)."""
-    atom_dims = tuple((int(fd), int(sd)) for fd, sd in atom_dims)
-    reason = fused_supported(atom_dims, n_vars)
-    if reason is not None:
-        raise FusedUnsupported(reason)
-    csrs = _envelope(atom_dims, atom_csrs)
-    keys = [c[0] for c in csrs]
-    c0 = _key_intersection(atom_dims, keys, 0)
-    if c0.numel() == 0:
-        return None
-    consts = []
-    for d in starts_only_depths(n_vars, atom_dims):
-        c = _key_intersection(atom_dims, keys, d)
-        if c.numel() == 0:
+    shape_error, checked = None, []
+    for ai, csr in enumerate(atom_csrs):
+        shape_error = _shape_error(ai, *csr)
+        if shape_error is not None:
+            break
+        checked.append(csr)
+    parts = [_atom_flags(*csr) for csr in checked]
+    csrs = [(k.to(torch.int32).contiguous(), o.to(torch.int64).contiguous(),
+             v.to(torch.int32).contiguous()) for k, o, v in checked]
+    sets = []
+    if shape_error is None:
+        keys = [c[0] for c in csrs]
+        sets = [_key_mask(atom_dims, keys, d)
+                for d in [0] + starts_only_depths(n_vars, atom_dims)]
+        parts += [mask.sum(dtype=torch.int64).view(1)
+                  for _, mask in filter(None, sets) if mask is not None]
+    read = torch.cat(parts).tolist() if parts else []
+    for ai, csr in enumerate(checked):
+        for ci, check in enumerate(_CHECKS):
+            if read[len(_CHECKS) * ai + ci]:
+                raise _check_error(ai, check, csr[2].numel())
+    if shape_error is not None:
+        raise shape_error
+    sizes = iter(read[len(_CHECKS) * len(checked):])
+    found = []
+    for s in sets:
+        if s is None:
             return None
-        consts.append(c)
-    return atom_dims, csrs, c0, consts
+        base, mask = s
+        n = base.numel() if mask is None else int(next(sizes))
+        if n == 0:
+            return None
+        found.append(_compact(base, mask, n))
+    return atom_dims, csrs, found[0], found[1:]
 
 
 def _layout_bytes(csrs, c0, consts) -> int:
@@ -250,54 +321,41 @@ def _descriptor(atom_dims, csrs, consts, n_vars: int) -> np.ndarray:
     return desc
 
 
+_lib = None
+
+
 def _library():
-    lib = _build.load("lftj_fused", _SIGNATURES)
-    if lib.lftj_fused_desc_words() != 2 + 6 * MAX_ATOMS + 2 * MAX_DEPTH \
-            or lib.lftj_list_header_words() < _HEAD:
-        raise RuntimeError("lftj_fused: descriptor or workspace layout of "
-                           "the built library differs from ops.py")
-    return lib
-
-
-def launch_count(prep) -> torch.Tensor:
-    """Run the CUDA kernel on a prepared box (``_prepare``'s result, CUDA
-    tensors): one scalar int64 tensor on the card, not synchronised.
-    ``fused_count`` calls it once per box; ``chip_smoke.py`` times it."""
-    atom_dims, csrs, c0, consts = prep
-    n_vars = max(sd for _, sd in atom_dims) + 1
-    dev = c0.device
-    lib = _library()
-    desc = _descriptor(atom_dims, csrs, consts, n_vars)
-    c0 = c0.contiguous()
-    t = c0.numel()
-    row_len = torch.empty(t, dtype=torch.int64, device=dev)
-    pair_off = torch.zeros(t + 1, dtype=torch.int64, device=dev)
-    n_part = lib.lftj_fused_n_partials()
-    partials = torch.empty(n_part, dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        stream = _build.stream_ptr(dev)
-        # pass 1 writes each depth-0 row's depth-1 candidate count; the
-        # exclusive scan places its (row, slot) pairs; pass 2 counts them
-        rc = lib.lftj_fused_rows_launch(
-            desc.ctypes.data, c0.data_ptr(), t, row_len.data_ptr(), stream)
-        _build.check_launch("lftj_fused", rc)
-        torch.cumsum(row_len, 0, out=pair_off[1:])
-        rc = lib.lftj_fused_count_launch(
-            desc.ctypes.data, c0.data_ptr(), t, pair_off.data_ptr(),
-            partials.data_ptr(), stream)
-    _build.check_launch("lftj_fused", rc)
-    LAUNCHES.add()
-    return partials.sum()
+    """The built library, its descriptor and header layout checked against
+    this module once."""
+    global _lib
+    if _lib is None:
+        lib = _build.load("lftj_fused", _SIGNATURES)
+        if lib.lftj_fused_desc_words() != 2 + 6 * MAX_ATOMS + 2 * MAX_DEPTH \
+                or lib.lftj_list_header_words() < _HEAD:
+            raise RuntimeError("lftj_fused: descriptor or workspace layout "
+                               "of the built library differs from ops.py")
+        _lib = lib
+    return _lib
 
 
 # the listing kernel's workspace header (csrc/lftj_fused.cu, "Listing"):
 # int64 words bump, overflow, need, total, rows_at, rows
 _HEAD = 6
-# one workspace per device, grown on overflow and never shrunk; the lock
-# keeps a call's launch, header read and row copy together
+# one workspace per device, shared by the count and listing kernels, grown
+# when a call needs more and never shrunk; the lock keeps a call's launch
+# (and a listing's header read and row copy) together
 _workspaces: Dict[torch.device, torch.Tensor] = {}
-_grids: Dict[torch.device, int] = {}
+# co-resident grids of the cooperative kernels, by (device, "list") and
+# (device, n_vars) for the count
+_grids: Dict[tuple, int] = {}
 _ws_lock = threading.Lock()
+# the count kernel's region of a depth >= 2 frontier holds at least
+# 2^20 and at most 2^22 entries; a larger frontier is expanded in chunks
+# (every chunk but the last counts its innermost depth on the cooperative
+# grid, so fewer chunks pay: the median diamond box of the query phase
+# took 0.42 ms on the card at 2^17 entries, 0.24 at 2^20,
+# scripts/fused_count_probe.py)
+_COUNT_CAP = (1 << 20, 1 << 22)
 
 
 def _workspace(dev: torch.device, words: int) -> torch.Tensor:
@@ -311,17 +369,87 @@ def _workspace(dev: torch.device, words: int) -> torch.Tensor:
     return ws
 
 
-def _list_grid(lib, dev: torch.device) -> int:
-    """The listing kernel's co-resident grid on ``dev`` (raises when the
-    card cannot launch cooperatively)."""
-    grid = _grids.get(dev)
+def _coop_grid(dev: torch.device, key, query: Callable) -> int:
+    """A cooperative kernel's co-resident grid on ``dev``, asked once with
+    ``query(byref(out))`` (raises when the card cannot launch
+    cooperatively)."""
+    grid = _grids.get((dev, key))
     if grid is None:
         out = ctypes.c_int(0)
         with torch.cuda.device(dev):
-            _build.check_launch("lftj_fused_list",
-                                lib.lftj_list_grid(ctypes.byref(out)))
-        grid = _grids[dev] = out.value
+            _build.check_launch("lftj_fused", query(ctypes.byref(out)))
+        grid = _grids[(dev, key)] = out.value
     return grid
+
+
+def _list_grid(lib, dev: torch.device) -> int:
+    """The listing kernel's co-resident grid on ``dev``."""
+    return _coop_grid(dev, "list", lib.lftj_list_grid)
+
+
+def _leading(atom_dims, n_vars: int, consts) -> List[int]:
+    """Sizes of the constant rows of the starts-only depths 1, 2, ... that
+    follow depth 0 without a bound depth between."""
+    out = []
+    for d, c in zip(starts_only_depths(n_vars, atom_dims), consts):
+        if d != len(out) + 1:
+            break
+        out.append(c.numel())
+    return out
+
+
+def _count_cap(c0: torch.Tensor, csrs, leading: Sequence[int]) -> int:
+    """Entries of each depth >= 2 frontier region of the count kernel for
+    a box: the power of two that holds the depth-0 rows and every atom
+    value (a triangle box's whole depth-1 expansion), or, when depths 1,
+    2, ... are starts-only (``leading``, the sizes of their constant
+    rows), the cross product of the depth-0 rows and those rows (their
+    whole expansion: a diamond box ordered from w has |c0| · |x keys|
+    (w, x) entries), within ``_COUNT_CAP``."""
+    front = c0.numel()
+    for n in leading:
+        front *= n
+    need = max(front, c0.numel() + sum(v.numel() for _, _, v in csrs))
+    lo, hi = _COUNT_CAP
+    return min(hi, max(lo, 1 << max(0, need - 1).bit_length()))
+
+
+def launch_count(prep) -> torch.Tensor:
+    """Run the CUDA count kernel on a prepared box (``_prepare``'s result,
+    CUDA tensors): one scalar int64 tensor on the card, not synchronised.
+    ``fused_count`` calls it once per box; ``chip_smoke.py`` times it.
+
+    A cooperative launch (``count_kernel<n_vars>``, csrc/lftj_fused.cu)
+    walks the box in the device's kept workspace, sized here from the
+    call's sizes so that it never overflows, and a tile launch counts the
+    innermost depth it leaves; both write int64 partials per block,
+    summed on the card."""
+    atom_dims, csrs, c0, consts = prep
+    n_vars = max(sd for _, sd in atom_dims) + 1
+    dev = c0.device
+    lib = _library()
+    desc = _descriptor(atom_dims, csrs, consts, n_vars)
+    c0 = c0.to(torch.int32).contiguous()
+    cap = _count_cap(c0, csrs, _leading(atom_dims, n_vars, consts))
+    # the whole co-resident grid: a box's later frontiers can outgrow its
+    # atoms by orders of magnitude (the median diamond box: 1.28 ms on the
+    # card on 17 blocks, 0.42 on 264; the median four-clique box pays
+    # 0.007 ms for the wider grid's syncs, scripts/fused_count_probe.py)
+    grid = _coop_grid(dev, n_vars,
+                      lambda out: lib.lftj_count_grid(n_vars, out))
+    words = lib.lftj_count_words(desc.ctypes.data, c0.numel(), cap, grid)
+    partials = torch.empty(lib.lftj_count_n_partials(grid),
+                           dtype=torch.int64, device=dev)
+    with _ws_lock:
+        ws = _workspace(dev, words)
+        with _build.on_device(dev):
+            rc = lib.lftj_count_launch(
+                desc.ctypes.data, c0.data_ptr(), c0.numel(), ws.data_ptr(),
+                ws.numel(), cap, grid, partials.data_ptr(),
+                _build.stream_ptr(dev))
+    _build.check_launch("lftj_fused", rc)
+    LAUNCHES.add()
+    return partials.sum()
 
 
 def _run_listing(dev: torch.device, words: int,

@@ -106,8 +106,13 @@ def test_intersect_rejects_bad_inputs():
         intersect_ops.intersect_count(a.T, a.T)
 
 
+# ragged shapes, and the CUDA kernel's tile edges: nx and ny at and
+# around multiples of 64 and 128 (a warpgroup's rows, a block's tile), d
+# at multiples of 16 around its 128-byte stage, up to a few thousand
 DENSE_SHAPES = [(64, 64, 128), (100, 140, 300), (1, 7, 64), (257, 129, 641),
-                (3, 5, 1), (130, 2, 1000)]
+                (3, 5, 1), (130, 2, 1000), (63, 65, 16), (64, 128, 112),
+                (127, 129, 128), (128, 127, 144), (129, 256, 512),
+                (255, 257, 1008), (256, 64, 2048), (192, 64, 4096)]
 
 
 @pytest.mark.parametrize("nx,ny,d", DENSE_SHAPES)
@@ -176,8 +181,8 @@ def test_cpu_wrappers_do_not_count_launches():
 # the CSR form: intersect_rows_ref, intersect_count_csr, intersect_count_rows
 # ---------------------------------------------------------------------------
 
-# the kernel's largest work tile and its grid (csrc/intersect.cu kTileMax,
-# kBlocks)
+# the kernel's largest work tile and its grid (csrc/intersect_core.cuh
+# kTileMax, csrc/intersect.cu kBlocks)
 KERNEL_TILE = 2048
 KERNEL_GRID = 132 * 8
 

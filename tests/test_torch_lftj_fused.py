@@ -267,6 +267,334 @@ def test_malformed_inputs_raise_value_error():
         fused_list(dims, [csr] * 3, 3, capacity=0)
 
 
+def _envelope_case(case):
+    """(atom CSRs of a triangle box, the exception type and message the
+    envelope raises for them): each check on its own, and several failing
+    atoms, where the first failure in atom order (its metadata, then
+    offsets, key ids, value ids, sets) decides."""
+    csr = graph_csr(*er_graph(20, 0.3, 4))
+    keys, off, vals = (np.asarray(a).copy() for a in csr)
+    nv, nk = len(vals), len(keys)
+    row = int(np.argmax(np.diff(off) >= 2))
+    sets = "keys and adjacency rows must be strictly increasing sets"
+    ids = "vertex ids must lie in [0, 2147483647)"
+    bad = {}
+    if case == "offsets_start":
+        o = off.copy()
+        o[0] = 1
+        bad[1] = (keys, o, vals)
+        return bad, ValueError, f"fused: atom 1 offsets do not index its " \
+            f"{nv} values"
+    if case == "offsets_end":
+        o = off.copy()
+        o[-1] = nv - 1
+        bad[2] = (keys, o, vals)
+        return bad, ValueError, f"fused: atom 2 offsets do not index its " \
+            f"{nv} values"
+    if case == "offsets_decrease":
+        o = off.copy()
+        o[row + 1], o[row] = o[row], o[row + 1]
+        bad[0] = (keys, o, vals)
+        return bad, ValueError, f"fused: atom 0 offsets do not index its " \
+            f"{nv} values"
+    if case == "key_negative":
+        k = keys.copy()
+        k[0] = -1
+        bad[1] = (k, off, vals)
+        return bad, FusedUnsupported, f"atom 1 keys: {ids}"
+    if case == "value_too_large":
+        v = vals.astype(np.int64)
+        v[-1] = 2 ** 31
+        bad[0] = (keys, off, v)
+        return bad, FusedUnsupported, f"atom 0 vals: {ids}"
+    if case == "keys_not_increasing":
+        k = keys.copy()
+        k[1], k[2] = k[2], k[1]
+        bad[2] = (k, off, vals)
+        return bad, FusedUnsupported, f"atom 2: {sets}"
+    if case == "row_decreasing":
+        v = vals.copy()
+        v[off[row]], v[off[row] + 1] = v[off[row] + 1], v[off[row]]
+        bad[1] = (keys, off, v)
+        return bad, FusedUnsupported, f"atom 1: {sets}"
+    if case == "offset_count":
+        bad[1] = (keys, off[:-1], vals)
+        return bad, ValueError, f"fused: atom 1 has {nk} keys but {nk} " \
+            "offsets"
+    if case == "dtype":
+        bad[0] = (keys.astype(np.float32), off, vals)
+        return bad, ValueError, "fused: atom 0 keys must be a 1-D " \
+            f"int32/int64 tensor, got torch.float32 ({nk},)"
+    if case == "first_of_several":
+        # atom 0 holds a repeated value, atom 1 malformed offsets, atom 2
+        # a float value array: atom 0's failure raises
+        v = vals.copy()
+        v[off[row] + 1] = v[off[row]]
+        o = off.copy()
+        o[0] = 3
+        bad = {0: (keys, off, v), 1: (keys, o, vals),
+               2: (keys, off, vals.astype(np.float64))}
+        return bad, FusedUnsupported, f"atom 0: {sets}"
+    if case == "metadata_after_values":
+        # atom 1 holds an id out of range, atom 2 a float value array
+        k = keys.copy()
+        k[-1] = 2 ** 31 - 1
+        bad = {1: (k, off, vals), 2: (keys, off, vals.astype(np.float64))}
+        return bad, FusedUnsupported, f"atom 1 keys: {ids}"
+    assert case == "metadata_before_values"
+    # atom 0 has a float key array, atom 1 a decreasing row: atom 0 raises
+    v = vals.copy()
+    v[off[row]], v[off[row] + 1] = v[off[row] + 1], v[off[row]]
+    bad = {0: (keys.astype(np.float64), off, vals), 1: (keys, off, v)}
+    return bad, ValueError, "fused: atom 0 keys must be a 1-D int32/int64 " \
+        f"tensor, got torch.float64 ({nk},)"
+
+
+ENVELOPE_CASES = ("offsets_start", "offsets_end", "offsets_decrease",
+                  "key_negative", "value_too_large", "keys_not_increasing",
+                  "row_decreasing", "offset_count", "dtype",
+                  "first_of_several", "metadata_after_values",
+                  "metadata_before_values")
+
+
+@pytest.mark.parametrize("case", ENVELOPE_CASES)
+def test_envelope_checks_raise_in_atom_order(case):
+    """The envelope's checks reach the host in one read; each raises the
+    same exception type and message as when it was checked on its own,
+    and with several failing atoms the first in atom order raises."""
+    import re
+    bad, exc, msg = _envelope_case(case)
+    csr = graph_csr(*er_graph(20, 0.3, 4))
+    csrs = [bad.get(ai, csr) for ai in range(3)]
+    dims = DIMS["triangle"]
+    with pytest.raises(exc, match=f"^{re.escape(msg)}$"):
+        fused_count(dims, tensors(csrs), 3)
+    with pytest.raises(exc, match=f"^{re.escape(msg)}$"):
+        fused_list(dims, tensors(csrs), 3, capacity=8)
+
+
+# the count kernel's tile launch: its warps (csrc/lftj_fused.cu
+# kTileBlocks, eight warps a block) and a warp's slice of shared memory in
+# 32-bit words (kCountWarpWin): a bitmap of up to 32 times as many ids, or
+# a copy of up to WIDE values (csrc/intersect_core.cuh warp_chunks)
+TILE_WARPS = 132 * 4 * 8
+WARP_WIN = 1024
+BITS = 32 * WARP_WIN
+WIDE = WARP_WIN - 4
+
+
+def _row(csr, v):
+    keys, off, vals = csr
+    i = int(np.searchsorted(keys, v))
+    if i < len(keys) and keys[i] == v:
+        return np.asarray(vals[off[i]:off[i + 1]], dtype=np.int64)
+    return np.zeros(0, np.int64)
+
+
+def mirror_warp_chunks(items, warps=TILE_WARPS):
+    """The count kernel's innermost split in numpy: items are (narrow,
+    wide, further rows) of the last frontier's prefixes; each prefix's
+    work, the length of its narrow row, is scanned, and warp g takes the
+    probes [g·c, (g + 1)·c), c = ceil(total / warps), item by item. A warp
+    prepares an item's wide row once and keeps it while the next items
+    share it: a bitmap when its ids span at most BITS values, a copy when
+    it holds at most WIDE values (its lanes take contiguous runs), else,
+    per item, the window [lb(wide, first probe), lb(wide, last probe) + 1)
+    when that fits (it must hold every hit), or lanes striding the probes.
+    Returns (bindings, the (prefix, probe) pairs covered, the modes
+    taken)."""
+    work = np.array([len(n) for n, _, _ in items], dtype=np.int64)
+    work_off = np.concatenate([[0], np.cumsum(work)])
+    total, n = int(work_off[-1]), len(items)
+    chunk = -(-total // warps)
+    count, covered, modes = 0, [], set()
+    for gw in range(warps):
+        g, g1 = min(total, gw * chunk), min(total, (gw + 1) * chunk)
+        if g >= g1:
+            continue
+        p = int(np.searchsorted(work_off[:n], g, side="right")) - 1
+        kept = None
+        while g < g1:
+            while work_off[p + 1] <= g:
+                p += 1
+            base = int(work_off[p])
+            s, e = g - base, min(g1, int(work_off[p + 1])) - base
+            narrow, wide, rest = items[p]
+            if kept is not wide:
+                kept = wide
+                span = int(wide[-1]) - int(wide[0]) + 1
+                mode = "bitmap" if span <= BITS else \
+                    "copy" if len(wide) <= WIDE else "window"
+            found = set(wide.tolist())
+            if mode == "window":
+                lo = int(np.searchsorted(wide, narrow[s]))
+                hi = min(len(wide), int(np.searchsorted(wide,
+                                                        narrow[e - 1])) + 1)
+                if hi - lo <= WIDE:
+                    window = set(wide[lo:hi].tolist())
+                    # every hit of the item's probes lies in the window
+                    assert found & set(narrow[s:e].tolist()) <= window
+                    found = window
+                    kept = None  # a window, not the row: not kept
+                else:
+                    mode = "global"
+            modes.add(mode)
+            for j in range(s, e):
+                x = int(narrow[j])
+                covered.append((p, j))
+                count += x in found and all(x in set(r.tolist())
+                                            for r in rest)
+            g = base + e
+    return count, sorted(covered), modes
+
+
+def mirror_count(dims, csrs, n_vars, cap):
+    """The count kernel's walk in numpy (csrc/lftj_fused.cu count_walk):
+    each frontier resolves its entries' bound rows once (the narrowest the
+    candidate source, lowest atom on ties; a starts-only depth's constant
+    row), scans the source lengths, and expands its (entry, candidate)
+    pairs in chunks of at most ``cap`` into the next frontier, depth first
+    over the chunks; the last depth goes through mirror_warp_chunks
+    (an item whose only bound row is its source stands in with that row
+    as its wide one: every candidate is a binding). Asserts
+    that no frontier outgrows ``cap`` and that the tiles cover every
+    probe once."""
+    by_second = [[a for a, (_, sd) in enumerate(dims) if sd == d]
+                 for d in range(n_vars)]
+
+    def key_set(d):
+        cand = None
+        for a, (fd, _) in enumerate(dims):
+            if fd == d:
+                k = np.asarray(csrs[a][0], dtype=np.int64)
+                cand = k if cand is None else cand[np.isin(cand, k)]
+        return np.zeros(0, np.int64) if cand is None else cand
+
+    def resolve(d, vals):
+        n = len(vals[0])
+        srcs, others = [], []
+        for i in range(n):
+            if not by_second[d]:
+                srcs.append(key_set(d))
+                others.append([])
+                continue
+            rows = [_row(csrs[a], vals[dims[a][0]][i]) for a in by_second[d]]
+            k = min(range(len(rows)), key=lambda j: (len(rows[j]), j))
+            srcs.append(rows[k])
+            others.append([r for j, r in enumerate(rows) if j != k])
+        return srcs, others
+
+    def walk(d, vals):
+        srcs, others = resolve(d, vals)
+        if d == n_vars - 1:
+            items = [(s, o[0] if o else s, o[1:])
+                     for s, o in zip(srcs, others)]
+            count, covered, _ = mirror_warp_chunks(items)
+            assert covered == [(p, j) for p, (s, _, _) in enumerate(items)
+                               for j in range(len(s))]
+            return count
+        work_off = np.concatenate([[0], np.cumsum([len(s) for s in srcs])])
+        acc = 0
+        for p0 in range(0, int(work_off[-1]), cap):
+            nxt = [[] for _ in range(d + 1)]
+            for p in range(p0, min(int(work_off[-1]), p0 + cap)):
+                e = int(np.searchsorted(work_off[:-1], p, side="right")) - 1
+                v = srcs[e][p - work_off[e]]
+                if all(v in set(r.tolist()) for r in others[e]):
+                    for j in range(d):
+                        nxt[j].append(vals[j][e])
+                    nxt[d].append(v)
+            assert len(nxt[d]) <= cap
+            if nxt[d]:
+                acc += walk(d + 1, [np.asarray(c) for c in nxt])
+        return acc
+
+    c0 = key_set(0)
+    return walk(1, [c0]) if len(c0) else 0
+
+
+@pytest.mark.parametrize("cap", [1, 3, 64, 1 << 16])
+@pytest.mark.parametrize("pattern", sorted(DIMS))
+def test_count_walk_and_tiles_mirror_match_oracle(pattern, cap):
+    """The count kernel's chunked walk and innermost work split, mirrored
+    in numpy, give fused_ref's count on every pattern, with frontier
+    regions from one entry to the kernel's smallest default."""
+    dims = DIMS[pattern]
+    n = n_vars_of(dims)
+    for seed, make in ((0, lambda: er_graph(24, 0.3, 6)),
+                       (1, lambda: star_graph(3, 18, 2))):
+        csrs = [graph_csr(*make())] * len(dims)
+        assert mirror_count(dims, csrs, n, cap) == fused_ref(dims, csrs,
+                                                             n)[0]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_count_warp_split_matches_brute_force(seed):
+    """The innermost split on prefixes as the main path gives them (runs
+    of prefixes sharing a wide row, a few hub prefixes over long rows,
+    rows whose ids span more than a bitmap, rows past a warp's copy):
+    every probe covered once and the count equal to brute force, on the
+    tile launch's warps and on a few (long shares, many items each), with
+    every way of holding the wide row taken."""
+    rng = np.random.default_rng(seed)
+    items = []
+    while len(items) < 120:
+        ln_w = int(rng.integers(1, 2600))
+        # ids spread over up to 40 times the row's length (a sparse row)
+        # or packed within BITS (a dense box's row)
+        hi = 40 * ln_w if rng.random() < 0.5 else min(BITS, 4 * ln_w)
+        wide = np.sort(rng.choice(hi, size=ln_w, replace=False))
+        for _ in range(int(rng.integers(1, 6))):  # prefixes sharing it
+            ln = int(rng.integers(0, min(ln_w, 3000 if rng.random() < 0.1
+                                         else 50) + 1))
+            narrow = np.sort(rng.choice(hi, size=ln, replace=False))
+            rest = [np.sort(rng.choice(hi, size=min(hi, ln_w),
+                                       replace=False))
+                    for _ in range(int(rng.integers(0, 2)))]
+            items.append((narrow, wide, rest))
+    want = sum(len(set(n.tolist()) & set(w.tolist()).intersection(
+        *[set(r.tolist()) for r in rest])) for n, w, rest in items)
+    modes = set()
+    for warps in (TILE_WARPS, 7):
+        count, covered, taken = mirror_warp_chunks(items, warps)
+        assert count == want
+        assert covered == [(p, j) for p, (n, _, _) in enumerate(items)
+                           for j in range(len(n))]
+        modes |= taken
+    assert modes == {"bitmap", "copy", "window", "global"}
+
+
+@pytest.mark.parametrize("pattern", sorted(DIMS))
+def test_count_region_holds_leading_starts_only_expansion(pattern,
+                                                          monkeypatch):
+    """The count kernel's frontier region: a box whose depth 1 is
+    starts-only (the diamond ordered from w) is sized by its depth-1
+    expansion |c0| · |constant row|, which its walk then takes in one
+    chunk; a box without one by its depth-0 rows and atom values; both
+    within ``_COUNT_CAP``. The mirrored walk at the box's own region
+    equals fused_ref."""
+    dims = DIMS[pattern]
+    n = n_vars_of(dims)
+    csrs = [graph_csr(*er_graph(40, 0.3, 5))] * len(dims)
+    atom_dims, tcsrs, c0, consts = fused_ops._prepare(dims, tensors(csrs), n)
+    leading = fused_ops._leading(atom_dims, n, consts)
+    words = c0.numel() + sum(v.numel() for _, _, v in tcsrs)
+    if pattern == "diamond":
+        assert leading == [consts[0].numel()]
+        need = max(words, c0.numel() * consts[0].numel())
+    else:
+        assert leading == []
+        need = words
+    lo, hi = fused_ops._COUNT_CAP
+    assert fused_ops._count_cap(c0, tcsrs, leading) == \
+        min(hi, max(lo, 1 << (need - 1).bit_length()))
+    # with no floor, the box's own size shows
+    monkeypatch.setattr(fused_ops, "_COUNT_CAP", (1, hi))
+    cap = fused_ops._count_cap(c0, tcsrs, leading)
+    assert cap == 1 << (need - 1).bit_length()
+    assert mirror_count(dims, csrs, n, cap) == fused_ref(dims, csrs, n)[0]
+
+
 def test_kernel_descriptor_layout():
     """The int64 descriptor the wrapper hands the CUDA launcher: n_vars,
     n_atoms, per atom (fd, sd, pointers, key count), per depth the
