@@ -26,8 +26,10 @@ Phases (the kernels each main-path phase must launch in brackets):
                   count and listing kernels (exact, the listing at
                   capacities below and at the total, and once from a
                   workspace too small, which must regrow; also against
-                  the scalar ``fused_ref``) and embedding_bag in both
-                  modes (within BAG_ATOL).
+                  the scalar ``fused_ref``; two counts on two side
+                  streams at once, and a listing on one stream while a
+                  count runs on another, each equal to its serial run)
+                  and embedding_bag in both modes (within BAG_ATOL).
   3. rmat       — Graph500-style RMAT, ``backend="auto"`` [intersect]; the
                   count must equal the plain torch ``binary`` lane.
   4. clustered  — triangle-rich planted-partition graph [triangle_dense];
@@ -45,15 +47,24 @@ Phases (the kernels each main-path phase must launch in brackets):
                   [intersect]; four-clique and diamond on ``auto`` [the
                   diamond: intersect] and ``backend="fused"`` [lftj_fused]
                   at QUERY_SCALE, each equal to its scipy oracle.
-  9. query_listing — four-clique ``list()`` on ``backend="fused"``
+  9. outofcore  — phase 3's graph ingested into an edge store by
+                  ``TriangleEngine.ingest`` (spilled runs; sha256 equal to
+                  ``write_edge_store_csr``'s), counted from the store with
+                  ``degree_bins`` and a ``SliceCache`` at 1 and 4 workers
+                  [intersect]: counts equal to phase 3's, one I/O ledger;
+                  phase 5's graph listed from a store with forced rescans
+                  (bytes equal to phase 5's); the diamond from a store on
+                  ``backend="fused"`` [lftj_fused], count equal to phase
+                  8's.
+ 10. query_listing — four-clique ``list()`` on ``backend="fused"``
                   [lftj_fused_list]: bytes equal the CPU's and a forced-
                   rescan run's; total equal to the host backend and the
                   scipy oracle.
- 10. embedding_bag — "auto" on the dlrm-mlperf configuration's largest
+ 11. embedding_bag — "auto" on the dlrm-mlperf configuration's largest
                   field (20.5 GB) [embedding_bag "dma"] and its seventh
                   (3.7 MB) [embedding_bag "onehot"], B = 65,536, L = 1 and
                   8, within BAG_ATOL of the plain version; timed, freed.
- 11. timing     — each kernel at the largest input the main path gave it,
+ 12. timing     — each kernel at the largest input the main path gave it,
                   against its plain version, a library call where one
                   exists, and its roofline bound; intersect, the dense
                   kernel, the fused count and the listing kernel also at
@@ -72,6 +83,7 @@ name/power-limit line and the final ``{"ok": true, ...}`` line.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import statistics
 import subprocess
@@ -123,6 +135,13 @@ BAG_LS, BAG_PAD_SHARE = (1, 8), 0.1
 # the fused kernel's plain version is timed on the largest main-path input
 # whose padded (R, K) atoms hold at most this many words
 FUSED_PLAIN_WORDS_CAP = 1 << 30
+# the outofcore phase's slice caches: 2^20 words beside the rmat phase's
+# 2^21-word box budget (the scale-20 store is ~7.5x that budget), and
+# 2^13 beside the query phase's 2^14
+OOC_CACHE_WORDS, OOC_QUERY_CACHE_WORDS = 1 << 20, 1 << 13
+# TriangleEngine.ingest's default budget: below the scale-20 graph's edges,
+# so the external sort spills runs and merges them
+OOC_INGEST_BUDGET_WORDS = 1 << 22
 
 
 
@@ -701,8 +720,9 @@ def phase_list_cases(torch, np, fused_ops) -> dict:
         # second run's count is the call's
         start_words = fused_ops._start_words
         fused_ops._start_words = lambda *_: base
+        key = (dev, fused_ops._build.stream_ptr(dev))
         for _ in range(2):
-            fused_ops._workspaces.pop(dev, None)
+            fused_ops._workspaces.pop(key, None)
             (total, rows), k = count_syncs(
                 torch, lambda: fused_ops.launch_list(prep, cap))
             assert total == plain_total, (dims, total, plain_total)
@@ -710,7 +730,7 @@ def phase_list_cases(torch, np, fused_ops) -> dict:
                 plain.cpu().numpy().tobytes(), dims
             syncs.append(k)
         fused_ops._start_words = start_words
-        grown = fused_ops._workspaces[dev].numel()
+        grown = fused_ops._workspaces[key].ws.numel()
         assert grown > base, (grown, base)
         regrowths.append({"base_words": base, "grown_words": grown,
                           "syncs": syncs[1], "first_run_syncs": syncs[0]})
@@ -740,6 +760,51 @@ def phase_list_cases(torch, np, fused_ops) -> dict:
             "regrowth_runs": len(regrowths),
             "regrowth_max_syncs": max(r["syncs"] for r in regrowths),
             "regrowth_example": regrowths[0]}
+
+
+def phase_stream_cases(torch, np, fused_ops) -> dict:
+    """The fused kernels on two side streams at once: two counts of two
+    different boxes enqueued on two streams before either is read, then a
+    listing on one stream while a count runs on the other; each total and
+    the listing's rows equal the serial run's on the default stream (each
+    stream has its own workspace)."""
+    from repro_torch.data.graphs import rmat_graph
+    boxes = {}
+    for name, dims, seed in (("triangle", TRIANGLE, 0),
+                             ("diamond", FUSED_DIMS["diamond"], 1),
+                             ("four_clique", FUSED_DIMS["four_clique"], 2)):
+        csr = graph_csr(np, *rmat_graph(1 << 11, 16 << 11, seed=seed))
+        n = max(sd for _, sd in dims) + 1
+        boxes[name] = (dims, n, fused_ops._prepare(
+            dims, on_card(torch, np, [csr] * len(dims)), n))
+    serial = {k: int(fused_ops.launch_count(p)) for k, (_, _, p)
+              in boxes.items()}
+    cap = 4096
+    list_total, list_rows = fused_ops.launch_list(boxes["four_clique"][2],
+                                                  cap)
+    list_rows = list_rows.cpu().numpy()
+    torch.cuda.synchronize()
+    side = [torch.cuda.Stream(), torch.cuda.Stream()]
+    with torch.cuda.stream(side[0]):
+        a = fused_ops.launch_count(boxes["triangle"][2])
+    with torch.cuda.stream(side[1]):
+        b = fused_ops.launch_count(boxes["diamond"][2])
+    torch.cuda.synchronize()
+    assert (int(a), int(b)) == (serial["triangle"], serial["diamond"]), (
+        int(a), int(b), serial)
+    with torch.cuda.stream(side[1]):
+        c = fused_ops.launch_count(boxes["diamond"][2])
+    with torch.cuda.stream(side[0]):
+        total, rows = fused_ops.launch_list(boxes["four_clique"][2], cap)
+        rows = rows.cpu().numpy()
+    torch.cuda.synchronize()
+    assert int(c) == serial["diamond"], (int(c), serial)
+    assert total == list_total and rows.tobytes() == list_rows.tobytes()
+    keys = {k for k in fused_ops._workspaces if k[0].type == "cuda"}
+    assert {st.cuda_stream for st in side} <= {k[1] for k in keys}, keys
+    return {"phase": "kernels", "of": ["lftj_fused streams"],
+            "counts": serial, "listed": int(total), "capacity": cap,
+            "workspaces": len(keys), "exact": True}
 
 
 # embedding_bag shapes (V, D, B, L): single row and slot, ragged, the
@@ -952,7 +1017,9 @@ def phase_listing(torch, np, ops, shared, scale: int,
     oracle = int(adj.multiply(adj @ adj.T).sum())
     assert oracle == count, (oracle, count)
     shared["listing"] = {"state": state_of(eng), "oracle": oracle,
-                         "mem_words": mem_words, "count_s": t_count}
+                         "mem_words": mem_words, "count_s": t_count,
+                         "list_sha256": hashlib.sha256(tris.tobytes())
+                         .hexdigest(), "list_s": t_list}
     return {"phase": "listing", "scale": scale, "edges": int(len(src)),
             "mem_words": mem_words, "count": count, "listed": len(tris),
             "count_lanes": count_lanes, "launches": launches,
@@ -1221,6 +1288,7 @@ def phase_query(torch, np, ops, shared, scale: int, mem_words: int) -> dict:
     out.update(scale=scale, mem_words=mem_words, edges=int(len(a)),
                gen_s=t_gen, oracle_s=time.perf_counter() - t0,
                oracles=oracles)
+    shared["query"] = {"csr": csr, "oracles": oracles}
     for name in ("four_clique", "diamond"):
         for backend in ("auto", "fused"):
             workers = QUERY_WORKERS if backend == "auto" else 1
@@ -1245,6 +1313,157 @@ def phase_query(torch, np, ops, shared, scale: int, mem_words: int) -> dict:
                 "launches": launches,
                 "lanes": query_stats(stats)}
             runs.append(launches)
+    shared["query"]["diamond_fused_s"] = out["runs"]["diamond/fused"][
+        "count_s"]
+    out["launches"] = {k: sum(r[k] for r in runs) for k in ops}
+    return out
+
+
+def file_sha256(path) -> str:
+    digest = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 24), b""):
+            digest.update(block)
+    return digest.hexdigest()
+
+
+def io_ledger(stats) -> dict:
+    return {f: getattr(stats, f) for f in (
+        "block_reads", "block_writes", "word_reads", "cache_hits",
+        "cache_misses", "cache_hit_words")}
+
+
+def phase_outofcore(torch, np, ops, shared) -> dict:
+    """The main path out of core: phase 3's graph ingested into an edge
+    store (the external sort spills runs; the file's sha256 equals
+    ``write_edge_store_csr``'s of phase 3's CSR) and counted from it with
+    ``degree_bins`` and a ``SliceCache`` at 1 and 4 workers (counts equal
+    to phase 3's, identical I/O ledgers); phase 5's graph listed from a
+    store (bytes equal to phase 5's card listing); the diamond counted from
+    a store on the fused lane (count equal to phase 8's)."""
+    import tempfile
+    from repro_torch import (QueryEngine, TriangleEngine, patterns,
+                             write_edge_store_csr)
+    rmat, listing, query = shared["rmat"], shared["listing"], shared["query"]
+    out = {"phase": "outofcore", "scale": RMAT_SCALE,
+           "mem_words": RMAT_MEM_WORDS, "cache_words": OOC_CACHE_WORDS}
+    runs = []
+    with tempfile.TemporaryDirectory(prefix="outofcore-") as tmp:
+        tmp = Path(tmp)
+        reset_launches(ops)
+        t0 = time.perf_counter()
+        eng = TriangleEngine.ingest(tmp / "ingest.csr",
+                                    (rmat["src"], rmat["dst"]),
+                                    ingest_budget_words=(
+                                        OOC_INGEST_BUDGET_WORDS),
+                                    mem_words=RMAT_MEM_WORDS,
+                                    degree_bins=True,
+                                    cache_words=OOC_CACHE_WORDS)
+        t_ingest = time.perf_counter() - t0
+        runs.append(read_launches(ops))
+        assert eng.n_spill_runs >= 2, eng.n_spill_runs
+        t0 = time.perf_counter()
+        write_edge_store_csr(tmp / "csr.csr", *rmat["csr"],
+                             orientation="minmax")
+        t_csr = time.perf_counter() - t0
+        sha = {"ingest": file_sha256(tmp / "ingest.csr"),
+               "write_edge_store_csr": file_sha256(tmp / "csr.csr")}
+        assert sha["ingest"] == sha["write_edge_store_csr"], sha
+        store_bytes = (tmp / "ingest.csr").stat().st_size
+        graph_words = int(eng.indptr[-1]) + eng.nv + 1
+        out.update(ingest_s=t_ingest, write_csr_s=t_csr,
+                   spill_runs=eng.n_spill_runs, store_bytes=store_bytes,
+                   ingest_budget_words=OOC_INGEST_BUDGET_WORDS,
+                   sha256=sha["ingest"],
+                   graph_words=graph_words,
+                   graph_over_budget=graph_words / RMAT_MEM_WORDS,
+                   counts={})
+        ledgers = []
+        for workers in (1, 4):
+            eng = TriangleEngine(store=tmp / "ingest.csr",
+                                 mem_words=RMAT_MEM_WORDS, degree_bins=True,
+                                 cache_words=OOC_CACHE_WORDS,
+                                 workers=workers)
+            t0 = time.perf_counter()
+            boxes = eng.plan()
+            t_plan = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches(ops)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            count = eng.count()
+            torch.cuda.synchronize()
+            t_count = time.perf_counter() - t0
+            launches = read_launches(ops)
+            runs.append(launches)
+            stats = eng.stats
+            assert count == rmat["count"], (workers, count, rmat["count"])
+            assert stats.source == "edgestore", stats.source
+            assert stats.n_binary_boxes > 0 and stats.padded_words > 0, \
+                lane_stats(stats)
+            assert launches["intersect"] > 0, launches
+            ledgers.append(io_ledger(stats))
+            out["counts"][f"workers{workers}"] = {
+                "count": count, "count_rmat_phase": rmat["count"],
+                "boxes": len(boxes), "boxes_rmat_phase": rmat["boxes"],
+                "plan_s": t_plan, "count_s": t_count,
+                "whole_s": t_plan + t_count, "lanes": lane_stats(stats),
+                "padded_words": stats.padded_words,
+                "actual_words": stats.actual_words, "io": ledgers[-1],
+                "cache_hit_rate": stats.cache_hit_rate,
+                "launches": launches,
+                "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        assert ledgers[0] == ledgers[1], ledgers
+        del eng
+        # phase 5's graph from a store: list() with forced rescans
+        state = listing["state"]
+        write_edge_store_csr(tmp / "listing.csr", state["indptr"],
+                             state["indices"],
+                             orientation=state["orientation"])
+        eng = TriangleEngine(store=tmp / "listing.csr",
+                             mem_words=listing["mem_words"])
+        reset_launches(ops)
+        t0 = time.perf_counter()
+        tris = eng.list()
+        t_list = time.perf_counter() - t0
+        count = len(tris)
+        cap = max(1, min(256, count // (4 * max(1, eng.stats.n_boxes))))
+        forced = eng.list(capacity=cap)
+        runs.append(read_launches(ops))
+        assert eng.stats.n_rescans > 0, eng.stats.n_rescans
+        assert forced.tobytes() == tris.tobytes()
+        digest = hashlib.sha256(tris.tobytes()).hexdigest()
+        assert digest == listing["list_sha256"], digest
+        assert count == listing["oracle"], (count, listing["oracle"])
+        out["listing"] = {"scale": LIST_SCALE,
+                          "mem_words": listing["mem_words"],
+                          "boxes": eng.stats.n_boxes, "listed": count,
+                          "list_s": t_list, "list_s_in_memory":
+                          listing["list_s"], "forced_capacity": cap,
+                          "rescans_forced": eng.stats.n_rescans,
+                          "io": io_ledger(eng.stats)}
+        del eng, tris, forced
+        # the diamond from a store on the fused lane
+        write_edge_store_csr(tmp / "query.csr", *query["csr"],
+                             orientation="minmax")
+        qe = QueryEngine(patterns.diamond(), store=tmp / "query.csr",
+                         mem_words=QUERY_MEM_WORDS, backend="fused",
+                         cache_words=OOC_QUERY_CACHE_WORDS)
+        count, wall, launches = run_query_count(torch, ops, qe)
+        runs.append(launches)
+        assert count == query["oracles"]["diamond"], (
+            count, query["oracles"]["diamond"])
+        assert qe.stats.n_fused_boxes > 0, query_stats(qe.stats)
+        assert launches["lftj_fused"] > 0, launches
+        out["diamond"] = {"scale": QUERY_SCALE, "mem_words": QUERY_MEM_WORDS,
+                          "cache_words": OOC_QUERY_CACHE_WORDS,
+                          "order": list(qe.order), "count": count,
+                          "count_s": wall,
+                          "count_s_in_memory": query["diamond_fused_s"],
+                          "launches": launches,
+                          "lanes": query_stats(qe.stats),
+                          "io": io_ledger(qe.stats),
+                          "cache_hit_rate": qe.stats.cache_hit_rate}
     out["launches"] = {k: sum(r[k] for r in runs) for k in ops}
     return out
 
@@ -1793,7 +2012,23 @@ def bag_kernel_row(timing: dict, launches: int) -> dict:
 
 
 PHASES = ("rmat", "clustered", "listing", "skew", "fused", "query",
-          "query_listing", "embedding_bag")
+          "outofcore", "query_listing", "embedding_bag")
+# the phases whose graphs and results a phase reuses
+NEEDS = {"skew": ("rmat",), "fused": ("clustered", "listing"),
+         "query": ("rmat",), "outofcore": ("rmat", "listing", "query")}
+
+
+def with_needs(names) -> list:
+    """The phases ``names`` and every phase they reuse, in PHASES order."""
+    want, todo = set(), list(names)
+    while todo:
+        name = todo.pop()
+        if name not in PHASES:
+            raise SystemExit(f"chip_smoke: unknown phase {name!r}")
+        if name not in want:
+            want.add(name)
+            todo.extend(NEEDS.get(name, ()))
+    return [p for p in PHASES if p in want]
 
 
 def main() -> int:
@@ -1801,9 +2036,8 @@ def main() -> int:
     ap.add_argument("--quick", action="store_true",
                     help="device, build and kernel checks only")
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="main-path phases to run (default: all eight; "
-                         "skew and query need rmat, fused needs clustered "
-                         "and listing)")
+                    help="main-path phases to run (default: all nine), "
+                         "with the phases they reuse (NEEDS)")
     ap.add_argument("--profile", action="store_true",
                     help="repeat each main-path count under "
                          "torch.profiler and print device time by kernel")
@@ -1852,6 +2086,9 @@ def main() -> int:
                       phase_s=time.perf_counter() - t0)
     emit(list_cases)
     t0 = time.perf_counter()
+    emit(dict(phase_stream_cases(torch, np, fused_ops),
+              phase_s=time.perf_counter() - t0))
+    t0 = time.perf_counter()
     emit(dict(phase_bag_cases(torch, np, bag_ops),
               phase_s=time.perf_counter() - t0))
 
@@ -1895,6 +2132,7 @@ def main() -> int:
                                          args.profile),
             "query": lambda: phase_query(torch, np, ops, shared,
                                          QUERY_SCALE, QUERY_MEM_WORDS),
+            "outofcore": lambda: phase_outofcore(torch, np, ops, shared),
             "query_listing": lambda: phase_query_listing(
                 torch, np, ops, shared, QUERY_LIST_SCALE,
                 QUERY_LIST_MEM_WORDS),
@@ -1902,7 +2140,7 @@ def main() -> int:
                 torch, np, ops, shared, bag_ops),
         }
         runs = []
-        for name in args.phases.split(","):
+        for name in with_needs(args.phases.split(",")):
             t0 = time.perf_counter()
             runs.append(phases[name]())
             runs[-1]["phase_s"] = time.perf_counter() - t0

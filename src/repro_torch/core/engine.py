@@ -4,15 +4,23 @@ The engine is split into two layers:
 
   * **planner** (this module) — orientation/CSR preparation, the box plan
     (``core.boxing.plan_boxes`` over a ``TrieArray`` of the oriented
-    edges, or ``plan_boxes_heavy_light`` under ``skew="heavy_light"``) and
-    per-box lane dispatch by edge density or by the box's hub/light
-    class.
+    edges in memory, ``plan_boxes_from_degrees`` from the resident degree
+    index when the graph lives in a ``data.edgestore.EdgeStore``, or
+    ``plan_boxes_heavy_light`` under ``skew="heavy_light"``) and per-box
+    lane dispatch by edge density or by the box's hub/light class.
   * **streaming executor** (``core.executor.StreamingExecutor``) — pulls
     boxes from a work queue and materializes, per box, a vertex-renumbered
     *compacted* neighbor slice, overlapping host-side slice construction
     with device compute via ``data.pipeline.Prefetcher``. With a
     ``core.iomodel.BlockDevice`` attached, source reads are charged to it
     and ``EngineStats`` carries the measured block I/Os.
+
+Out of core (``store=``), only the (V+1)-word degree index is resident and
+every box's slice is read from the store, charged to a ``BlockDevice``.
+With ``cache_words > 0`` the source is wrapped in an LRU
+``core.executor.SliceCache``, so row blocks that adjacent boxes re-read
+are served from host memory. ``TriangleEngine.ingest`` builds the store
+itself with bounded memory (``data.edgestore.EdgeStoreWriter``).
 
 The lanes run on ``torch_device``, which is the CUDA card unless the
 caller asks for the CPU: there the dense, intersect and fused lanes launch
@@ -23,6 +31,9 @@ Usage::
 
     eng = TriangleEngine(src, dst, mem_words=1 << 16)        # on the card
     eng = TriangleEngine(src, dst, torch_device="cpu")       # on the CPU
+    eng = TriangleEngine.ingest("graph.csr", (src, dst),     # out of core
+                                mem_words=1 << 16, cache_words=1 << 14,
+                                degree_bins=True)
     n   = eng.count()
     tri = eng.list()          # (n, 3) canonical (min, mid, max) rows
     eng.stats                 # boxes, lanes, padding, launches, block I/Os
@@ -36,11 +47,15 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.data.edgestore import InMemoryEdgeSource
+from repro_torch.data.edgestore import (EdgeStore, EdgeStoreWriter,
+                                        InMemoryEdgeSource)
+from repro_torch.data.pipeline import Prefetcher, edge_batches
+from repro_torch.kernels.intersect import ops as intersect_ops
 
-from .executor import StreamingExecutor
+from .executor import SliceCache, StreamingExecutor
 from .iomodel import BlockDevice
-from .lftj_torch import csr_from_edges, orient_edges
+from .lftj_torch import (_count_rows_chunked, csr_from_edges, orient_edges,
+                         pad_neighbors_binned)
 
 BACKENDS = ("auto", "binary", "dense", "intersect", "host", "fused")
 
@@ -112,7 +127,8 @@ class EngineStats:
     block_reads: int = 0
     block_writes: int = 0
     word_reads: int = 0
-    # slice cache (not ported yet: always zero)
+    # LRU slice cache (cache_words > 0): hits skip the device entirely,
+    # so they show up as missing block_reads relative to a cache-off run
     cache_hits: int = 0
     cache_misses: int = 0
     cache_hit_words: int = 0
@@ -162,10 +178,21 @@ class TriangleEngine:
     src, dst : undirected edge endpoints (host numpy).
     csr : ``(indptr, indices)`` of an already-oriented graph, instead of
         ``src``/``dst`` (``orientation`` then names how it was oriented).
-    device : optional ``core.iomodel.BlockDevice`` charging source reads
-        (``None``: no accounting).
+    store : path to a ``data.edgestore`` file (or an open ``EdgeStore``),
+        instead of ``src``/``dst``: the out-of-core source. Only the
+        (V+1)-word degree index stays resident; per-box slices stream
+        from the file, with block I/Os measured on ``device``.
+    device : optional ``core.iomodel.BlockDevice`` charging source reads.
+        Defaults to a fresh device for store-backed runs (block size
+        ``io_block_words``, cache sized to the memory budget); ``None``
+        (no accounting) in memory.
+    io_block_words : block size of the default store-backed device.
     mem_words : memory budget for the box planner; ``None`` = one box.
+    cache_words : LRU slice-cache budget (``core.executor.SliceCache``) on
+        top of ``mem_words``; the box plan is unchanged, so cache-on and
+        cache-off runs are directly comparable. 0 disables the cache.
     orientation : 'minmax' (paper §2.3) or 'degree' (√|E| out-degree cap).
+        A store carries its orientation in its header.
     backend : 'auto' (density dispatch), or force 'binary' / 'dense' /
         'intersect' / 'host' / 'fused' for every box ('host' is the
         pure-numpy binary-search lane; 'fused' runs each whole box as one
@@ -180,6 +207,12 @@ class TriangleEngine:
         over the intersect band (only on the card). Default ``None`` keeps
         density dispatch off the fused lane (heavy/light hub boxes still
         route to it on the card).
+    degree_bins : bin vertices by degree (power-of-4 widths) so the
+        binary lane's padding is per bin instead of the box's widest row.
+        In memory the lane's boxes go through the whole graph's bins; from
+        a store, through each box slice's own bins in the executor. On the
+        card the bins' probes run as intersect launches over the CSR, on
+        the CPU through the plain per-bin-pair probe.
     skew : 'uniform' (the mass-budgeted grid cutter) or 'heavy_light':
         vertices of out-degree >= ``heavy_threshold`` are hubs, every box
         range is pure-class per axis, hub-hub boxes go to the dense lane
@@ -209,9 +242,8 @@ class TriangleEngine:
         kernel wrappers run their plain torch versions.
 
     Options of the reference engine that are not ported yet raise
-    ``NotImplementedError``: ``store``, ``cache_words > 0``,
-    ``degree_bins=True``, sharding (``shard=True``), ``tracer``/``metrics``
-    and the ``'measured'`` thresholds.
+    ``NotImplementedError``: sharding (``shard=True``),
+    ``tracer``/``metrics`` and the ``'measured'`` thresholds.
     """
 
     def __init__(self, src: Optional[np.ndarray] = None,
@@ -219,6 +251,7 @@ class TriangleEngine:
                  csr: Optional[Tuple[np.ndarray, np.ndarray]] = None,
                  store=None,
                  device: Optional[BlockDevice] = None,
+                 io_block_words: int = 4096,
                  mem_words: Optional[int] = None,
                  cache_words: int = 0,
                  orientation: str = "minmax",
@@ -243,9 +276,6 @@ class TriangleEngine:
             raise ValueError(
                 f"skew {skew!r} not in ('uniform', 'heavy_light')")
         for given, feature in (
-                (store is not None, "store= (out-of-core edge stores)"),
-                (int(cache_words) > 0, "cache_words > 0 (SliceCache)"),
-                (bool(degree_bins), "degree_bins=True"),
                 (shard is True, "sharded execution (shard=True)"),
                 (tracer is not None, "tracer="),
                 (metrics is not None, "metrics="),
@@ -265,6 +295,7 @@ class TriangleEngine:
         # kernels run on the card, their plain versions on the CPU
         self.use_kernels = self.torch_device.type == "cuda"
         self.backend = backend
+        self.degree_bins = bool(degree_bins)
         self.skew = skew
         self.heavy_threshold = heavy_threshold
         self.chunk = int(chunk)
@@ -282,10 +313,26 @@ class TriangleEngine:
         # dispatch off it; hub boxes still take it
         self.fused_threshold = None if fused_threshold is None \
             else float(fused_threshold)
+        if (src is not None or dst is not None) + (csr is not None) \
+                + (store is not None) > 1:
+            raise ValueError("pass one of (src, dst), csr= or store=")
         self.orientation = orientation
-        if csr is not None:
-            if src is not None or dst is not None:
-                raise ValueError("pass either (src, dst) or csr=, not both")
+        self.device = device
+        if store is not None:
+            self.source = store if isinstance(store, EdgeStore) \
+                else EdgeStore(store)
+            if device is None:
+                cache = max(2, (mem_words or (1 << 22)) // io_block_words)
+                device = BlockDevice(block_words=io_block_words,
+                                     cache_blocks=cache)
+            self.source.attach_device(device)
+            self.device = device
+            self.orientation = self.source.orientation
+            self.nv = self.source.n_nodes
+            self.indptr = self.source.indptr
+            self.indices = None          # never resident: streamed per box
+            self.a = self.b = None
+        elif csr is not None:
             self.indptr = np.asarray(csr[0], dtype=np.int64)
             self.indices = np.asarray(csr[1], dtype=np.int32)
             self.nv = len(self.indptr) - 1
@@ -295,7 +342,8 @@ class TriangleEngine:
         else:
             if src is None or dst is None:
                 raise ValueError(
-                    "TriangleEngine needs (src, dst) edge arrays or csr=")
+                    "TriangleEngine needs (src, dst) edge arrays, csr= or "
+                    "store=<edge store path>")
             a, b = orient_edges(np.asarray(src), np.asarray(dst),
                                 orientation)
             self.a, self.b = a, b
@@ -303,10 +351,18 @@ class TriangleEngine:
             self.indptr, self.indices = \
                 csr_from_edges(a, b, n_nodes=self.nv) if self.nv \
                 else (np.zeros(1, np.int64), np.zeros(0, np.int32))
-        self.device = device
-        self.source = InMemoryEdgeSource(self.indptr, self.indices,
-                                         device=device,
-                                         orientation=self.orientation)
+        if store is None:
+            self.source = InMemoryEdgeSource(self.indptr, self.indices,
+                                             device=device,
+                                             orientation=self.orientation)
+        self.cache_words = int(cache_words)
+        self._slice_cache: Optional[SliceCache] = None
+        if self.cache_words > 0:
+            self._slice_cache = SliceCache(self.source, self.cache_words)
+            self.source = self._slice_cache
+        self._bins = None
+        # spill runs of the external sort when ``ingest`` built the store
+        self.n_spill_runs = 0
         self._plan_cache: Optional[Tuple[Optional[int], list]] = None
         # box -> lane ("hub"/"light"/"mixed"), filled by the heavy_light
         # planner; the lane steers _pick_backend for planned boxes
@@ -315,6 +371,59 @@ class TriangleEngine:
         self.stats = EngineStats(dense_threshold=self.dense_threshold,
                                  skew=self.skew)
 
+    # -- lazy derived state --------------------------------------------------
+
+    @property
+    def bins(self):
+        """The in-memory graph's degree-binned layout
+        (``pad_neighbors_binned`` of its CSR)."""
+        if self._bins is None:
+            self._bins = pad_neighbors_binned(self.indptr, self.indices)
+        return self._bins
+
+    # -- streaming ingest ------------------------------------------------------
+
+    @classmethod
+    def ingest(cls, store_path, edges, *,
+               orientation: str = "minmax",
+               chunk_rows: int = 4096,
+               align_words: int = 1024,
+               ingest_budget_words: int = 1 << 22,
+               prefetch_batches: bool = True,
+               **engine_kw) -> "TriangleEngine":
+        """Stream undirected edges into a chunked-CSR store, bounded-memory,
+        and return a store-backed engine over it.
+
+        ``edges`` is either an iterable of ``(src, dst)`` array batches or a
+        single ``(src, dst)`` pair of arrays (sliced into batches here).
+        The batches flow through ``data.edgestore.EdgeStoreWriter``: spill
+        runs under ``ingest_budget_words`` (4-byte words), then an external
+        merge, so the graph never has to fit in RAM during ingest. With
+        ``prefetch_batches`` the producer runs one batch ahead on a
+        ``data.pipeline.Prefetcher`` thread. The remaining keyword arguments
+        (``mem_words``, ``cache_words``, ``torch_device``, ...) go to the
+        returned engine.
+        """
+        if isinstance(edges, tuple) and len(edges) == 2 \
+                and np.ndim(edges[0]) == 1:
+            edges = edge_batches(*edges)
+        writer = EdgeStoreWriter(store_path, orientation=orientation,
+                                 chunk_rows=chunk_rows,
+                                 align_words=align_words,
+                                 budget_words=ingest_budget_words)
+        it = Prefetcher(iter(edges), depth=1) if prefetch_batches \
+            else iter(edges)
+        try:
+            with writer:
+                for src, dst in it:
+                    writer.add_edges(src, dst)
+        finally:
+            if isinstance(it, Prefetcher):
+                it.close()
+        eng = cls(store=writer.path, **engine_kw)
+        eng.n_spill_runs = writer.n_spill_runs
+        return eng
+
     # -- box planning ---------------------------------------------------------
 
     def plan(self) -> List[Tuple[int, int, int, int]]:
@@ -322,7 +431,9 @@ class TriangleEngine:
 
         Cached per ``mem_words`` — the probe/provision pass is the expensive
         host-side step and the plan is deterministic. In-memory graphs use
-        the faithful TrieArray prober.
+        the faithful TrieArray prober; store-backed graphs plan from the
+        resident degree index (``plan_boxes_from_degrees``), so planning
+        itself stays out of core.
         """
         if self._plan_cache is not None \
                 and self._plan_cache[0] == self.mem_words:
@@ -350,6 +461,10 @@ class TriangleEngine:
         self._box_lane = {}
         if self.mem_words is None:
             return [(0, self.nv - 1, 0, self.nv - 1)]
+        if self.indices is None:
+            from .boxing import plan_boxes_from_degrees
+            return plan_boxes_from_degrees(self.indptr, self.mem_words,
+                                           monotone_prune=prune)
         from .boxing import plan_boxes
         from .triearray import TrieArray
         ta = TrieArray.from_edges(self.a, self.b)
@@ -420,6 +535,10 @@ class TriangleEngine:
                                  dense_words_cap=_DENSE_WORDS_CAP,
                                  stats=self.stats,
                                  workers=self.workers,
+                                 # store-backed binning is per box slice, in
+                                 # the executor; in memory it is global
+                                 degree_bins=self.degree_bins
+                                 and self.indices is None,
                                  inflight_boxes=self.inflight_boxes,
                                  inflight_words=inflight_words)
 
@@ -428,7 +547,9 @@ class TriangleEngine:
                                  n_boxes=n_boxes,
                                  n_workers=self.workers,
                                  skew=self.skew,
-                                 heavy_threshold=self._skew_threshold)
+                                 heavy_threshold=self._skew_threshold,
+                                 source="edgestore" if self.indices is None
+                                 else "memory")
         if self._box_lane:
             lanes = list(self._box_lane.values())
             self.stats.n_hub_boxes = lanes.count("hub")
@@ -436,17 +557,25 @@ class TriangleEngine:
             self.stats.n_mixed_boxes = lanes.count("mixed")
 
     def _io_mark(self):
+        cache = self._slice_cache
+        cm = (cache.hits, cache.misses, cache.hit_words) if cache else None
         if self.device is None:
-            return None
+            return (None, cm)
         s = self.device.stats
-        return (s.block_reads, s.block_writes, s.word_reads)
+        return ((s.block_reads, s.block_writes, s.word_reads), cm)
 
     def _io_collect(self, mark) -> None:
-        if self.device is not None and mark is not None:
+        io_mark, cm = mark
+        if self.device is not None and io_mark is not None:
             s = self.device.stats
-            self.stats.block_reads = s.block_reads - mark[0]
-            self.stats.block_writes = s.block_writes - mark[1]
-            self.stats.word_reads = s.word_reads - mark[2]
+            self.stats.block_reads = s.block_reads - io_mark[0]
+            self.stats.block_writes = s.block_writes - io_mark[1]
+            self.stats.word_reads = s.word_reads - io_mark[2]
+        if self._slice_cache is not None and cm is not None:
+            cache = self._slice_cache
+            self.stats.cache_hits = cache.hits - cm[0]
+            self.stats.cache_misses = cache.misses - cm[1]
+            self.stats.cache_hit_words = cache.hit_words - cm[2]
 
     # -- counting and listing --------------------------------------------------
 
@@ -454,8 +583,83 @@ class TriangleEngine:
         boxes = self.plan()
         self._reset_stats(len(boxes))
         mark = self._io_mark()
-        total = self._make_executor().run_count(boxes)
+        ex = self._make_executor()
+        if self.degree_bins and self.indices is not None:
+            total = self._count_binned_boxes(boxes, ex)
+        else:
+            total = ex.run_count(boxes)
         self._io_collect(mark)
+        return total
+
+    def _box_edges_full(self, box):
+        """In-box oriented edges (x ∈ [lx,hx], y ∈ [ly,hy]), the box widths
+        and the raw x-range slab, so a follow-up
+        ``StreamingExecutor.count_box`` reuses the already-charged read."""
+        lx, hx, ly, hy = box
+        lx_, hx_ = max(lx, 0), min(hx, self.nv - 1)
+        ly_, hy_ = max(ly, 0), min(hy, self.nv - 1)
+        if hx_ < lx_ or hy_ < ly_:
+            return (np.zeros(0, np.int64), np.zeros(0, np.int64), 0, 0, None)
+        ip, vals = self.source.read_rows(lx_, hx_)
+        eu = np.repeat(np.arange(lx_, hx_ + 1), np.diff(ip))
+        ev = vals.astype(np.int64)
+        sel = (ev >= ly_) & (ev <= hy_)
+        return (eu[sel], ev[sel], hx_ - lx_ + 1, hy_ - ly_ + 1, (ip, vals))
+
+    def _count_binned_boxes(self, boxes, ex: StreamingExecutor) -> int:
+        """Degree-binned in-memory path: dense and intersect boxes stream
+        through the executor; every other box's edges join one binned
+        probe over the whole graph's bins (padding per bin, not per
+        widest row)."""
+        total = 0
+        eus, evs = [], []
+        for box in boxes:
+            eu, ev, wx, wy, slab = self._box_edges_full(box)
+            if len(eu) == 0:
+                continue
+            be = self._pick_backend(len(eu), wx, wy, box)
+            if be in ("dense", "intersect"):
+                total += ex.count_box(box, x_slab=slab)
+            else:
+                eus.append(eu)
+                evs.append(ev)
+                self.stats.n_binary_boxes += 1
+        if eus:
+            total += self._count_binned(np.concatenate(eus),
+                                        np.concatenate(evs))
+        return total
+
+    def _count_binned(self, eu: np.ndarray, ev: np.ndarray) -> int:
+        """Σ over edges of |N(u) ∩ N(v)| through the degree bins. On the
+        card one ``intersect_count_csr`` launch over the resident CSR at
+        the live edges (no bin matrix is built); on the CPU the plain
+        probe per (bin_u, bin_v) pair of the bins' padded matrices, the
+        narrower rows into the wider, as in the reference."""
+        dev = self.torch_device
+        if self.use_kernels:
+            live = np.diff(self.indptr)[ev] > 0   # sinks intersect empty
+            off = torch.from_numpy(self.indptr).to(dev)
+            vals = torch.from_numpy(self.indices).to(dev)
+            return int(intersect_ops.intersect_count_csr(
+                off, vals, torch.from_numpy(eu[live]).to(dev),
+                off, vals, torch.from_numpy(ev[live]).to(dev)))
+        row_bin, bins = self.bins
+        bin_pos = np.zeros(self.nv, dtype=np.int64)
+        for rows, _ in bins:
+            bin_pos[rows] = np.arange(len(rows))
+        bu = row_bin[eu]
+        bv = row_bin[ev]
+        total = 0
+        live = bv >= 0   # sink y-endpoints (out-degree 0) intersect empty
+        for i, (_, npad_i) in enumerate(bins):
+            for j, (_, npad_j) in enumerate(bins):
+                sel = live & (bu == i) & (bv == j)
+                if not sel.any():
+                    continue
+                total += int(_count_rows_chunked(
+                    torch.from_numpy(npad_i[bin_pos[eu[sel]]]).to(dev),
+                    torch.from_numpy(npad_j[bin_pos[ev[sel]]]).to(dev),
+                    chunk=self.chunk))
         return total
 
     def list(self, capacity: Optional[int] = None) -> np.ndarray:
@@ -464,7 +668,7 @@ class TriangleEngine:
         The output buffer is bounded (``capacity`` triangles per box);
         because the lanes return the *exact* total alongside the buffer,
         overflow is detected and resolved by rescanning with the capacity
-        doubled until everything fits.
+        doubled until everything fits. Listing never bins.
         """
         boxes = self.plan()
         self._reset_stats(len(boxes))

@@ -19,7 +19,15 @@ The device lanes copy only the slice's real CSR words to the torch device;
 the binary and listing lanes build the box-local padded matrix there, the
 intersect and fused lanes read the CSR as it is. On a CUDA device the
 dense, intersect and fused lanes launch the kernels of ``kernels/``; on
-the CPU the kernel wrappers run their plain torch versions.
+the CPU the kernel wrappers run their plain torch versions. With
+``degree_bins`` the binary lane counts through the reference's per-box
+degree bins (``_count_binned_slice``): the plain per-bin-pair probe on the
+CPU, one intersect launch over the slice's CSR on the card.
+
+Slices are built host-side from an EdgeSource (``data.edgestore.EdgeStore``
+on disk, or ``InMemoryEdgeSource``), optionally behind a ``SliceCache``.
+Every source read is charged to the attached ``core.iomodel.BlockDevice``,
+giving measured block I/Os per run.
 
 Two execution modes share the per-box machinery:
 
@@ -28,10 +36,12 @@ Two execution modes share the per-box machinery:
   construction of the next box overlapping device compute of the current
   one.
 * ``workers>1`` (async scheduler): a bounded pool of worker threads drains
-  a shared work queue, LPT-first (``parallel.sharding.box_queue_order``).
-  Slice *fetches* are serialized in queue order behind an in-flight
-  (boxes, words) budget, so the source read stream — and the I/O ledger —
-  is identical to a serial walk of the same order. Lane compute runs in
+  a shared work queue, LPT-first (``parallel.sharding.box_queue_order``),
+  in plan order when a ``SliceCache`` or a charged ``BlockDevice`` is
+  attached. Slice *fetches* are serialized in queue order behind an
+  in-flight (boxes, words) budget, so the source read stream — and the I/O
+  ledger and the cache's hit sequence — is identical to a serial walk of
+  the same order. Lane compute runs in
   parallel across workers, and results are reduced in *fixed box order*
   (never arrival order): counts sum and listings concatenate exactly as
   the sequential oracle would.
@@ -43,6 +53,7 @@ import inspect
 import os
 import threading
 import time
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Callable, Iterator, List, Optional, Tuple
 
@@ -56,7 +67,8 @@ from repro_torch.kernels.lftj_fused import ops as fused_ops
 from repro_torch.kernels.triangle_dense import ops as dense_ops
 from repro_torch.parallel.sharding import box_queue_order
 
-from .lftj_torch import SENTINEL, _count_chunked, _list_chunked
+from .lftj_torch import (SENTINEL, _count_chunked, _count_rows_chunked,
+                         _list_chunked, bin_layout, pad_neighbors_binned)
 
 _ROW_BUCKET = 64
 
@@ -179,6 +191,161 @@ def _gather_rows(rows: np.ndarray, slabs: list) -> Tuple[np.ndarray, np.ndarray]
             - np.repeat(np.cumsum(d) - d, d)
         out[tgt] = vals
     return deg, out
+
+
+class SliceCache:
+    """LRU cache of row-range slices over an EdgeSource, budgeted in words.
+
+    The box plan walks a grid: every box in one x-stripe re-reads the same
+    x-slab, and boxes in adjacent x-stripes re-read the same y-slices. The
+    cache exploits that locality *above* the ``iomodel.BlockDevice``. A
+    ``read_rows(lo, hi)`` request is decomposed against row blocks of
+    ``block_rows`` rows (aligned, sized from the budget by default):
+
+    * **interior blocks** (fully inside the request) are the cacheable
+      unit. Cached ones are served from host memory — no source read, no
+      block I/O charged, which is how hits reduce
+      ``EngineStats.block_reads``. Runs of consecutive *missing* interior
+      blocks are fetched with ONE source read and split into per-block
+      entries.
+    * **partial edge blocks** pass straight through to the source, trimmed
+      to the request. The cache therefore never reads a word the uncached
+      engine would not have read.
+
+    Eviction is LRU past ``budget_words`` (raw CSR words: values + one
+    indptr word per row); a single block wider than the whole budget is
+    still cached alone. Words served by hits are also recorded on the
+    attached device (``IOStats.cache_served_words``).
+
+    Exposes the EdgeSource interface; everything else (``n_nodes``,
+    ``indptr``, ``degrees``, ...) proxies to the wrapped source.
+    ``read_rows`` serializes on an internal lock, so the cache ledger stays
+    consistent when the scheduler's workers share one cache; the scheduler
+    also serializes slice fetches in plan order whenever a cache is
+    attached, so the hit/miss sequence matches the serial run's.
+    """
+
+    def __init__(self, source, budget_words: int,
+                 block_rows: Optional[int] = None):
+        self.source = source
+        self._lock = threading.RLock()
+        self.budget_words = max(1, int(budget_words))
+        if block_rows is None:
+            # hits only happen on fully-covered blocks, so blocks are fine
+            # (~32 words); the budget/4096 floor bounds the entry count
+            chunk = int(getattr(source, "chunk_rows", 256))
+            avg = source.n_edges / max(1, source.n_nodes) + 2.0
+            target = max(32, self.budget_words // 4096)
+            block_rows = int(min(chunk, max(2.0, round(target / avg))))
+        self.block_rows = max(1, int(block_rows))
+        self._blocks: OrderedDict = OrderedDict()  # block id -> (ip, vals)
+        self._words = 0
+        self.hits = 0
+        self.misses = 0
+        self.hit_words = 0      # words served from cache
+        self.miss_words = 0     # words read from the source into the cache
+        self.passthrough_words = 0   # partial-edge words (never cached)
+
+    # -- EdgeSource interface ------------------------------------------------
+
+    def __getattr__(self, name):
+        return getattr(self.source, name)
+
+    def _read_through(self, lo: int, hi: int):
+        """Uncached trimmed read (partial edge blocks)."""
+        ip, vals = self.source.read_rows(lo, hi)
+        self.passthrough_words += len(vals)
+        return ip, vals
+
+    def _fetch_run(self, b0: int, b1: int) -> list:
+        """One sequential source read covering missing blocks b0..b1, split
+        into per-block cache entries, returned in block order (the caller
+        assembles from them directly, so an insert-time eviction inside
+        this very request never forces a re-read)."""
+        br = self.block_rows
+        ip, vals = self.source.read_rows(b0 * br, b1 * br + br - 1)
+        self.misses += b1 - b0 + 1
+        self.miss_words += len(vals)
+        entries = []
+        for bid in range(b0, b1 + 1):
+            r0 = (bid - b0) * br
+            s, e = int(ip[r0]), int(ip[r0 + br])
+            ent = (np.asarray(ip[r0:r0 + br + 1] - ip[r0]),
+                   np.asarray(vals[s:e]))
+            self._insert(bid, ent)
+            entries.append(ent)
+        return entries
+
+    def read_rows(self, lo: int, hi: int) -> Tuple[np.ndarray, np.ndarray]:
+        with self._lock:
+            return self._read_rows_locked(lo, hi)
+
+    def _read_rows_locked(self, lo: int,
+                          hi: int) -> Tuple[np.ndarray, np.ndarray]:
+        nv = self.source.n_nodes
+        lo = max(0, int(lo))
+        hi = min(nv - 1, int(hi))
+        if hi < lo:
+            return np.zeros(1, np.int64), np.zeros(0, np.int32)
+        br = self.block_rows
+        # interior = the aligned blocks fully covered by [lo, hi]
+        ib0 = -(-lo // br)                   # first block starting >= lo
+        ib1 = (hi + 1) // br - 1             # last block ending <= hi
+        if ib1 < ib0:
+            return self._read_through(lo, hi)
+        dev = getattr(self.source, "device", None)
+        parts = []                            # (ip_local, vals) in row order
+        if lo < ib0 * br:
+            parts.append(self._read_through(lo, ib0 * br - 1))
+        bid = ib0
+        while bid <= ib1:
+            ent = self._blocks.get(bid)
+            if ent is not None:
+                self._blocks.move_to_end(bid)
+                self.hits += 1
+                self.hit_words += len(ent[1])
+                if dev is not None:
+                    dev.serve_from_cache(len(ent[1]))
+                parts.append(ent)
+                bid += 1
+            else:
+                run_end = bid
+                while run_end + 1 <= ib1 \
+                        and run_end + 1 not in self._blocks:
+                    run_end += 1
+                parts.extend(self._fetch_run(bid, run_end))
+                bid = run_end + 1
+        if hi >= (ib1 + 1) * br:
+            parts.append(self._read_through((ib1 + 1) * br, hi))
+        if len(parts) == 1:
+            return parts[0]
+        deg = np.concatenate([np.diff(p[0]) for p in parts])
+        ip_out = np.concatenate([np.zeros(1, np.int64),
+                                 np.cumsum(deg, dtype=np.int64)])
+        return ip_out, np.concatenate([p[1] for p in parts])
+
+    # -- LRU bookkeeping -----------------------------------------------------
+
+    @staticmethod
+    def _entry_words(ent) -> int:
+        return len(ent[1]) + len(ent[0])
+
+    def _insert(self, bid: int, ent) -> None:
+        self._blocks[bid] = ent
+        self._words += self._entry_words(ent)
+        while self._words > self.budget_words and len(self._blocks) > 1:
+            _, old = self._blocks.popitem(last=False)
+            self._words -= self._entry_words(old)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._blocks.clear()
+            self._words = 0
+
+    @property
+    def hit_rate(self) -> float:
+        total = self.hits + self.misses
+        return self.hits / total if total else 0.0
 
 
 def run_box_serial(items: List, *,
@@ -391,9 +558,10 @@ class StreamingExecutor:
     ``torch_device`` is where the binary, dense, intersect, fused and
     listing lanes run; on a CUDA device the dense, intersect and fused
     lanes launch the port's kernels (``use_kernels``), on the CPU their
-    wrappers run the plain torch versions. ``workers=1`` is the sequential oracle (single
-    Prefetcher pipeline); ``workers>1`` runs the async scheduler described
-    in the module docstring. ``inflight_boxes``/``inflight_words`` bound the
+    wrappers run the plain torch versions. ``degree_bins`` sends the
+    binary lane's boxes through ``_count_binned_slice``. ``workers=1`` is
+    the sequential oracle (single Prefetcher pipeline); ``workers>1`` runs
+    the async scheduler described in the module docstring. ``inflight_boxes``/``inflight_words`` bound the
     window of materialized-but-unreduced slices (defaults: ``2*workers``
     boxes, unbounded words — the engine passes a word cap derived from its
     memory budget).
@@ -407,6 +575,7 @@ class StreamingExecutor:
                  dense_words_cap: int = 64_000_000,
                  stats=None,
                  workers: int = 1,
+                 degree_bins: bool = False,
                  inflight_boxes: Optional[int] = None,
                  inflight_words: Optional[int] = None):
         self.source = source
@@ -423,6 +592,7 @@ class StreamingExecutor:
             self._backend_takes_box = False
         self.torch_device = torch.device(torch_device)
         self.use_kernels = self.torch_device.type == "cuda"
+        self.degree_bins = bool(degree_bins)
         self.chunk = int(chunk)
         self.prefetch_depth = max(1, int(prefetch_depth))
         self.dense_words_cap = int(dense_words_cap)
@@ -438,19 +608,22 @@ class StreamingExecutor:
 
     # -- slice materialization (host side, overlapped via Prefetcher) --------
 
-    def _fetch(self, box):
+    def _fetch(self, box, x_slab=None):
         """All *source reads* of one box — the stage the async scheduler
-        serializes in queue order, so the read stream (and the device I/O
-        ledger) is identical to a serial walk. Returns ``None`` for a
-        degenerate box, else the raw slabs + in-box edges for
-        ``_compact``."""
+        serializes in queue order, so the read stream (and every derived
+        ledger: device I/Os, cache hits) is identical to a serial walk.
+        ``x_slab`` is an optional pre-read ``read_rows(lx, hx)`` result so
+        a caller that already extracted the box's edges doesn't charge the
+        x-range read twice. Returns ``None`` for a degenerate box, else the
+        raw slabs + in-box edges for ``_compact``."""
         nv = self.source.n_nodes
         lx, hx, ly, hy = box
         lx_, hx_ = max(int(lx), 0), min(int(hx), nv - 1)
         ly_, hy_ = max(int(ly), 0), min(int(hy), nv - 1)
         if hx_ < lx_ or hy_ < ly_:
             return None
-        ip_x, vx = self.source.read_rows(lx_, hx_)
+        ip_x, vx = x_slab if x_slab is not None \
+            else self.source.read_rows(lx_, hx_)
         words = len(vx)
         eu_g = np.repeat(np.arange(lx_, hx_ + 1), np.diff(ip_x))
         ev_g = vx.astype(np.int64)
@@ -494,10 +667,10 @@ class StreamingExecutor:
                         hx_ - lx_ + 1, hy_ - ly_ + 1, words,
                         row_off=off, row_vals=vals, pad_shape=(n_rows, k))
 
-    def _materialize(self, box) -> Optional[BoxSlice]:
+    def _materialize(self, box, x_slab=None) -> Optional[BoxSlice]:
         """Build the box slice (fetch + compact in one step — the serial
         pipeline and one-off ``count_box`` path)."""
-        return self._compact(self._fetch(box))
+        return self._compact(self._fetch(box, x_slab=x_slab))
 
     def _stream(self, boxes) -> Iterator[Optional[BoxSlice]]:
         return Prefetcher((self._materialize(b) for b in boxes),
@@ -514,15 +687,16 @@ class StreamingExecutor:
             s.max_slice_padded_words = max(s.max_slice_padded_words,
                                            slc.padded_words)
 
-    def _note_padding(self, slc: BoxSlice) -> None:
+    def _note_padding(self, slc: BoxSlice, extra: int = 0) -> None:
         """Charge the padded-vs-actual ledger for one finished slice.
 
         ``padded_words`` is the reference's figure: the padded
         neighbor-matrix words its lanes materialize, charged iff the slice
-        ran a lane that builds one there (``charge_padded``). The host and
-        dense lanes never do. It is not the port's device memory: the
-        port's intersect lane builds no padded matrix but charges the one
-        the reference's builds.
+        ran a lane that builds one there (``charge_padded``), plus the
+        per-bin matrices of the binned lane (``extra``). The host and dense
+        lanes build none. It is not the port's device memory: the port's
+        intersect and binned lanes on the card build no padded matrix but
+        charge the ones the reference's build.
         """
         s = self.stats
         if s is None:
@@ -530,6 +704,7 @@ class StreamingExecutor:
         with self._stats_lock:
             if slc.charge_padded:
                 s.padded_words += slc.padded_words
+            s.padded_words += int(extra)
             s.actual_words += len(slc.row_vals)
 
     def _backend_for(self, slc: BoxSlice) -> str:
@@ -665,6 +840,50 @@ class StreamingExecutor:
         intersect_ops.note_padded(slc.padded_words, slc.n_edges)
         return int(total)
 
+    def _count_binned_slice(self, slc: BoxSlice) -> int:
+        """Per-box degree-binned count (``degree_bins=True``): the slice's
+        rows grouped into the power-of-4 width classes of
+        ``pad_neighbors_binned``, each edge probing its (bin_u, bin_v)
+        pair. On the CPU that is the plain ``_count_rows_chunked`` over the
+        bin matrices, pair by pair, as in the reference; on the card one
+        ``intersect_count_csr`` launch over the slice's compact CSR at the
+        live edges' rows, with no bin matrix built. Either way the
+        reference's per-bin padded words are charged, and no kernel-ledger
+        note is made (the reference's binned lane is not a kernel
+        launch)."""
+        if slc.n_edges == 0:
+            return 0
+        row_bin, widths = bin_layout(np.diff(slc.row_off))
+        extra = int(np.dot(np.bincount(row_bin[row_bin >= 0],
+                                       minlength=len(widths)), widths))
+        bu = row_bin[slc.eu]
+        bv = row_bin[slc.ev]
+        live = (bu >= 0) & (bv >= 0)   # deg-0 rows intersect to nothing
+        dev = self.torch_device
+        if self.use_kernels:
+            off = torch.from_numpy(slc.row_off).to(dev)
+            vals = torch.from_numpy(slc.row_vals).to(dev)
+            total = int(intersect_ops.intersect_count_csr(
+                off, vals, torch.from_numpy(slc.eu[live]).to(dev).long(),
+                off, vals, torch.from_numpy(slc.ev[live]).to(dev).long()))
+        else:
+            _, bins = pad_neighbors_binned(slc.row_off, slc.row_vals)
+            bin_pos = np.zeros(max(1, len(row_bin)), dtype=np.int64)
+            for rows_b, _ in bins:
+                bin_pos[rows_b] = np.arange(len(rows_b))
+            total = 0
+            for i, j in sorted(set(zip(bu[live].tolist(),
+                                       bv[live].tolist()))):
+                sel = np.flatnonzero(live & (bu == i) & (bv == j))
+                a_rows = bins[i][1][bin_pos[slc.eu[sel]]]
+                b_rows = bins[j][1][bin_pos[slc.ev[sel]]]
+                chunk = min(self.chunk, _pow2(len(sel), lo=256))
+                total += int(_count_rows_chunked(
+                    torch.from_numpy(a_rows).to(dev),
+                    torch.from_numpy(b_rows).to(dev), chunk=chunk))
+        self._note_padding(slc, extra=extra)
+        return total
+
     def _count_fused(self, slc: BoxSlice) -> Optional[int]:
         """Whole-box triangle count in ONE device invocation: the fused
         LFTJ lane (``kernels.lftj_fused``). The triangle query ships as
@@ -761,6 +980,9 @@ class StreamingExecutor:
             out = self._count_intersect(slc)
         elif be == "host":
             out = self._count_host(slc)
+        elif self.degree_bins:
+            # the binned lane charges its own padded words
+            return self._count_binned_slice(slc)
         else:
             out = self._count_binary(slc)
         self._note_padding(slc)
@@ -820,10 +1042,13 @@ class StreamingExecutor:
 
     def _queue_order(self, boxes: List) -> List[int]:
         """Priority order the shared queue is drained in
-        (``sharding.box_queue_order``): LPT-first for uncharged sources,
-        plan order when a ``BlockDevice`` charges the reads (then the
-        device's LRU frame hits match the ``workers=1`` run)."""
-        ledger = getattr(self.source, "device", None) is not None
+        (``sharding.box_queue_order``): LPT-first for uncharged in-memory
+        sources, plan order when a ``SliceCache`` or a charged
+        ``BlockDevice`` is attached (fetches are serialized in queue order,
+        so the device's LRU frame hits and the cache's hit/miss sequence
+        then match the ``workers=1`` run)."""
+        ledger = isinstance(self.source, SliceCache) \
+            or getattr(self.source, "device", None) is not None
         return box_queue_order([self._est_slice_words(b) for b in boxes],
                                ledger_sensitive=ledger)
 
@@ -863,9 +1088,9 @@ class StreamingExecutor:
 
     # -- public entry points --------------------------------------------------
 
-    def count_box(self, box) -> int:
+    def count_box(self, box, x_slab=None) -> int:
         """One-off execution of a single box (no prefetch pipeline)."""
-        slc = self._materialize(box)
+        slc = self._materialize(box, x_slab=x_slab)
         if slc is None or slc.n_edges == 0:
             return 0
         self._note(slc)

@@ -95,45 +95,52 @@ def pad_neighbors(indptr: np.ndarray, indices: np.ndarray,
     return out
 
 
+def bin_layout(deg: np.ndarray, bin_growth: int = 4
+               ) -> Tuple[np.ndarray, List[int]]:
+    """``(row_bin, widths)`` of the degree bins: bin b holds the rows of
+    degree in (widths[b] / bin_growth, widths[b]] (degree 1 in bin 0),
+    widths are the powers of ``bin_growth`` up to the first that reaches
+    the largest degree, and degree-0 rows are in bin -1. It needs the
+    degrees only, so a lane can charge the bins' padded words without
+    building them."""
+    row_bin = np.full(len(deg), -1, dtype=np.int64)
+    widths: List[int] = []
+    if len(deg) and int(deg.max()) > 0:
+        k, kmax = 1, int(deg.max())
+        while True:
+            widths.append(k)
+            if k >= kmax:
+                break
+            k *= bin_growth
+        for b, khi in enumerate(widths):
+            klo = khi // bin_growth + 1 if khi > 1 else 1
+            row_bin[(deg >= klo) & (deg <= khi)] = b
+    return row_bin, widths
+
+
 def pad_neighbors_binned(indptr: np.ndarray, indices: np.ndarray,
                          bin_growth: int = 4):
     """Degree-binned padding: rows grouped into power-of-``bin_growth`` width
-    classes so the per-bin K caps the O(V·K_max) padding waste on skewed
-    graphs (a hub no longer forces every row to its width).
+    classes (``bin_layout``) so the per-bin K caps the O(V·K_max) padding
+    waste on skewed graphs (a hub no longer forces every row to its width).
 
     Returns ``(row_bin, bins)`` where ``row_bin[v]`` is the bin id of vertex
     v and ``bins[i] = (rows, npad)`` holds the vertex ids in bin i plus
     their (len(rows), K_i) padded neighbor matrix. Vertices with degree 0
     get bin -1 (they cannot participate in any intersection).
     """
-    n = len(indptr) - 1
     deg = np.diff(indptr)
-    row_bin = np.full(n, -1, dtype=np.int64)
+    row_bin, widths = bin_layout(deg, bin_growth)
     bins = []
-    nonzero = deg > 0
-    if nonzero.any():
-        widths = []
-        k = 1
-        kmax = int(deg.max())
-        while True:
-            widths.append(k)
-            if k >= kmax:
-                break
-            k *= bin_growth
-        edges_lo = [w // bin_growth + 1 if w > 1 else 1 for w in widths]
-        for b, (klo, khi) in enumerate(zip(edges_lo, widths)):
-            rows = np.flatnonzero((deg >= klo) & (deg <= khi))
-            if len(rows) == 0:
-                bins.append((rows, np.zeros((0, khi), dtype=np.int32)))
-                continue
-            row_bin[rows] = b
-            npad = np.full((len(rows), khi), SENTINEL, dtype=np.int32)
+    for b, khi in enumerate(widths):
+        rows = np.flatnonzero(row_bin == b)
+        npad = np.full((len(rows), khi), SENTINEL, dtype=np.int32)
+        if len(rows):
             d = deg[rows]
             rr = np.repeat(np.arange(len(rows)), d)
             cc = np.arange(int(d.sum())) - np.repeat(np.cumsum(d) - d, d)
-            src_idx = np.repeat(indptr[rows], d) + cc
-            npad[rr, cc] = indices[src_idx]
-            bins.append((rows, npad))
+            npad[rr, cc] = indices[np.repeat(indptr[rows], d) + cc]
+        bins.append((rows, npad))
     return row_bin, bins
 
 
@@ -192,6 +199,25 @@ def _count_chunked(npad: torch.Tensor, eu: torch.Tensor, ev: torch.Tensor,
         if a.shape[1] > b.shape[1]:
             a, b = b, a
         total += _row_intersect_count(a, b).sum()
+    return total
+
+
+def _count_rows_chunked(a_rows: torch.Tensor, b_rows: torch.Tensor,
+                        chunk: int = 2048) -> torch.Tensor:
+    """Σ_i |a_rows[i] ∩ b_rows[i]| for pre-gathered row pairs (0-d int64).
+
+    The two sides may have different padded widths (degree-binned
+    padding): the narrower rows are probed into the wider with
+    ``torch.searchsorted``, the min(d_x, d_y) accounting of Thm. 17.
+    All-SENTINEL rows add zero. The reference's total is int32; this one
+    is int64.
+    """
+    if a_rows.shape[1] > b_rows.shape[1]:      # intersection is symmetric
+        a_rows, b_rows = b_rows, a_rows
+    total = torch.zeros((), dtype=torch.int64, device=a_rows.device)
+    for s in range(0, a_rows.shape[0], chunk):
+        total += _row_intersect_count(a_rows[s:s + chunk],
+                                      b_rows[s:s + chunk]).sum()
     return total
 
 

@@ -341,10 +341,14 @@ def _library():
 # the listing kernel's workspace header (csrc/lftj_fused.cu, "Listing"):
 # int64 words bump, overflow, need, total, rows_at, rows
 _HEAD = 6
-# one workspace per device, shared by the count and listing kernels, grown
-# when a call needs more and never shrunk; the lock keeps a call's launch
-# (and a listing's header read and row copy) together
-_workspaces: Dict[torch.device, torch.Tensor] = {}
+# one workspace per (device, stream), shared by the count and listing
+# kernels launched on that stream, grown when a call needs more and never
+# shrunk. Kernels on one stream run in order, so they may share it; calls
+# on two streams run at once and each has its own. ``_ws_lock`` guards the
+# table only; each slot's lock keeps one call's enqueue (and a listing's
+# header read and row copy) together against other threads enqueueing on
+# the same stream.
+_workspaces: Dict[Tuple[torch.device, int], "_Slot"] = {}
 # co-resident grids of the cooperative kernels, by (device, "list") and
 # (device, n_vars) for the count
 _grids: Dict[tuple, int] = {}
@@ -358,15 +362,36 @@ _ws_lock = threading.Lock()
 _COUNT_CAP = (1 << 20, 1 << 22)
 
 
-def _workspace(dev: torch.device, words: int) -> torch.Tensor:
-    """The device's kept workspace, grown to at least ``words`` int64
-    words."""
-    ws = _workspaces.get(dev)
-    if ws is None or ws.numel() < words:
-        _workspaces.pop(dev, None)
-        ws = _workspaces[dev] = torch.empty(int(words), dtype=torch.int64,
-                                            device=dev)
-    return ws
+class _Slot:
+    """The workspace of one (device, stream) and the lock of its calls."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.ws: Optional[torch.Tensor] = None
+
+
+def _slot(dev: torch.device, stream: int) -> _Slot:
+    """The slot of launches on ``stream`` (a CUDA stream pointer,
+    ``_build.stream_ptr``) of ``dev``, made at first use."""
+    with _ws_lock:
+        slot = _workspaces.get((dev, stream))
+        if slot is None:
+            slot = _workspaces[(dev, stream)] = _Slot()
+    return slot
+
+
+def _workspace(slot: _Slot, dev: torch.device, words: int) -> torch.Tensor:
+    """``slot``'s workspace, grown to at least ``words`` int64 words; the
+    caller holds ``slot.lock`` and the slot's stream is current on
+    ``dev``. A grow allocates on that stream and drops only this slot's
+    old buffer: the caching allocator gives its memory only to later
+    allocations on the same stream, whose kernels run after the ones
+    already enqueued there, and a call still holding the old tensor keeps
+    it alive."""
+    if slot.ws is None or slot.ws.numel() < words:
+        slot.ws = None
+        slot.ws = torch.empty(int(words), dtype=torch.int64, device=dev)
+    return slot.ws
 
 
 def _coop_grid(dev: torch.device, key, query: Callable) -> int:
@@ -440,28 +465,30 @@ def launch_count(prep) -> torch.Tensor:
     words = lib.lftj_count_words(desc.ctypes.data, c0.numel(), cap, grid)
     partials = torch.empty(lib.lftj_count_n_partials(grid),
                            dtype=torch.int64, device=dev)
-    with _ws_lock:
-        ws = _workspace(dev, words)
+    stream = _build.stream_ptr(dev)
+    slot = _slot(dev, stream)
+    with slot.lock:
+        ws = _workspace(slot, dev, words)
         with _build.on_device(dev):
             rc = lib.lftj_count_launch(
                 desc.ctypes.data, c0.data_ptr(), c0.numel(), ws.data_ptr(),
-                ws.numel(), cap, grid, partials.data_ptr(),
-                _build.stream_ptr(dev))
+                ws.numel(), cap, grid, partials.data_ptr(), stream)
     _build.check_launch("lftj_fused", rc)
     LAUNCHES.add()
     return partials.sum()
 
 
-def _run_listing(dev: torch.device, words: int,
+def _run_listing(slot: _Slot, dev: torch.device, words: int,
                  run: Callable[[torch.Tensor], List[int]]):
-    """The listing protocol: ``run(ws)`` launches one call into workspace
-    ``ws`` and returns its header, read in one copy. On overflow the
-    workspace grows to the words the kernel reported and the call runs
-    once more; a second overflow raises. Returns (workspace, header)."""
-    ws = _workspace(dev, words)
+    """The listing protocol (the caller holds ``slot.lock``): ``run(ws)``
+    launches one call into workspace ``ws`` and returns its header, read
+    in one copy. On overflow the workspace grows to the words the kernel
+    reported and the call runs once more; a second overflow raises.
+    Returns (workspace, header)."""
+    ws = _workspace(slot, dev, words)
     head = run(ws)
     if head[1]:
-        ws = _workspace(dev, head[2])
+        ws = _workspace(slot, dev, head[2])
         head = run(ws)
         if head[1]:
             raise RuntimeError("lftj_fused_list: the workspace overflowed "
@@ -476,7 +503,8 @@ def _launch_list(lib, desc: np.ndarray, c0: torch.Tensor, ws: torch.Tensor,
     with torch.cuda.device(ws.device):
         rc = lib.lftj_list_launch(desc.ctypes.data, c0.data_ptr(),
                                   c0.numel(), ws.data_ptr(), ws.numel(),
-                                  capacity, grid, _build.stream_ptr(ws.device))
+                                  capacity, grid,
+                                  _build.stream_ptr(ws.device))
     _build.check_launch("lftj_fused_list", rc)
     return ws[:_HEAD].tolist()
 
@@ -514,9 +542,10 @@ def launch_list(prep, capacity: int) -> Tuple[int, torch.Tensor]:
     c0 = c0.to(torch.int32).contiguous()
     capacity = int(capacity)
     words = _start_words(lib, grid, c0, csrs, capacity, n_vars)
-    with _ws_lock:
+    slot = _slot(dev, _build.stream_ptr(dev))
+    with slot.lock:
         ws, head = _run_listing(
-            dev, words,
+            slot, dev, words,
             lambda w: _launch_list(lib, desc, c0, w, capacity, grid))
         total, rows_at, m = head[3], head[4], head[5]
         rows = ws.view(torch.int32)[2 * rows_at:2 * rows_at + m * n_vars] \

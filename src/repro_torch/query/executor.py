@@ -12,11 +12,13 @@ through the same boxed machinery the triangle engine uses:
   bound. The triangle special case reproduces the triangle planner's boxes
   cut for cut.
 * **fetching** — per box, each owned dimension's row ranges are read
-  through the relation's ``InMemoryEdgeSource``, with already-covered
-  intervals deduped (§5 slice sharing) and a full-conjunctive early exit:
-  an atom whose box-restricted slice is empty kills the box before further
-  reads. With a charged ``core.iomodel.BlockDevice`` the reads are the
-  reference's, block for block.
+  through the relation's ``EdgeSource`` (``data.edgestore.EdgeStore`` on
+  disk, ``InMemoryEdgeSource`` in RAM, optionally behind a
+  ``core.executor.SliceCache``), with already-covered intervals deduped
+  (§5 slice sharing) and a full-conjunctive early exit: an atom whose
+  box-restricted slice is empty kills the box before further reads. With
+  a charged ``core.iomodel.BlockDevice`` the reads are the reference's,
+  block for block.
 * **executing** — ``query.vectorized.VectorizedBoxJoin`` runs the batched
   leapfrog over the per-atom slices (numpy ``searchsorted`` lanes that
   release the GIL); the innermost two-atom intersection goes to the
@@ -34,12 +36,13 @@ Usage::
     eng = QueryEngine.from_graph(patterns.four_clique(), src, dst,
                                  mem_words=1 << 16)          # on the card
     n   = eng.count()
+    eng = QueryEngine(patterns.diamond(), store="graph.csr",
+                      mem_words=1 << 16, cache_words=1 << 14)
     rows = eng.list()              # (m, 4) bindings in head order
-    eng.stats                      # boxes, rank, lanes, launches, I/O
+    eng.stats                      # boxes, rank, lanes, launches, I/O, cache
 
 Options of the reference engine that are not ported yet raise
-``NotImplementedError``: ``store=`` and on-disk edge stores,
-``cache_words > 0``, ``tracer`` and ``metrics``.
+``NotImplementedError``: ``tracer`` and ``metrics``.
 """
 
 from __future__ import annotations
@@ -52,13 +55,14 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.core.engine import resolve_torch_device
-from repro_torch.core.executor import (_pow2, merge_queue_telemetry,
-                                       run_box_queue, run_box_serial)
+from repro_torch.core.executor import (SliceCache, _pow2,
+                                       merge_queue_telemetry, run_box_queue,
+                                       run_box_serial)
 from repro_torch.core.iomodel import BlockDevice
 from repro_torch.core.leapfrog import Atom
 from repro_torch.core.lftj_torch import csr_from_edges, orient_edges
 from repro_torch.core.queries import Query, is_consistent, validate
-from repro_torch.data.edgestore import InMemoryEdgeSource
+from repro_torch.data.edgestore import EdgeStore, InMemoryEdgeSource
 from repro_torch.kernels import ledger as kernel_ledger
 from repro_torch.parallel.sharding import (box_queue_order, interval_gaps,
                                            merge_interval)
@@ -122,7 +126,7 @@ class QueryStats:
     block_reads: int = 0
     block_writes: int = 0
     word_reads: int = 0
-    # LRU slice cache (not ported yet: always zero)
+    # LRU slice cache (cache_words > 0), summed over the relations' caches
     cache_hits: int = 0
     cache_misses: int = 0
     cache_hit_words: int = 0
@@ -174,16 +178,23 @@ class QueryEngine:
     query : a ``core.queries.Query`` whose atoms are all binary (graph
         patterns); general-arity queries stay on the scalar
         ``core.queries.run_query`` reference path.
-    relations : mapping relation name -> source: an ``InMemoryEdgeSource``
-        or a ``(src, dst)`` pair of *directed* edge arrays. Use
-        ``from_graph`` to orient an undirected graph the way
-        ``TriangleEngine`` does.
+    relations : mapping relation name -> source: an ``EdgeStore`` (or a
+        path to one), an ``InMemoryEdgeSource``, or a ``(src, dst)`` pair
+        of *directed* edge arrays. Use ``from_graph`` to orient an
+        undirected graph the way ``TriangleEngine`` does. An entry
+        ``"<rel>~rev"`` supplies the reversed index of an atom
+        inconsistent with the order instead of deriving it.
+    store : shortcut for single-relation queries: the one relation name
+        maps to this edge store path or instance.
     order : variable order; default = the minimum-rank order
-        (``core.queries.best_order``; reordered indexes are built in
-        memory for atoms inconsistent with it).
+        (``core.queries.best_order``), restricted to orders keeping every
+        atom consistent when any relation is store-backed (reordered
+        indexes need the relation in memory).
     mem_words : box-planner budget; ``None`` = one box.
-    device : ``core.iomodel.BlockDevice`` charging the reads of tuple
-        sources and reversed indexes (``None``: no accounting).
+    cache_words : per-relation LRU ``SliceCache`` budget (0 disables).
+    device : ``core.iomodel.BlockDevice`` charging source reads; defaults
+        to a fresh device for store-backed runs (block size
+        ``io_block_words``), ``None`` (no accounting) in memory.
     backend : 'auto', 'host' (pure numpy), 'intersect' (force the
         ``kernels/intersect`` lowering of the innermost two-atom step) or
         'fused' (force whole-box dispatch to the ``kernels/lftj_fused``
@@ -223,6 +234,7 @@ class QueryEngine:
                  mem_words: Optional[int] = None,
                  cache_words: int = 0,
                  device: Optional[BlockDevice] = None,
+                 io_block_words: int = 4096,
                  backend: str = "auto",
                  workers: int = 1,
                  inflight_boxes: Optional[int] = None,
@@ -243,8 +255,6 @@ class QueryEngine:
             raise ValueError(
                 f"skew {skew!r} not in ('uniform', 'heavy_light')")
         for given, feature in (
-                (store is not None, "store= (out-of-core edge stores)"),
-                (int(cache_words) > 0, "cache_words > 0 (SliceCache)"),
                 (tracer is not None, "tracer="),
                 (metrics is not None, "metrics=")):
             if given:
@@ -258,6 +268,7 @@ class QueryEngine:
         self.query = query
         self.backend = backend
         self.mem_words = mem_words
+        self.cache_words = int(cache_words)
         self.dim_ratio = dim_ratio
         self.chunk_entries = int(chunk_entries)
         self.skew = skew
@@ -275,27 +286,43 @@ class QueryEngine:
         for a in query.atoms:
             if a.rel not in rel_names:
                 rel_names.append(a.rel)
+        if store is not None:
+            if relations is not None:
+                raise ValueError("pass either relations= or store=, not both")
+            if len(rel_names) != 1:
+                raise ValueError(
+                    f"store= shorthand needs a single-relation query; this "
+                    f"one uses {rel_names}")
+            relations = {rel_names[0]: store}
         if relations is None:
-            raise ValueError("QueryEngine needs relations=")
+            raise ValueError("QueryEngine needs relations= or store=")
         missing = [r for r in rel_names if r not in relations]
         if missing:
             raise ValueError(f"no source given for relation(s) {missing}")
-        extra = [r for r in relations if r.endswith("~rev")]
-        if extra:
-            raise _not_ported(f"pre-seeded reversed-index sources {extra}")
 
         raw: Dict[str, object] = {}
+        any_store = False
         for name in rel_names:
             src = relations[name]
             if isinstance(src, (str, os.PathLike)):
-                raise _not_ported("on-disk edge stores")
-            if not (isinstance(src, tuple) and len(src) == 2) \
+                src = EdgeStore(src)
+            if isinstance(src, EdgeStore):
+                any_store = True
+            elif not (isinstance(src, tuple) and len(src) == 2) \
                     and not hasattr(src, "read_rows"):
                 raise ValueError(
                     f"relation {name!r}: unsupported source {type(src)}")
             raw[name] = src
+        if device is None and any_store:
+            cache = max(2, (mem_words or (1 << 22)) // io_block_words)
+            device = BlockDevice(block_words=io_block_words,
+                                 cache_blocks=cache)
         self.device = device
         for name, src in raw.items():
+            if isinstance(src, EdgeStore):
+                if device is not None:
+                    src.attach_device(device)
+                continue
             if isinstance(src, tuple):
                 # deduplicate the directed pairs: set semantics, matching
                 # the TrieArray reference path (and from_graph's
@@ -308,13 +335,29 @@ class QueryEngine:
                     u, v = e[:, 0], e[:, 1]
                 ip, ix = csr_from_edges(u, v, n_nodes=nv) if nv else \
                     (np.zeros(1, np.int64), np.zeros(0, np.int32))
-                # the given device charges these reads too — the ledger
-                # stays symmetric with reversed indexes
+                # the device (given or store-created) charges these reads
+                # too — the ledger stays symmetric with reversed indexes
                 raw[name] = InMemoryEdgeSource(ip, ix, orientation="raw",
                                                device=device)
+        # pre-seeded reversed indexes: a relations entry "<rel>~rev"
+        # supplies the reordered index of an order-inconsistent atom
+        # directly, skipping ``_reversed_source``
+        for name, src in relations.items():
+            if not name.endswith("~rev") or name in raw:
+                continue
+            if name[:-len("~rev")] not in rel_names:
+                raise ValueError(
+                    f"reversed-index source {name!r} matches no relation "
+                    f"of this query ({rel_names})")
+            if not hasattr(src, "read_rows"):
+                raise ValueError(
+                    f"reversed-index source {name!r}: unsupported source "
+                    f"{type(src)} (needs the EdgeSource interface)")
+            raw[name] = src
+        self._any_store = any_store
 
         # -- resolve the variable order and per-atom metadata -------------
-        self.order = validate(query, order, require_consistent=False)
+        self.order = validate(query, order, require_consistent=any_store)
         self.n = len(self.order)
         pos = {v: i for i, v in enumerate(self.order)}
         metas: List[_AtomMeta] = []
@@ -336,9 +379,18 @@ class QueryEngine:
         for m in metas:
             self._owned[m.first_dim].append(m)
 
+        # -- cache wrap ---------------------------------------------------
+        self._caches: List[SliceCache] = []
+        self._sources: Dict[str, object] = {}
         used_keys = {m.key for m in metas}
-        self._sources: Dict[str, object] = {k: s for k, s in raw.items()
-                                            if k in used_keys}
+        for key in list(raw):
+            if key not in used_keys:
+                continue
+            src = raw[key]
+            if self.cache_words > 0:
+                src = SliceCache(src, self.cache_words)
+                self._caches.append(src)
+            self._sources[key] = src
         self._nv_all = max((s.n_nodes for s in self._sources.values()),
                            default=0)
         # plan injection: planning inputs (degree indexes, budget, skew)
@@ -374,6 +426,11 @@ class QueryEngine:
         The reversed CSR is memoized on the source object (the analogue of
         ``core.queries.reordered_index`` at the EdgeSource layer), so
         repeated engines over the same relation re-sort once."""
+        if isinstance(src, EdgeStore):
+            raise ValueError(
+                "an atom inconsistent with the variable order needs a "
+                "reordered index, which requires the relation in memory; "
+                "choose a consistent order or load the store's edges")
         csr = getattr(src, "_reverse_csr", None)
         if csr is None:
             indptr = np.asarray(src.indptr, dtype=np.int64)
@@ -590,24 +647,33 @@ class QueryEngine:
                                 heavy_threshold=plan.heavy_threshold,
                                 n_hub_boxes=plan.lanes.count("hub"),
                                 n_light_boxes=plan.lanes.count("light"),
-                                n_mixed_boxes=plan.lanes.count("mixed"))
+                                n_mixed_boxes=plan.lanes.count("mixed"),
+                                source="edgestore" if self._any_store
+                                else "memory")
 
     def _io_mark(self):
+        cm = [(c.hits, c.misses, c.hit_words) for c in self._caches]
         if self.device is None:
-            return None
+            return (None, cm)
         s = self.device.stats
-        return (s.block_reads, s.block_writes, s.word_reads)
+        return ((s.block_reads, s.block_writes, s.word_reads), cm)
 
     def _io_collect(self, mark) -> None:
-        if self.device is not None and mark is not None:
+        io_mark, cm = mark
+        if self.device is not None and io_mark is not None:
             s = self.device.stats
-            self.stats.block_reads = s.block_reads - mark[0]
-            self.stats.block_writes = s.block_writes - mark[1]
-            self.stats.word_reads = s.word_reads - mark[2]
+            self.stats.block_reads = s.block_reads - io_mark[0]
+            self.stats.block_writes = s.block_writes - io_mark[1]
+            self.stats.word_reads = s.word_reads - io_mark[2]
+        for cache, (h, m, w) in zip(self._caches, cm):
+            self.stats.cache_hits += cache.hits - h
+            self.stats.cache_misses += cache.misses - m
+            self.stats.cache_hit_words += cache.hit_words - w
 
     def _queue_order(self, boxes) -> List[int]:
-        ledger = any(getattr(s, "device", None) is not None
-                     for s in self._sources.values())
+        ledger = bool(self._caches) or any(
+            getattr(s, "device", None) is not None
+            for s in self._sources.values())
         return box_queue_order([self._est_box_words(b) for b in boxes],
                                ledger_sensitive=ledger)
 

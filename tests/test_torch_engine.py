@@ -173,7 +173,6 @@ def test_conveniences_and_canonical_rows():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(store="graph.csr"), dict(cache_words=64), dict(degree_bins=True),
     dict(shard=True), dict(tracer=object()), dict(metrics=object()),
     dict(dense_threshold="measured"), dict(intersect_threshold="measured"),
     dict(fused_threshold="measured")])

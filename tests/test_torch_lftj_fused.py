@@ -773,6 +773,8 @@ def test_listing_workspace_regrows_and_reruns_once(monkeypatch):
     monkeypatch.setattr(fused_ops, "_list_grid", lambda lib, dev: 4)
     monkeypatch.setattr(fused_ops, "_launch_list", launch)
     monkeypatch.setattr(fused_ops, "_workspaces", {})
+    # the listing's workspace is the one kept for the caller's stream
+    monkeypatch.setattr(fused_ops._build, "stream_ptr", lambda dev: 7)
     before = fused_ops.LIST_LAUNCHES.n
     for cap in (7, 10_000):
         want_total, want = fused_list_ref(dims, *layout, 4, cap)
@@ -784,6 +786,7 @@ def test_listing_workspace_regrows_and_reruns_once(monkeypatch):
     # of the reported size; the second ran once in the kept workspace
     assert len(runs) == 3 and runs[0] < need[0] and runs[1:] == [need[0]] * 2
     assert fused_ops.LIST_LAUNCHES.n - before == 2
+    assert list(fused_ops._workspaces) == [(torch.device("cpu"), 7)]
     need[0] = 1 << 10                   # a smaller call keeps the workspace
     fused_ops.launch_list(prep, 7)
     assert runs[-1] == 1 << 16
@@ -797,3 +800,24 @@ def test_listing_workspace_regrows_and_reruns_once(monkeypatch):
     monkeypatch.setattr(fused_ops, "_launch_list", always_short)
     with pytest.raises(RuntimeError, match="overflowed again"):
         fused_ops.launch_list(prep, 7)
+
+
+def test_workspace_is_kept_per_device_and_stream(monkeypatch):
+    """The fused kernels' workspace is keyed by (device, stream): calls on
+    one stream share a buffer that only grows, another stream gets its
+    own, and a grow on one stream leaves every other stream's buffer (which
+    a launch there may still read) as it was. Fake stream pointers go
+    through the same helpers the launches use."""
+    monkeypatch.setattr(fused_ops, "_workspaces", {})
+    cpu = torch.device("cpu")
+    s1, s2 = fused_ops._slot(cpu, 0x1000), fused_ops._slot(cpu, 0x2000)
+    assert s1 is fused_ops._slot(cpu, 0x1000) and s1 is not s2
+    assert s1.lock is not s2.lock
+    a = fused_ops._workspace(s1, cpu, 64)
+    b = fused_ops._workspace(s2, cpu, 64)
+    assert a.data_ptr() != b.data_ptr()
+    assert fused_ops._workspace(s1, cpu, 32) is a       # kept, not shrunk
+    grown = fused_ops._workspace(s1, cpu, 128)
+    assert grown.numel() == 128 and grown is not a
+    assert fused_ops._workspace(s2, cpu, 64) is b       # other stream kept
+    assert set(fused_ops._workspaces) == {(cpu, 0x1000), (cpu, 0x2000)}

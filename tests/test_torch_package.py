@@ -44,6 +44,8 @@ def test_importing_every_module_pulls_in_no_jax_and_no_reference():
 @pytest.mark.parametrize("module", ["repro_torch.kernels.lftj_fused.ops",
                                     "repro_torch.kernels.lftj_fused.ref",
                                     "repro_torch.core.executor",
+                                    "repro_torch.core.engine",
+                                    "repro_torch.data.edgestore",
                                     "repro_torch.convert",
                                     "repro_torch.core.queries",
                                     "repro_torch.query",

@@ -305,14 +305,9 @@ def test_options_not_ported_and_devices():
     called 'intersect'."""
     src, dst = GRAPHS["er"]()
     q = patterns.triangle()
-    for kw in ({"cache_words": 64}, {"tracer": object()},
-               {"metrics": object()}):
+    for kw in ({"tracer": object()}, {"metrics": object()}):
         with pytest.raises(NotImplementedError, match="not ported"):
             QueryEngine.from_graph(q, src, dst, torch_device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="store"):
-        QueryEngine(q, store="g.csr", torch_device="cpu")
-    with pytest.raises(NotImplementedError, match="edge stores"):
-        QueryEngine(q, relations={"E": "g.csr"}, torch_device="cpu")
     with pytest.raises(ValueError, match="backend"):
         QueryEngine.from_graph(q, src, dst, backend="pallas",
                                torch_device="cpu")
