@@ -29,7 +29,11 @@ Phases (the kernels each main-path phase must launch in brackets):
                   the scalar ``fused_ref``; two counts on two side
                   streams at once, and a listing on one stream while a
                   count runs on another, each equal to its serial run)
-                  and embedding_bag in both modes (within BAG_ATOL).
+                  and embedding_bag in both modes (within BAG_ATOL;
+                  "onehot" on the variant ops.onehot_route picks, equal
+                  to "dma" bit for bit; int32 and int64 indices read in
+                  place, int64 PAD values past 2^31; a negative index in
+                  a child process per kernel must fail).
   3. rmat       — Graph500-style RMAT, ``backend="auto"`` [intersect]; the
                   count must equal the plain torch ``binary`` lane.
   4. clustered  — triangle-rich planted-partition graph [triangle_dense];
@@ -61,9 +65,14 @@ Phases (the kernels each main-path phase must launch in brackets):
                   rescan run's; total equal to the host backend and the
                   scipy oracle.
  11. embedding_bag — "auto" on the dlrm-mlperf configuration's largest
-                  field (20.5 GB) [embedding_bag "dma"] and its seventh
-                  (3.7 MB) [embedding_bag "onehot"], B = 65,536, L = 1 and
-                  8, within BAG_ATOL of the plain version; timed, freed.
+                  field (20.5 GB) [embedding_bag "dma"], its seventh
+                  (3.7 MB) [embedding_bag "onehot", the row gather] and
+                  its eighteenth (512 KB) [embedding_bag "onehot", the
+                  column-sliced kernel], B = 65,536, L = 1 and 8, int64
+                  indices, within BAG_ATOL of the plain version, "onehot"
+                  equal to "dma" bit for bit; each timed (the public call,
+                  calls back to back, the launch alone, host syncs per
+                  call), freed.
  12. timing     — each kernel at the largest input the main path gave it,
                   against its plain version, a library call where one
                   exists, and its roofline bound; intersect, the dense
@@ -127,11 +136,16 @@ QUERY_LIST_SCALE, QUERY_LIST_MEM_WORDS = 12, 1 << 14
 # PERF.md §7)
 QUERY_WORKERS = 8
 # embedding_bag: the dlrm-mlperf configuration's largest field (Criteo's
-# 39,979,771 rows padded to 512) and its seventh (7,120 padded to 512:
-# 3.7 MB, where "auto" picks "onehot"), D = 128 float32, B = 65,536 bags of
-# L = 1 (the configuration's `hot`) and of L = 8 with ~10 % PAD slots
-BAG_V_LARGEST, BAG_V_SMALL, BAG_D, BAG_B = 39_980_032, 7_168, 128, 65_536
+# 39,979,771 rows padded to 512), its seventh (7,120 padded to 512: 3.7 MB,
+# where "auto" picks "onehot" and "onehot" the row gather) and its
+# eighteenth (976 padded to 1,024: 512 KB, "onehot" on the column-sliced
+# kernel), D = 128 float32, B = 65,536 bags of L = 1 (the configuration's
+# `hot`) and of L = 8 with ~10 % PAD slots
+BAG_V_LARGEST, BAG_V_SMALL, BAG_V_SLICED = 39_980_032, 7_168, 1_024
+BAG_D, BAG_B = 128, 65_536
 BAG_LS, BAG_PAD_SHARE = (1, 8), 0.1
+# launches a CUDA graph holds to time the embedding_bag kernels alone
+BAG_GRAPH_LAUNCHES = 20
 # the fused kernel's plain version is timed on the largest main-path input
 # whose padded (R, K) atoms hold at most this many words
 FUSED_PLAIN_WORDS_CAP = 1 << 30
@@ -809,13 +823,41 @@ def phase_stream_cases(torch, np, fused_ops) -> dict:
 
 # embedding_bag shapes (V, D, B, L): single row and slot, ragged, the
 # dlrm-mlperf width D = 128, the seventh Criteo field padded to 512 rows,
-# a width that takes the 4-byte loads, empty bags, bags longer than a warp
+# a width that takes the 4-byte loads, empty bags, bags longer than a warp;
+# then the "onehot" variants at the edges of their rule (ops.onehot_route:
+# the column-sliced kernel for slices of w >= 32 floats, at D = 128 up to
+# 1,816 rows): the largest dlrm-mlperf "onehot" field (7,680 rows, w = 4)
+# and the seventh at L = 1 (w = 8) on the row gather; 512 rows (w = 64),
+# the widest slice (454 rows, w = 128), the tallest w = 32 table (1,816
+# rows) and one row more (w = 16: the row gather) at L = 8 and 1, L = 0
+# and L = 40 on the sliced kernel, fewer bags than its grid has ranges;
+# the tallest table with any slice (14,528 rows, w = 4) and one row more
 BAG_CASES = ((1, 1, 1, 1), (100, 16, 37, 5), (1000, 128, 64, 8),
              (7168, 128, 1000, 3), (5000, 130, 513, 9), (300, 64, 8, 0),
-             (50, 4, 10, 40))
+             (50, 4, 10, 40), (7680, 128, 2000, 8), (7168, 128, 2000, 1),
+             (512, 128, 777, 8), (454, 128, 300, 3), (1816, 128, 500, 8),
+             (1817, 128, 500, 8), (1816, 128, 500, 1), (1817, 128, 500, 1),
+             (1024, 128, 300, 0), (1024, 128, 300, 40), (1024, 128, 5, 8),
+             (14528, 128, 500, 8), (14529, 128, 500, 8))
 # the reference test's bound (tests/test_kernels.py): the kernel adds in
 # slot order, the plain version in PyTorch's order
 BAG_ATOL = 1e-4
+# PAD values past int32: int64 indices the kernels must read as empty
+BAG_WIDE_PADS = (2 ** 31, 2 ** 31 + 5, 2 ** 62)
+# a child process that calls embedding_bag with one negative index on the
+# card and must fail (the kernel traps) before it prints a result
+BAG_NEGATIVE_CHILD = """
+import sys
+import torch
+sys.path.insert(0, {src!r})
+from repro_torch import embedding_bag
+table = torch.rand(({v}, 128), device="cuda")
+idx = torch.full((4096, 8), 3, dtype=torch.int64, device="cuda")
+idx[1000, 5] = -1
+out = embedding_bag(table, idx, mode={mode!r})
+torch.cuda.synchronize()
+print("RESULT", float(out.sum()), flush=True)
+"""
 
 
 def bag_indices(np, rng, v: int, b: int, ll: int):
@@ -831,39 +873,117 @@ def bag_indices(np, rng, v: int, b: int, ll: int):
     return idx
 
 
-def phase_bag_cases(torch, np, bag_ops) -> dict:
-    """The embedding_bag kernel in both modes against its plain version
-    on ragged and edge shapes, within BAG_ATOL."""
+def bag_modes(torch, bag_ops, table, idx, want) -> dict:
+    """Both modes on one input: each within BAG_ATOL of ``want``, one
+    launch of its mode, "onehot" on the variant the rule picks and equal
+    to "dma" bit for bit. Returns the worst error and the variant."""
+    v, d = table.shape
+    w = bag_ops.onehot_route(v, d, table.data_ptr() % 16 == 0)
+    variant = "slices" if w else "rows"
+    got = {}
+    worst = 0.0
+    for mode in ("dma", "onehot"):
+        before = bag_ops.LAUNCHES[mode].n
+        before_v = bag_ops.ONEHOT_LAUNCHES[variant].n
+        got[mode] = bag_ops.embedding_bag(table, idx, mode=mode)
+        assert bag_ops.LAUNCHES[mode].n == before + 1, mode
+        if mode == "onehot":
+            assert bag_ops.ONEHOT_LAUNCHES[variant].n == before_v + 1, \
+                (v, d, variant)
+        assert got[mode].shape == want.shape
+        assert got[mode].dtype == want.dtype
+        err = float((got[mode] - want).abs().max()) \
+            if want.numel() else 0.0
+        assert err <= BAG_ATOL, (v, d, tuple(idx.shape), idx.dtype, mode,
+                                 err)
+        worst = max(worst, err)
+    assert torch.equal(got["onehot"], got["dma"]), (v, d, tuple(idx.shape))
+    return {"err": worst, "variant": variant, "w": w}
+
+
+def start_bag_negative_children() -> dict:
+    """One negative index on the card, in a child process per kernel (the
+    device-side fault leaves the CUDA context unusable): "onehot" on the
+    eighteenth field's shape (the column-sliced kernel) and "dma" (the row
+    gather). Started once the kernels are built, so that they run beside
+    the other kernel checks; bag_negative_results reads them."""
+    procs = {}
+    for mode in ("onehot", "dma"):
+        code = BAG_NEGATIVE_CHILD.format(src=str(ROOT / "src"),
+                                         v=BAG_V_SLICED, mode=mode)
+        procs[mode] = subprocess.Popen(
+            [sys.executable, "-c", code], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+    return procs
+
+
+def bag_negative_results(procs: dict) -> dict:
+    """Each child must exit non-zero without a result."""
+    out = {}
+    for mode, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=300)
+        assert proc.returncode != 0 and "RESULT" not in stdout, \
+            (mode, proc.returncode, stdout, stderr[-2000:])
+        tail = [line for line in stderr.splitlines() if line.strip()]
+        out[mode] = {"rc": proc.returncode,
+                     "error": tail[-1][-300:] if tail else ""}
+    return out
+
+
+def phase_bag_cases(torch, np, bag_ops, children: dict) -> dict:
+    """The embedding_bag kernels in both modes against their plain version
+    on ragged and edge shapes, within BAG_ATOL, with int64 and int32
+    indices read in place, PAD values past 2^31, an unaligned table view;
+    "onehot" on the variant its rule picks and equal to "dma" bit for bit;
+    a negative index fails on the card in a child process."""
     from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     rng = np.random.default_rng(0)
     worst = 0.0
     n_cases = 0
+    variants = Counter()
     for v, d, b, ll in BAG_CASES:
         table = torch.rand((v, d), generator=gen, device=dev)
         idx = torch.from_numpy(bag_indices(np, rng, v, b, ll)).to(dev)
         want = embedding_bag_ref(table, idx)
-        for mode in ("dma", "onehot"):
-            before = bag_ops.LAUNCHES[mode].n
-            got = bag_ops.embedding_bag(table, idx, mode=mode)
-            assert bag_ops.LAUNCHES[mode].n == before + 1, mode
-            assert got.shape == want.shape and got.dtype == want.dtype
-            err = float((got - want).abs().max()) if got.numel() else 0.0
-            assert err <= BAG_ATOL, (v, d, b, ll, mode, err)
-            worst = max(worst, err)
+        for ix in (idx, idx.to(torch.int32)):
+            r = bag_modes(torch, bag_ops, table, ix, want)
+            worst = max(worst, r["err"])
+            variants[r["variant"]] += 1
             n_cases += 1
-    # a table view offset by one float takes the 4-byte loads
+    # int64 PAD values past 2^31 (about a third of the PAD slots), on the
+    # column-sliced kernel and the row gather
+    for v, d in ((BAG_V_SLICED, 128), (5000, 130)):
+        table = torch.rand((v, d), generator=gen, device=dev)
+        host = bag_indices(np, rng, v, 600, 8)
+        wide = (host >= v) & (rng.random(host.shape) < 0.4)
+        host[wide] = rng.choice(BAG_WIDE_PADS, size=int(wide.sum()))
+        host[2, :] = 2 ** 62
+        idx = torch.from_numpy(host).to(dev)
+        want = embedding_bag_ref(table, torch.from_numpy(
+            np.minimum(host, v)).to(dev))
+        assert float(want[2].abs().max()) == 0.0
+        r = bag_modes(torch, bag_ops, table, idx, want)
+        worst = max(worst, r["err"])
+        variants[r["variant"]] += 1
+        n_cases += 1
+    # a table view offset by one float takes the 4-byte loads, and "onehot"
+    # takes the row gather (no 16-byte copy of a slice)
     buf = torch.rand(1000 * 128 + 1, generator=gen, device=dev)
     table = buf[1:].view(1000, 128)
     idx = torch.from_numpy(bag_indices(np, rng, 1000, 77, 6)).to(dev)
-    err = float((bag_ops.embedding_bag(table, idx, mode="dma")
-                 - embedding_bag_ref(table, idx)).abs().max())
-    assert err <= BAG_ATOL, err
-    worst = max(worst, err)
+    r = bag_modes(torch, bag_ops, table, idx, embedding_bag_ref(table, idx))
+    assert r["variant"] == "rows", r
+    worst = max(worst, r["err"])
+    variants[r["variant"]] += 1
+    n_cases += 1
     torch.cuda.synchronize()
+    negative = bag_negative_results(children)
     return {"phase": "kernels", "of": ["embedding_bag"],
-            "cases": n_cases + 1, "atol": BAG_ATOL, "max_abs_err": worst}
+            "cases": n_cases, "onehot_variants": dict(variants),
+            "atol": BAG_ATOL, "max_abs_err": worst,
+            "onehot_equals_dma": True, "negative_index": negative}
 
 
 # ---------------------------------------------------------------------------
@@ -1533,16 +1653,30 @@ def bag_inputs(torch, gen, v: int, ll: int):
 
 
 def time_bag(torch, bag_ops, table, idx, reps: int) -> dict:
-    """The bag kernel, its plain version and the library yardstick on one
-    input, against the bytes bound: each distinct non-PAD row read once,
-    the indices, the output written once (the additions, one per non-PAD
-    element at the float32 rate, take far less)."""
+    """One mode ("auto"'s) on one input: ``ms``, the public call
+    ``embedding_bag(table, idx)`` on the phase's int64 indices between
+    CUDA events (its host work before the launch included); ``calls_ms``,
+    BAG_GRAPH_LAUNCHES public calls back to back, per call; ``kernel_ms``,
+    the launch alone (BAG_GRAPH_LAUNCHES launches in one CUDA graph, per
+    launch); the host synchronisations of one public call; the plain version and the library yardstick; the
+    bytes bound (each distinct non-PAD row read once, the indices, the
+    output written once; the additions, one per non-PAD element at the
+    float32 rate, take far less) beside the L2 bytes the row gather reads
+    (every live slot's row)."""
     import torch.nn.functional as F
+    from repro_torch import embedding_bag
     from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
     v, d = table.shape
     mode = bag_ops.resolve_mode(table, "auto")
-    idx32 = idx.to(torch.int32)
-    ms = cuda_ms(lambda: bag_ops._launch(table, idx32, mode), reps)
+    w = bag_ops.onehot_route(v, d) if mode == "onehot" else 0
+    got, syncs = count_syncs(torch, lambda: embedding_bag(table, idx))
+    ms = cuda_ms(lambda: embedding_bag(table, idx), reps)
+    calls_ms = cuda_ms(lambda: [embedding_bag(table, idx)
+                                for _ in range(BAG_GRAPH_LAUNCHES)],
+                       reps) / BAG_GRAPH_LAUNCHES
+    kernel_ms = graph_ms(torch, lambda: [bag_ops._launch(table, idx, mode)
+                                         for _ in range(BAG_GRAPH_LAUNCHES)],
+                         reps) / BAG_GRAPH_LAUNCHES
     plain_ms = cuda_ms(lambda: embedding_bag_ref(table, idx), reps)
     live = idx < v
     safe = idx.clamp(max=v - 1)
@@ -1550,38 +1684,48 @@ def time_bag(torch, bag_ops, table, idx, reps: int) -> dict:
     lib_ms = cuda_ms(lambda: F.embedding_bag(
         safe, table, mode="sum", per_sample_weights=weights), reps)
     lib = F.embedding_bag(safe, table, mode="sum", per_sample_weights=weights)
-    got = bag_ops._launch(table, idx32, mode)
     lib_err = float((got - lib).abs().max())
+    lookups = int(live.sum())
     rows = int(torch.unique(idx[live]).numel())
-    n_bytes = 4 * rows * d + 4 * idx.numel() + 4 * got.numel()
-    n_ops = float(int(live.sum()) * d)
+    n_bytes = 4 * rows * d + idx.element_size() * idx.numel() \
+        + 4 * got.numel()
+    n_ops = float(lookups * d)
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / SCALAR_OPS_PER_S * 1e3
-    return {"mode": mode, "ms": ms, "plain_ms": plain_ms,
+    return {"mode": mode, "variant": ("slices" if w else "rows"),
+            "slice_w": w, "ms": ms, "calls_ms": calls_ms,
+            "kernel_ms": kernel_ms,
+            "syncs_per_call": syncs, "plain_ms": plain_ms,
             "library_ms": lib_ms, "library_max_abs_err": lib_err,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "shape": {"table": [v, d], "idx": list(idx.shape)},
-            "bytes": n_bytes, "ops": n_ops}
+            "shape": {"table": [v, d], "idx": list(idx.shape),
+                      "idx_dtype": str(idx.dtype)},
+            "bytes": n_bytes, "ops": n_ops, "lookups": lookups,
+            "row_gather_l2_bytes": 4 * lookups * d}
 
 
 def phase_embedding_bag(torch, np, ops, shared, bag_ops) -> dict:
     """``embedding_bag`` with mode "auto" on the dlrm-mlperf configuration's
-    largest field (auto picks "dma") and on its seventh field (auto picks
-    "onehot"), at B = 65,536 with L = 1 and L = 8 (about 10 % PAD), each
-    within BAG_ATOL of the plain version; the kernel is timed on the
-    largest input of each mode, then the table is freed."""
+    largest field (auto picks "dma"), its seventh (auto picks "onehot",
+    which routes to the row gather) and its eighteenth ("onehot" on the
+    column-sliced kernel), at B = 65,536 with L = 1 and L = 8 (about 10 %
+    PAD), int64 indices, each within BAG_ATOL of the plain version,
+    "onehot" equal to "dma" bit for bit; every input is timed, then its
+    table freed."""
     from repro_torch import embedding_bag
     from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {"phase": "embedding_bag", "B": BAG_B, "D": BAG_D, "runs": {}}
     runs = []
     timing = {}
-    for field, v in (("largest", BAG_V_LARGEST), ("seventh", BAG_V_SMALL)):
+    for field, v in (("largest", BAG_V_LARGEST), ("seventh", BAG_V_SMALL),
+                     ("eighteenth", BAG_V_SLICED)):
         t0 = time.perf_counter()
         table = torch.rand((v, BAG_D), generator=gen, device="cuda")
         torch.cuda.synchronize()
         t_table = time.perf_counter() - t0
+        mode = bag_ops.resolve_mode(table, "auto")
         for ll in BAG_LS:
             idx = bag_inputs(torch, gen, v, ll)
             reset_launches(ops)
@@ -1591,21 +1735,32 @@ def phase_embedding_bag(torch, np, ops, shared, bag_ops) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = read_launches(ops)
-            mode = bag_ops.resolve_mode(table, "auto")
             assert launches[f"embedding_bag_{mode}"] == 1, launches
+            if mode == "onehot":
+                variant = "slices" if bag_ops.onehot_route(v, BAG_D) \
+                    else "rows"
+                assert variant == ("slices" if v == BAG_V_SLICED
+                                   else "rows"), (v, ll, variant)
+                assert launches[f"embedding_bag_onehot_{variant}"] == 1, \
+                    launches
             want = embedding_bag_ref(table, idx)
             err = float((got - want).abs().max())
             assert err <= BAG_ATOL, (field, ll, err)
             assert bool(torch.isfinite(got).all())
-            out["runs"][f"{field}/L{ll}"] = {
-                "V": v, "L": ll, "mode": mode, "table_bytes":
-                v * BAG_D * 4, "pad_share": float((idx >= v).float().mean()),
-                "max_abs_err": err, "call_s": wall, "launches": launches,
-                "table_s": t_table}
+            run = {"V": v, "L": ll, "mode": mode, "table_bytes":
+                   v * BAG_D * 4, "pad_share": float((idx >= v).float()
+                                                     .mean()),
+                   "max_abs_err": err, "call_s": wall, "launches": launches,
+                   "table_s": t_table}
+            if mode == "onehot":
+                run["equals_dma"] = torch.equal(
+                    got, bag_ops.embedding_bag(table, idx, mode="dma"))
+                assert run["equals_dma"], (field, ll)
+            out["runs"][f"{field}/L{ll}"] = run
             runs.append(launches)
-            if ll == max(BAG_LS):
-                timing[mode] = dict(time_bag(torch, bag_ops, table, idx,
-                                             TIMING_REPS), max_abs_err=err)
+            timing.setdefault(field, {})[f"L{ll}"] = dict(
+                time_bag(torch, bag_ops, table, idx, TIMING_REPS),
+                max_abs_err=err)
         del table, idx, got, want
         torch.cuda.empty_cache()
     out["launches"] = {k: sum(r[k] for r in runs) for k in ops}
@@ -1996,19 +2151,36 @@ def time_fused_list(torch, rec, launches: int, reps: int) -> dict:
             "bytes": n_bytes, "ops": n_ops}
 
 
-def bag_kernel_row(timing: dict, launches: int) -> dict:
-    """The embedding_bag kernel's line: the "dma" numbers (the largest
-    input), with both modes' numbers under ``by_mode``."""
-    dma = timing["dma"]
-    return {"name": "embedding_bag", "route": "cuda",
-            "source": "src/repro_torch/csrc/embedding_bag.cu",
-            "replaces": "src/repro/kernels/embedding_bag/kernel.py:35",
-            "replaces_also": "src/repro/kernels/embedding_bag/kernel.py:83",
-            "launches": launches, "max_abs_err": dma["max_abs_err"],
-            "exact": dma["max_abs_err"] <= BAG_ATOL, "ms": dma["ms"],
-            "kernel_ms": dma["ms"], "plain_ms": dma["plain_ms"],
-            "bound_ms": dma["bound_ms"], "bound_by": dma["bound_by"],
-            "library_ms": dma["library_ms"], "by_mode": timing}
+def bag_kernel_rows(timing: dict, launches: dict) -> list:
+    """The embedding_bag kernels' lines: "dma" (the row gather, on the
+    largest field) and "onehot" (the column-sliced kernel, on the
+    eighteenth field), each at L = 8 with both L under ``by_L``; the
+    seventh field's "onehot" calls (the row gather) under ``by_field``."""
+    rows = []
+    for mode, line, field in (("dma", 35, "largest"),
+                              ("onehot", 83, "eighteenth")):
+        top = timing[field][f"L{max(BAG_LS)}"]
+        fields = {f: t for f, t in timing.items()
+                  if t[f"L{max(BAG_LS)}"]["mode"] == mode}
+        runs = [t for f in fields.values() for t in f.values()]
+        row = {"name": f"embedding_bag_{mode}", "route": "cuda",
+               "source": "src/repro_torch/csrc/embedding_bag.cu",
+               "replaces": f"src/repro/kernels/embedding_bag/kernel.py:"
+                           f"{line}",
+               "launches": launches[f"embedding_bag_{mode}"],
+               "max_abs_err": max(t["max_abs_err"] for t in runs),
+               "ms": top["ms"], "kernel_ms": top["kernel_ms"],
+               "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+               "bound_by": top["bound_by"], "library_ms": top["library_ms"],
+               "host_syncs_per_call": max(t["syncs_per_call"] for t in runs),
+               "field": field, "by_L": timing[field], "by_field": fields}
+        if mode == "onehot":
+            row["launches_by_variant"] = {
+                k: launches[f"embedding_bag_onehot_{k}"]
+                for k in ("slices", "rows")}
+        row["exact"] = row["max_abs_err"] <= BAG_ATOL
+        rows.append(row)
+    return rows
 
 
 PHASES = ("rmat", "clustered", "listing", "skew", "fused", "query",
@@ -2054,13 +2226,16 @@ def main() -> int:
     from repro_torch.kernels.intersect import ops as intersect_ops
     from repro_torch.kernels.lftj_fused import ops as fused_ops
     from repro_torch.kernels.triangle_dense import ops as dense_ops
-    # every kernel's launch counter (embedding_bag keeps one per mode)
+    # every kernel's launch counter (embedding_bag keeps one per mode, and
+    # one per "onehot" variant)
     ops = {"intersect": intersect_ops.LAUNCHES,
            "triangle_dense": dense_ops.LAUNCHES,
            "lftj_fused": fused_ops.LAUNCHES,
            "lftj_fused_list": fused_ops.LIST_LAUNCHES,
            "embedding_bag_dma": bag_ops.LAUNCHES["dma"],
-           "embedding_bag_onehot": bag_ops.LAUNCHES["onehot"]}
+           "embedding_bag_onehot": bag_ops.LAUNCHES["onehot"],
+           "embedding_bag_onehot_slices": bag_ops.ONEHOT_LAUNCHES["slices"],
+           "embedding_bag_onehot_rows": bag_ops.ONEHOT_LAUNCHES["rows"]}
 
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
@@ -2077,20 +2252,27 @@ def main() -> int:
           "ptxas": ptxas,
           "count_kernels": {k: v for k, v in ptxas.get("lftj_fused", {})
                             .items() if k.startswith("count_kernel")}})
-    t0 = time.perf_counter()
-    emit(phase_kernel_cases(torch, np, intersect_ops, dense_ops))
-    emit(dict(phase_fused_cases(torch, np, fused_ops),
-              phase_s=time.perf_counter() - t0))
-    t0 = time.perf_counter()
-    list_cases = dict(phase_list_cases(torch, np, fused_ops),
-                      phase_s=time.perf_counter() - t0)
-    emit(list_cases)
-    t0 = time.perf_counter()
-    emit(dict(phase_stream_cases(torch, np, fused_ops),
-              phase_s=time.perf_counter() - t0))
-    t0 = time.perf_counter()
-    emit(dict(phase_bag_cases(torch, np, bag_ops),
-              phase_s=time.perf_counter() - t0))
+    children = start_bag_negative_children()
+    try:
+        t0 = time.perf_counter()
+        emit(phase_kernel_cases(torch, np, intersect_ops, dense_ops))
+        emit(dict(phase_fused_cases(torch, np, fused_ops),
+                  phase_s=time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        list_cases = dict(phase_list_cases(torch, np, fused_ops),
+                          phase_s=time.perf_counter() - t0)
+        emit(list_cases)
+        t0 = time.perf_counter()
+        emit(dict(phase_stream_cases(torch, np, fused_ops),
+                  phase_s=time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        emit(dict(phase_bag_cases(torch, np, bag_ops, children),
+                  phase_s=time.perf_counter() - t0))
+    finally:
+        for proc in children.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
     kernels = []
     if not args.quick:
@@ -2172,9 +2354,7 @@ def main() -> int:
                                            launches["lftj_fused_list"],
                                            TIMING_REPS))
         if "bag_timing" in shared:
-            kernels.append(bag_kernel_row(
-                shared["bag_timing"], launches["embedding_bag_dma"]
-                + launches["embedding_bag_onehot"]))
+            kernels.extend(bag_kernel_rows(shared["bag_timing"], launches))
         for k in kernels:
             assert k["exact"], k
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start,
@@ -2184,8 +2364,10 @@ def main() -> int:
     # call, two when the listing workspace regrows; two per fused_count
     # call (the envelope and the total)
     assert list_cases["regrowth_max_syncs"] <= 2, list_cases
+    # none per embedding_bag call
     for k in kernels:
-        limit = 2 if k["name"] == "lftj_fused" else 1
+        limit = {"lftj_fused": 2, "embedding_bag_dma": 0,
+                 "embedding_bag_onehot": 0}.get(k["name"], 1)
         assert k.get("host_syncs_per_call") in (None, *range(limit + 1)), k
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

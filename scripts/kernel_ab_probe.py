@@ -35,6 +35,21 @@ Runs, each on a graph made from a fixed seed:
   listing graph (RMAT scale 16, ``seed=1``, ``mem_words=2^18``), whose
   dense box is the main path's largest ``triangle_count`` call
   (427 × 227 × 31,184): that call timed.
+* ``bag``: ``embedding_bag`` on chip_smoke.py's dlrm-mlperf tables (D =
+  128, B = 65,536 bags, L = 1 and L = 8 with ~10 % PAD, int64 indices):
+  "onehot" on the seventh field (7,168 rows) and the eighteenth (1,024
+  rows), "dma" on the largest field (39,980,032 rows, 20.5 GB). Per input:
+  ``ms``, the public call between CUDA events; ``host_us``, the host time
+  a public call takes to enqueue its work; ``kernel_ms``, the tree's
+  launch alone (``bag_ops._launch`` on the indices it takes: as they are,
+  or the int32 clamped copy an older wrapper made), a CUDA graph of
+  BAG_GRAPH_LAUNCHES launches replayed, per launch; the host
+  synchronisations of a public call; whether "onehot" equals "dma" bit
+  for bit;
+* ``bag_sweep``: at each padded row count of the dlrm-mlperf "onehot"
+  fields (BAG_SWEEP_V), L = 1 and 8, the column-sliced kernel (forced) and
+  the row gather, launch alone, in turns: the data of the routing rule
+  (``ops.onehot_route``).
 
 With ``--intersect-variant NAME`` the tree's intersect kernel is built a
 second time with ``-DNAME`` (``INTERSECT_WARP_CHUNKS``: the fused count's
@@ -222,6 +237,123 @@ def time_fused_calls(torch, fops, calls) -> dict:
     return out
 
 
+# the bag run's inputs (chip_smoke.py's embedding_bag phase): dlrm-mlperf
+# tables of D = 128 float32, B = 65,536 bags, ~10 % PAD slots at L > 1
+BAG_D, BAG_B, BAG_PAD_SHARE = 128, 65_536, 0.1
+BAG_FIELDS = (("seventh", 7_168, "onehot"), ("eighteenth", 1_024, "onehot"),
+              ("largest", 39_980_032, "dma"))
+BAG_GRAPH_LAUNCHES = 20
+
+
+def bag_indices(torch, gen, v: int, ll: int):
+    idx = torch.randint(0, v, (BAG_B, ll), generator=gen, device="cuda")
+    if ll > 1:
+        pad = torch.rand((BAG_B, ll), generator=gen,
+                         device="cuda") < BAG_PAD_SHARE
+        idx[pad] = v
+    return idx
+
+
+def per_launch_ms(torch, fn, n: int = BAG_GRAPH_LAUNCHES) -> float:
+    """ms a launch of ``fn``'s kernels without its host work: ``n`` calls
+    captured in one CUDA graph, replayed."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    return cuda_ms(torch, graph.replay) / n
+
+
+def count_syncs(torch, fn) -> int:
+    """Host synchronisations of one ``fn()``, by PyTorch's sync debug
+    mode."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        fn()
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message).lower() for w in caught)
+
+
+def host_us(torch, fn, calls: int = 200) -> float:
+    """Microseconds of host time a call of ``fn`` takes to enqueue its
+    work (``calls`` calls back to back, then one synchronisation)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def bag_run(torch, bag_ops, tag: dict) -> None:
+    """The ``bag`` run: one JSON line per (table, mode, L)."""
+    in_place = hasattr(bag_ops, "onehot_slice_width")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for field, v, mode in BAG_FIELDS:
+        table = torch.rand((v, BAG_D), generator=gen, device="cuda")
+        for ll in (1, 8):
+            idx = bag_indices(torch, gen, v, ll)
+            arg = idx if in_place else \
+                idx.clamp(max=v).to(torch.int32)
+
+            def call():
+                return bag_ops.embedding_bag(table, idx, mode=mode)
+
+            got = call()
+            line = dict(tag, run="bag", field=field, V=v, mode=mode, L=ll,
+                        syncs=count_syncs(torch, call),
+                        ms=cuda_ms(torch, call), host_us=host_us(torch, call),
+                        kernel_ms=per_launch_ms(
+                            torch, lambda: bag_ops._launch(table, arg, mode)))
+            if mode == "onehot":
+                line["equals_dma"] = torch.equal(
+                    got, bag_ops.embedding_bag(table, idx, mode="dma"))
+            emit(line)
+        del table
+        torch.cuda.empty_cache()
+
+
+# the bag_sweep run: the dlrm-mlperf "onehot" fields' padded row counts
+BAG_SWEEP_V = (512, 1024, 2048, 2560, 7168, 7680)
+
+
+def bag_sweep(torch, bag_ops, tag: dict) -> None:
+    """The ``bag_sweep`` run: at each of BAG_SWEEP_V rows, L = 1 and 8,
+    the launch alone of the column-sliced kernel (forced, whatever the
+    routing rule says) and of the row gather, in the order slices, rows,
+    rows, slices."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    route = bag_ops.onehot_route
+    for v in BAG_SWEEP_V:
+        table = torch.rand((v, BAG_D), generator=gen, device="cuda")
+        w = bag_ops.onehot_slice_width(v, BAG_D)
+        for ll in (1, 8):
+            idx = bag_indices(torch, gen, v, ll)
+            out = {"slices": [], "rows": []}
+            try:
+                bag_ops.onehot_route = lambda *a: w
+                bag_ops._onehot_plan.cache_clear()
+                for which in ("slices", "rows", "rows", "slices"):
+                    mode = "onehot" if which == "slices" else "dma"
+                    out[which].append(per_launch_ms(
+                        torch, lambda: bag_ops._launch(table, idx, mode)))
+            finally:
+                bag_ops.onehot_route = route
+                bag_ops._onehot_plan.cache_clear()
+            emit(dict(tag, run="bag_sweep", V=v, w=w, L=ll, ms=out))
+        del table
+        torch.cuda.empty_cache()
+
+
 def walled(torch, fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -240,7 +372,7 @@ def main() -> int:
                     "engine_intersect",
                     help="comma list of listing, query_triangle, "
                     "engine_intersect, rmat_box, engine_fused, "
-                    "query_fused, dense, dense_listing")
+                    "query_fused, dense, dense_listing, bag, bag_sweep")
     ap.add_argument("--intersect-variant", default=None,
                     help="a macro to build the intersect kernel a second "
                     "time with (INTERSECT_WARP_CHUNKS), timed beside the "
@@ -264,6 +396,7 @@ def main() -> int:
     from repro_torch.convert import engine_from_state
     from repro_torch.data.graphs import clustered_graph
     from repro_torch.kernels import _build
+    from repro_torch.kernels.embedding_bag import ops as bag_ops
     from repro_torch.kernels.intersect import ops as iops
     from repro_torch.kernels.lftj_fused import ops as fops
     from repro_torch.kernels.triangle_dense import ops as dops
@@ -417,6 +550,12 @@ def main() -> int:
             count, wall = walled(torch, eng.count)
             emit(dict(tag, run="query_fused", pattern="four_clique",
                       workers=8, count=count, count_s=wall))
+
+    if "bag_sweep" in runs:
+        bag_sweep(torch, bag_ops, tag)
+
+    if "bag" in runs:
+        bag_run(torch, bag_ops, tag)
 
     if "rmat_box" in runs:
         src, dst = rmat_graph(1 << 20, 16 << 20, seed=0)

@@ -1,44 +1,98 @@
-"""Public wrapper of the EmbeddingBag kernel: checks, mode, dispatch.
+"""Public wrapper of the EmbeddingBag kernels: checks, mode, routing,
+dispatch.
 
 ``embedding_bag(table, idx, mode=...)`` keeps the reference's ``mode``
 values and its ``"auto"`` rule (``"onehot"`` for a table of at most
 2^22 bytes, else ``"dma"``). On the TPU the two modes are two kernels: a
 per-row HBM->VMEM DMA gather, and a one-hot MXU product for small tables.
-On this card a table of at most 4 MB sits in L2, so both modes launch the
-same gather-and-sum kernel (``csrc/embedding_bag.cu``); each mode keeps
-its own launch count, so a run shows which modes it launched. For CPU
-tensors the wrapper runs the plain version in ``ref.py``.
+On this card (``csrc/embedding_bag.cu``):
+
+* ``"dma"`` launches the row gather (``rows_kernel``): one warp per bag,
+  each live slot's row read from global memory;
+* ``"onehot"`` launches the column-sliced kernel (``slices_kernel``),
+  which holds a column slice of the table in each block's shared memory,
+  where :func:`onehot_route` takes it: the slice that
+  :func:`onehot_slice_width` finds (the widest power of two from 4 to 128
+  floats that fits, on a 16-byte aligned table) is at least 32 floats
+  wide; elsewhere (narrower slices, which the row gather beats or ties on
+  the card, a table too tall for any slice, a width no slice divides, an
+  unaligned view) it launches the row gather too. The rule is by shape and
+  alignment, not a fallback.
+
+Each mode keeps its own launch count (``LAUNCHES``), and each "onehot"
+variant its own (``ONEHOT_LAUNCHES``), so a run shows what it launched.
+Both kernels add a bag's slots in order from 0 in float32, so "onehot"
+and "dma" give the same bits. For CPU tensors the wrapper runs the plain
+version in ``ref.py``.
 
 The wrapper takes float32 tables (the type every caller of the reference
-uses) and raises on any other, and on negative indices. Any index >= V is
-an empty slot, as the reference's PAD (== V) is.
+uses) and int32 or int64 indices, which the kernels read in place: no
+copy, no cast and no host synchronisation on the card. Any index >= V is
+an empty slot, as the reference's PAD (== V) is. A negative index raises
+``ValueError`` on the CPU; on the card it traps in either kernel (a
+device-side fault), which surfaces at the next synchronisation and leaves
+the CUDA context unusable, as a device-side assert of PyTorch's own index
+kernels does.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from .. import _build
 from .ref import embedding_bag_ref
 
-__all__ = ["LAUNCHES", "MODES", "embedding_bag", "embedding_bag_ref",
-           "resolve_mode"]
+__all__ = ["LAUNCHES", "MODES", "ONEHOT_LAUNCHES", "embedding_bag",
+           "embedding_bag_ref", "onehot_grid", "onehot_route",
+           "onehot_slice_width", "resolve_mode"]
 
 MODES = ("auto", "dma", "onehot")
 # the reference's "auto" rule: the one-hot formulation for tables of at
 # most this many bytes
 ONEHOT_MAX_BYTES = 1 << 22
+# the column slices: the shared memory one block of an H100 may take
+# (227 KB, opt-in), all of it for the slice: the index stage takes none
+# (each thread holds its bag's indices, or 8 bags' at L = 1, in registers);
+# slices of 4 to 128 floats, so a row's slice is at least one 16-byte copy
+# and a bag's w / 4 threads sit in one warp
+SLICE_SMEM_BYTES = 232_448
+SLICE_MIN_W, SLICE_MAX_W = 4, 128
+# the H100's SMs: the grid's default when no card is asked
+H100_SMS = 132
+# where "onehot" takes the column-sliced kernel (onehot_route): slices of
+# at least 32 floats. Narrower slices tie with the row gather (w = 16: -3 %
+# to +2 % over three calls) or lose to it: each block copies a whole slice
+# (229 KB at V = 7,168, w = 8) before it gathers, output pieces of w < 32
+# floats are partial-line writes, and at w = 8 the random rows of 4 bags
+# meet bank conflicts in each 128 bytes of shared memory read. ms of the
+# launch alone, slices / rows, at D = 128, B = 65,536 int64 bags (~10 %
+# PAD at L = 8), one H100 80GB HBM3 at 700 W (scripts/kernel_ab_probe.py
+# --runs bag_sweep, two launches of each in turns):
+#   V = 512 (w = 64):    L = 1 0.0121 / 0.0140, L = 8 0.0249 / 0.0261
+#   V = 1,024 (w = 32):  L = 1 0.0123 / 0.0137, L = 8 0.0249 / 0.0267
+#   V = 2,048 (w = 16):  L = 1 0.0141 / 0.0142, L = 8 0.0274 / 0.0278
+#   V = 2,560 (w = 16):  L = 1 0.0145 / 0.0145, L = 8 0.0280 / 0.0282
+#   V = 7,168 (w = 8):   L = 1 0.0218 / 0.0152, L = 8 0.0408 / 0.0314
+#   V = 7,680 (w = 4):   L = 1 0.0507 / 0.0158, L = 8 0.0582 / 0.0315
+SLICE_ROUTE_MIN_W = 32
 
 LAUNCHES = {"dma": _build.LaunchCounter(), "onehot": _build.LaunchCounter()}
+ONEHOT_LAUNCHES = {"slices": _build.LaunchCounter(),
+                   "rows": _build.LaunchCounter()}
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
+_I = ctypes.c_int
 _SIGNATURES = {
-    "embedding_bag_launch": ((_P, _LL, _LL, _P, _LL, _LL, _P, _P),
-                             ctypes.c_int),
+    "embedding_bag_rows_launch": ((_P, _LL, _LL, _P, _I, _LL, _LL, _P, _P),
+                                  ctypes.c_int),
+    "embedding_bag_slices_launch": ((_P, _LL, _LL, _I, _I, _P, _I, _LL, _LL,
+                                     _P, _P), ctypes.c_int),
 }
+_SMS = {}
 
 
 def resolve_mode(table: torch.Tensor, mode: str) -> str:
@@ -53,8 +107,51 @@ def resolve_mode(table: torch.Tensor, mode: str) -> str:
         else "dma"
 
 
-def _check(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """int32 contiguous indices with every PAD (>= V) set to V."""
+def onehot_slice_width(v: int, d: int, aligned: bool = True) -> int:
+    """The "onehot" route's slice width for a (v, d) float32 table: the
+    widest power of two w in [SLICE_MIN_W, SLICE_MAX_W] with ``d % w ==
+    0`` and ``v * w * 4 <= SLICE_SMEM_BYTES``, or 0 (the row gather) when
+    there is none or the table is not ``aligned`` to 16 bytes. At d = 128:
+    w = 128 up to v = 454, 64 up to 908, 32 up to 1,816, 16 up to 3,632,
+    8 up to 7,264, 4 up to 14,528, then 0."""
+    if not aligned:
+        return 0
+    w = SLICE_MAX_W
+    while w >= SLICE_MIN_W:
+        if d % w == 0 and v * w * 4 <= SLICE_SMEM_BYTES:
+            return w
+        w //= 2
+    return 0
+
+
+def onehot_route(v: int, d: int, aligned: bool = True) -> int:
+    """The "onehot" variant for a (v, d) table: the slice width of the
+    column-sliced kernel where :func:`onehot_slice_width` finds one of at
+    least SLICE_ROUTE_MIN_W floats (at d = 128: up to v = 1,816), else 0
+    for the row gather. The same at every bag length measured (L = 1 and
+    8)."""
+    w = onehot_slice_width(v, d, aligned)
+    return w if w >= SLICE_ROUTE_MIN_W else 0
+
+
+def onehot_grid(b: int, d: int, w: int, n_sm: int = H100_SMS):
+    """(slices, bag ranges) of the column-sliced kernel's persistent grid:
+    d / w slices times floor(n_sm / slices) ranges (at least 1, at most
+    one a bag), one block each. At d = 128 on 132 SMs: w = 8 gives
+    16 x 8 = 128 blocks."""
+    n_slices = d // w
+    return n_slices, max(1, min(b, n_sm // n_slices))
+
+
+@functools.lru_cache(maxsize=1024)
+def _onehot_plan(v: int, d: int, b: int, aligned: bool, n_sm: int):
+    """(slice width, bag ranges) of one "onehot" call; (0, 0) for the row
+    gather."""
+    w = onehot_route(v, d, aligned)
+    return (w, onehot_grid(b, d, w, n_sm)[1]) if w else (0, 0)
+
+
+def _check(table: torch.Tensor, idx: torch.Tensor) -> None:
     if table.dim() != 2 or table.dtype != torch.float32:
         raise TypeError("embedding_bag: table must be a 2-D float32 tensor, "
                         f"got {table.dtype} {tuple(table.shape)}")
@@ -68,26 +165,47 @@ def _check(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise ValueError("embedding_bag: table and idx must share a device")
     if table.device.type not in ("cpu", "cuda"):
         raise ValueError(f"embedding_bag: unsupported device {table.device}")
-    if idx.numel() and int(idx.min()) < 0:
-        raise ValueError("embedding_bag: negative index")
-    return idx.clamp(max=table.shape[0]).to(torch.int32).contiguous()
+
+
+def _sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    n = _SMS.get(index)
+    if n is None:
+        n = _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return n
 
 
 def _launch(table: torch.Tensor, idx: torch.Tensor,
             mode: str) -> torch.Tensor:
+    """One launch on CUDA tensors: ``mode``'s kernel, the indices read in
+    place (a copy only where ``idx`` is not contiguous)."""
     table = table.contiguous()
+    idx = idx.contiguous()
     b, ll = idx.shape
     v, d = table.shape
     out = torch.empty((b, d), dtype=table.dtype, device=table.device)
     if b == 0 or d == 0:
         return out
     lib = _build.load("embedding_bag", _SIGNATURES)
-    with torch.cuda.device(table.device):
-        rc = lib.embedding_bag_launch(
-            table.data_ptr(), v, d, idx.data_ptr(), b, ll, out.data_ptr(),
-            _build.stream_ptr(table.device))
+    w, n_ranges = _onehot_plan(v, d, b, table.data_ptr() % 16 == 0,
+                               _sm_count(table.device)) \
+        if mode == "onehot" else (0, 0)
+    with _build.on_device(table.device):
+        stream = _build.stream_ptr(table.device)
+        if w:
+            rc = lib.embedding_bag_slices_launch(
+                table.data_ptr(), v, d, w, n_ranges, idx.data_ptr(),
+                idx.element_size(), b, ll, out.data_ptr(), stream)
+        else:
+            rc = lib.embedding_bag_rows_launch(
+                table.data_ptr(), v, d, idx.data_ptr(), idx.element_size(),
+                b, ll, out.data_ptr(), stream)
     _build.check_launch("embedding_bag", rc)
     LAUNCHES[mode].add()
+    if mode == "onehot":
+        ONEHOT_LAUNCHES["slices" if w else "rows"].add()
     return out
 
 
@@ -99,8 +217,10 @@ def embedding_bag(table: torch.Tensor, idx: torch.Tensor, *,
     ``table`` (V, D) float32, ``idx`` (B, L) int32/int64 on the same
     device; returns (B, D) float32. ``mode`` is 'dma', 'onehot' or 'auto'
     (by table size, as in the reference)."""
-    idx = _check(table, idx)
+    _check(table, idx)
     mode = resolve_mode(table, mode)
     if table.device.type == "cpu":
+        if idx.numel() and int(idx.min()) < 0:
+            raise ValueError("embedding_bag: negative index")
         return embedding_bag_ref(table, idx)
     return _launch(table, idx, mode)
