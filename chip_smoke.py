@@ -64,7 +64,24 @@ Phases (the kernels each main-path phase must launch in brackets):
                   [lftj_fused_list]: bytes equal the CPU's and a forced-
                   rescan run's; total equal to the host backend and the
                   scipy oracle.
- 11. embedding_bag — "auto" on the dlrm-mlperf configuration's largest
+ 11. api        — the public triangle API: ``count_triangles`` vectorized
+                  on phase 3's graph in both orientations [intersect, one
+                  launch each], dense on phase 4's [triangle_dense, one
+                  8,192² call], boxed_vec and auto with a budget on phase
+                  5's, each equal to that phase's count; MGT on phase 3's
+                  graph [intersect, one launch a chunk] at phase 3's
+                  budget, its count equal and its walls and block reads
+                  beside phase 9's store count; the Prop. 4 instance on
+                  the host (faithful and boxed, block reads) and on the
+                  card (vectorized, boxed_vec and mgt agreeing); the three
+                  measured crossovers at two box widths [triangle_dense,
+                  intersect, lftj_fused] in a temporary cache, and an
+                  engine on 'measured' thresholds; a traced TriangleEngine
+                  count and a traced store-backed diamond on the fused lane
+                  (spans per box, kernel.launch events = launches, counts
+                  unchanged, Chrome trace exported). Calls of this phase
+                  are not recorded for the timing phase.
+ 12. embedding_bag — "auto" on the dlrm-mlperf configuration's largest
                   field (20.5 GB) [embedding_bag "dma"], its seventh
                   (3.7 MB) [embedding_bag "onehot", the row gather] and
                   its eighteenth (512 KB) [embedding_bag "onehot", the
@@ -73,7 +90,7 @@ Phases (the kernels each main-path phase must launch in brackets):
                   equal to "dma" bit for bit; each timed (the public call,
                   calls back to back, the launch alone, host syncs per
                   call), freed.
- 12. timing     — each kernel at the largest input the main path gave it,
+ 13. timing     — each kernel at the largest input the main path gave it,
                   against its plain version, a library call where one
                   exists, and its roofline bound; intersect, the dense
                   kernel, the fused count and the listing kernel also at
@@ -156,6 +173,19 @@ OOC_CACHE_WORDS, OOC_QUERY_CACHE_WORDS = 1 << 20, 1 << 13
 # TriangleEngine.ingest's default budget: below the scale-20 graph's edges,
 # so the external sort spills runs and merges them
 OOC_INGEST_BUDGET_WORDS = 1 << 22
+# the api phase: MGT on the rmat graph at the rmat phase's box budget with
+# the store count's block size and cache (budget / block); the Prop. 4
+# instance at the test size of tests/test_boxing.py (host joins) and at a
+# card size, its boxed_vec and mgt budget; the calibrations' box widths
+# (the reference's 256 and a card-sized one); the traced store diamond's
+# budget and cache (4x the outofcore phase's: PERF.md §4 says why)
+MGT_BLOCK_WORDS = 4096
+ADV_TEST = (1600, 400, 16)
+ADV_CARD, ADV_CARD_BUDGET = (1 << 22, 1 << 16, 64), 1 << 21
+CALIBRATION_NVS = (256, 4096)
+TRACE_QUERY_MEM_WORDS, TRACE_QUERY_CACHE_WORDS = 1 << 16, 1 << 15
+# the traced runs' ring buffer: room for every span and cache event
+TRACE_CAPACITY = 1 << 20
 
 
 
@@ -215,6 +245,9 @@ class Recorder:
         self.largest_fitting_size = -1
         self.sizes = []
         self.by_bucket = {}
+        # a paused recorder passes calls through unrecorded (the api
+        # phase's whole-graph calls are timed in its own line)
+        self.paused = False
         setattr(module, attr, self)
 
     def keep(self, size, args, kw) -> None:
@@ -244,6 +277,8 @@ class Recorder:
                 "largest": largest}
 
     def __call__(self, *args, **kw):
+        if self.paused:
+            return self.orig(*args, **kw)
         self.shapes[self.shape(*args)] += 1
         self.keep(self.size(*args), args, kw)
         size = self.rank(*args)
@@ -261,6 +296,8 @@ class ListRecorder(Recorder):
     rows (known only after the call), with its keyword arguments."""
 
     def __call__(self, *args, **kw):
+        if self.paused:
+            return self.orig(*args, **kw)
         self.shapes[self.shape(*args)] += 1
         total, rows = self.orig(*args, **kw)
         self.keep(len(rows), args, kw)
@@ -1022,7 +1059,7 @@ def phase_rmat(torch, np, ops, shared, scale: int, mem_words: int,
     wall_binary = time.perf_counter() - t0
     assert count == want, (count, want)
     shared["rmat"] = {"src": src, "dst": dst, "count": count,
-                      "csr": (eng.indptr, eng.indices),
+                      "count_s": wall, "csr": (eng.indptr, eng.indices),
                       "padded_words": stats.padded_words,
                       "actual_words": stats.actual_words,
                       "boxes": stats.n_boxes}
@@ -1355,13 +1392,19 @@ def query_stats(stats) -> dict:
             "max_frontier": stats.max_frontier}
 
 
-def run_query_count(torch, ops, eng) -> tuple:
+def drive(torch, ops, fn):
+    """(fn(), wall seconds, launches): every launch count set to 0 just
+    before ``fn`` drives the entry point and read just after."""
     reset_launches(ops)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    count = eng.count()
+    out = fn()
     torch.cuda.synchronize()
-    return count, time.perf_counter() - t0, read_launches(ops)
+    return out, time.perf_counter() - t0, read_launches(ops)
+
+
+def run_query_count(torch, ops, eng) -> tuple:
+    return drive(torch, ops, eng.count)
 
 
 def phase_query(torch, np, ops, shared, scale: int, mem_words: int) -> dict:
@@ -1534,6 +1577,9 @@ def phase_outofcore(torch, np, ops, shared) -> dict:
                 "launches": launches,
                 "max_memory_allocated": torch.cuda.max_memory_allocated()}
         assert ledgers[0] == ledgers[1], ledgers
+        shared["outofcore"] = {"io": ledgers[0],
+                               "count_s": out["counts"]["workers1"]
+                               ["count_s"]}
         del eng
         # phase 5's graph from a store: list() with forced rescans
         state = listing["state"]
@@ -1575,6 +1621,7 @@ def phase_outofcore(torch, np, ops, shared) -> dict:
             count, query["oracles"]["diamond"])
         assert qe.stats.n_fused_boxes > 0, query_stats(qe.stats)
         assert launches["lftj_fused"] > 0, launches
+        shared["outofcore"]["diamond_s"] = wall
         out["diamond"] = {"scale": QUERY_SCALE, "mem_words": QUERY_MEM_WORDS,
                           "cache_words": OOC_QUERY_CACHE_WORDS,
                           "order": list(qe.order), "count": count,
@@ -1639,6 +1686,272 @@ def phase_query_listing(torch, np, ops, shared, scale: int,
             "forced_capacity": cap, "rescans_forced": rescans_forced,
             "list_s": t_list, "cpu_list_s": t_cpu,
             "count_host_backend": count_host, "scipy_oracle": oracle}
+
+
+def csr_edges(np, indptr, indices):
+    """The (src, dst) edge arrays of a CSR."""
+    return (np.repeat(np.arange(len(indptr) - 1, dtype=np.int64),
+                      np.diff(indptr)), np.asarray(indices, np.int64))
+
+
+def span_seconds(tracer) -> dict:
+    """{span name: [count, summed seconds]} over a tracer's B/E pairs."""
+    begin, out = {}, {}
+    for e in tracer.snapshot():
+        if e["ph"] == "B":
+            begin[e["sid"]] = e
+        elif e["ph"] == "E" and e["sid"] in begin:
+            b = begin.pop(e["sid"])
+            acc = out.setdefault(b["name"], [0, 0.0])
+            acc[0] += 1
+            acc[1] += (e["ts"] - b["ts"]) * 1e-6
+    return out
+
+
+def traced_run(torch, ops, make, lanes_of, tmp, label: str) -> dict:
+    """One untraced and one traced count of the engines ``make`` builds:
+    the counts equal, one ``box.fetch`` span per planned box, one
+    ``box.compute`` span per box a lane counted, ``kernel.launch`` events
+    summing to ``device_invocations``; the trace exported to ``tmp``."""
+    from repro_torch import MetricsRegistry, Tracer
+    plain = make()
+    want, wall, _ = drive(torch, ops, plain.count)
+    tracer, reg = Tracer(capacity=TRACE_CAPACITY), MetricsRegistry()
+    eng = make(tracer=tracer, metrics=reg)
+    got, traced_wall, launches = drive(torch, ops, eng.count)
+    assert got == want, (label, got, want)
+    assert tracer.dropped == 0, tracer.dropped
+    spans = span_seconds(tracer)
+    events = [e for e in tracer.snapshot() if e["ph"] == "i"]
+    kernel_events = sum(e["args"]["invocations"] for e in events
+                        if e["name"] == "kernel.launch")
+    stats = eng.stats
+    n_boxes = stats.n_boxes
+    assert spans["box.fetch"][0] == n_boxes, (spans, n_boxes)
+    assert spans["box.compute"][0] == sum(lanes_of(stats).values()), \
+        (spans, lanes_of(stats))
+    assert kernel_events == stats.device_invocations, (
+        kernel_events, stats.device_invocations)
+    path = tracer.export_chrome(str(tmp / f"{label}.trace.json"))
+    return {"count": got, "boxes": n_boxes, "wall_s": wall,
+            "traced_wall_s": traced_wall,
+            "stage_s": {k: spans.get(k, [0, 0.0])[1]
+                        for k in ("box.fetch", "box.build", "box.compute")},
+            "spans": {k: v[0] for k, v in spans.items()},
+            "kernel_launch_events": kernel_events,
+            "device_invocations": stats.device_invocations,
+            "cache_events": sum(1 for e in events
+                                if e["name"].startswith("cache.")),
+            "trace_bytes": Path(path).stat().st_size, "launches": launches,
+            "metrics_kernel_invocations": sum(
+                reg.series("kernel.invocations").values())}
+
+
+def phase_api(torch, np, ops, shared, recorders) -> dict:
+    """The paper's public API on the card: ``count_triangles`` methods
+    vectorized [intersect] on the rmat graph in both orientations, dense
+    [triangle_dense] on the clustered graph, boxed_vec and auto on the
+    listing graph, each equal to its phase's count; MGT [intersect] on the
+    rmat graph beside the out-of-core store count; the Prop. 4 instance on
+    the host at test size and on the card; the three measured crossovers
+    [triangle_dense, intersect, lftj_fused]; traced TriangleEngine and
+    store-backed QueryEngine runs."""
+    import os
+    import tempfile
+    from repro_torch import (QueryEngine, adversarial_graph, count_triangles,
+                             mgt_triangle_count, patterns,
+                             write_edge_store_csr)
+    from repro_torch.convert import engine_from_state
+    from repro_torch.core import engine as core_engine
+    from repro_torch.core.iomodel import BlockDevice
+    from repro_torch.core.lftj_torch import orient_edges
+    rmat, clustered, listing = (shared["rmat"], shared["clustered"],
+                                shared["listing"])
+    query, ooc = shared["query"], shared["outofcore"]
+    for rec in recorders:
+        rec.paused = True
+    runs, out = [], {"phase": "api"}
+    try:
+        # vectorized: one intersect launch over every oriented edge
+        vec = {}
+        for orientation in ("minmax", "degree"):
+            count, wall, launches = drive(torch, ops, lambda: count_triangles(
+                rmat["src"], rmat["dst"], method="vectorized",
+                orientation=orientation))
+            runs.append(launches)
+            assert count == rmat["count"], (orientation, count)
+            assert launches["intersect"] == 1, launches
+            vec[orientation] = {"count": count, "wall_s": wall}
+        dev = torch.device("cuda")
+        a, b = csr_edges(np, *rmat["csr"])
+        off = torch.from_numpy(rmat["csr"][0]).to(dev)
+        vals = torch.from_numpy(rmat["csr"][1]).to(dev)
+        eu, ev = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+        from repro_torch.kernels.intersect import ops as intersect_ops
+        vec["minmax"]["launch_ms"] = cuda_ms(
+            lambda: intersect_ops.intersect_count_csr(off, vals, eu, off,
+                                                      vals, ev), 5)
+        vec["edges"] = len(a)
+        del off, vals, eu, ev
+        out["vectorized"] = vec
+        # LFTJ against MGT: the same graph, budget and block size
+        mgt_dev = BlockDevice(block_words=MGT_BLOCK_WORDS,
+                              cache_blocks=RMAT_MEM_WORDS // MGT_BLOCK_WORDS)
+        (count, info), wall, launches = drive(
+            torch, ops, lambda: mgt_triangle_count(
+                rmat["src"], rmat["dst"], RMAT_MEM_WORDS, device=mgt_dev))
+        runs.append(launches)
+        assert count == rmat["count"], (count, rmat["count"])
+        # one launch per chunk with pivots that have neighbors
+        assert 0 < launches["intersect"] <= info["n_chunks"], (launches,
+                                                               info)
+        lftj_reads = ooc["io"]["block_reads"]
+        out["mgt"] = {"count": count, "mem_words": RMAT_MEM_WORDS,
+                      "block_words": MGT_BLOCK_WORDS, **info,
+                      "block_reads": mgt_dev.stats.block_reads,
+                      "word_reads": mgt_dev.stats.word_reads, "wall_s": wall,
+                      "lftj_store_count_s": ooc["count_s"],
+                      "lftj_in_memory_count_s": rmat["count_s"],
+                      "lftj_block_reads": lftj_reads,
+                      "lftj_word_reads": ooc["io"]["word_reads"],
+                      "wall_ratio_mgt_over_lftj_store":
+                          wall / ooc["count_s"],
+                      "wall_ratio_mgt_over_lftj_in_memory":
+                          wall / rmat["count_s"],
+                      "block_read_ratio_mgt_over_lftj":
+                          mgt_dev.stats.block_reads / lftj_reads}
+        # dense: one triangle_dense call on the clustered graph's adjacency
+        st = clustered["state"]
+        c_src, c_dst = csr_edges(np, st["indptr"], st["indices"])
+        count, wall, launches = drive(torch, ops, lambda: count_triangles(
+            c_src, c_dst, method="dense"))
+        runs.append(launches)
+        assert count == clustered["oracle"] and count > 2 ** 31, count
+        assert launches["triangle_dense"] == 1, launches
+        from repro_torch.kernels.triangle_dense import ops as dense_ops
+        ca, cb = orient_edges(c_src, c_dst)
+        n = int(max(ca.max(), cb.max())) + 1
+        adj = torch.zeros((n, n), dtype=torch.uint8, device=dev)
+        adj[torch.from_numpy(ca).to(dev), torch.from_numpy(cb).to(dev)] = 1
+        out["dense"] = {"count": count, "vertices": n, "wall_s": wall,
+                        "adjacency_bytes": n * n,
+                        "call_ms": cuda_ms(lambda: dense_ops.triangle_count(
+                            adj, adj, adj), 5)}
+        del adj
+        # boxed_vec and auto with a budget on the listing graph
+        st = listing["state"]
+        l_src, l_dst = csr_edges(np, st["indptr"], st["indices"])
+        out["budgeted"] = {}
+        for method in ("boxed_vec", "auto"):
+            count, wall, launches = drive(torch, ops, lambda: count_triangles(
+                l_src, l_dst, method=method, mem_words=listing["mem_words"]))
+            runs.append(launches)
+            assert count == listing["oracle"], (method, count)
+            out["budgeted"][method] = {"count": count, "wall_s": wall,
+                                       "launches": launches}
+        # the Prop. 4 instance: host joins with block reads at test size
+        n_e, m, bsz = ADV_TEST
+        g_src, g_dst = adversarial_graph(n_e, m, bsz)
+        adv = {"test": {"n": n_e, "m": m, "b": bsz, "edges": len(g_src)}}
+        for method in ("faithful", "boxed"):
+            bdev = BlockDevice(block_words=bsz, cache_blocks=m // bsz)
+            t0 = time.perf_counter()
+            count = count_triangles(g_src, g_dst, method=method,
+                                    mem_words=m, device=bdev)
+            adv["test"][method] = {"count": count,
+                                   "block_reads": bdev.stats.block_reads,
+                                   "wall_s": time.perf_counter() - t0}
+        assert adv["test"]["faithful"]["count"] \
+            == adv["test"]["boxed"]["count"], adv
+        assert adv["test"]["faithful"]["block_reads"] >= len(g_src), adv
+        # ... and on the card at a card size
+        n_e, m, bsz = ADV_CARD
+        g_src, g_dst = adversarial_graph(n_e, m, bsz)
+        adv["card"] = {"n": n_e, "m": m, "b": bsz, "edges": len(g_src),
+                       "budget": ADV_CARD_BUDGET}
+        for method in ("vectorized", "boxed_vec", "mgt"):
+            count, wall, launches = drive(torch, ops, lambda: count_triangles(
+                g_src, g_dst, method=method, mem_words=ADV_CARD_BUDGET))
+            runs.append(launches)
+            adv["card"][method] = {"count": count, "wall_s": wall,
+                                   "launches": launches}
+        counts = {adv["card"][k]["count"]
+                  for k in ("vectorized", "boxed_vec", "mgt")}
+        assert len(counts) == 1, adv["card"]
+        out["adversarial"] = adv
+        with tempfile.TemporaryDirectory(prefix="api-") as tmp:
+            tmp = Path(tmp)
+            # the measured crossovers, kept in the port's cache under tmp
+            os.environ["REPRO_TORCH_CACHE_DIR"] = str(tmp / "cache")
+            cal = {"static": {"dense": 0.05, "intersect": 0.05 / 4,
+                              "fused": None}}
+            for nv in CALIBRATION_NVS:
+                def measure():
+                    return {name: fn(nv=nv) for name, fn in (
+                        ("dense", core_engine.measure_dense_crossover),
+                        ("intersect",
+                         core_engine.measure_intersect_crossover),
+                        ("fused", core_engine.measure_fused_crossover))}
+                got, wall, launches = drive(torch, ops, measure)
+                runs.append(launches)
+                for name, kernel in (("dense", "triangle_dense"),
+                                     ("intersect", "intersect"),
+                                     ("fused", "lftj_fused")):
+                    assert launches[kernel] > 0, (name, launches)
+                cal[f"nv{nv}"] = dict(got, wall_s=wall, launches=launches)
+            cal["cache"] = json.loads(
+                (tmp / "cache" / "crossover.json").read_text())
+            eng = engine_from_state(
+                listing["state"], mem_words=listing["mem_words"],
+                dense_threshold="measured", intersect_threshold="measured",
+                fused_threshold="measured")
+            count, wall, launches = drive(torch, ops, eng.count)
+            runs.append(launches)
+            assert count == listing["oracle"], count
+            cal["listing_measured"] = {
+                "count": count, "count_s": wall,
+                "count_s_static": listing["count_s"],
+                "thresholds": [eng.dense_threshold, eng.intersect_threshold,
+                               eng.fused_threshold],
+                "lanes": lane_stats(eng.stats)}
+            del os.environ["REPRO_TORCH_CACHE_DIR"]
+            out["calibration"] = cal
+            # traced runs: TriangleEngine on the listing graph, the diamond
+            # from a store on the fused lane
+            trace = {}
+            trace["engine"] = traced_run(
+                torch, ops, lambda **kw: engine_from_state(
+                    listing["state"], mem_words=listing["mem_words"], **kw),
+                lane_stats, tmp, "engine")
+            runs.append(trace["engine"].pop("launches"))
+            assert trace["engine"]["count"] == listing["oracle"]
+            write_edge_store_csr(tmp / "query.csr", *query["csr"],
+                                 orientation="minmax")
+            trace["diamond"] = traced_run(
+                torch, ops, lambda **kw: QueryEngine(
+                    patterns.diamond(), store=tmp / "query.csr",
+                    mem_words=TRACE_QUERY_MEM_WORDS, backend="fused",
+                    cache_words=TRACE_QUERY_CACHE_WORDS, **kw),
+                query_lane_counts, tmp, "diamond")
+            runs.append(trace["diamond"].pop("launches"))
+            assert trace["diamond"]["count"] \
+                == query["oracles"]["diamond"], trace["diamond"]
+            assert trace["diamond"]["cache_events"] > 0, trace["diamond"]
+            trace["diamond"]["mem_words"] = TRACE_QUERY_MEM_WORDS
+            trace["diamond"]["outofcore_phase_s"] = ooc["diamond_s"]
+            out["trace"] = trace
+    finally:
+        for rec in recorders:
+            rec.paused = False
+        os.environ.pop("REPRO_TORCH_CACHE_DIR", None)
+    out["launches"] = {k: sum(r[k] for r in runs) for k in ops}
+    return out
+
+
+def query_lane_counts(stats) -> dict:
+    """Boxes a QueryEngine lane counted: each box join is one of these."""
+    return {"fused": stats.n_fused_boxes, "kernel": stats.n_kernel_boxes,
+            "host": stats.n_host_boxes}
 
 
 def bag_inputs(torch, gen, v: int, ll: int):
@@ -2184,10 +2497,11 @@ def bag_kernel_rows(timing: dict, launches: dict) -> list:
 
 
 PHASES = ("rmat", "clustered", "listing", "skew", "fused", "query",
-          "outofcore", "query_listing", "embedding_bag")
+          "outofcore", "query_listing", "api", "embedding_bag")
 # the phases whose graphs and results a phase reuses
 NEEDS = {"skew": ("rmat",), "fused": ("clustered", "listing"),
-         "query": ("rmat",), "outofcore": ("rmat", "listing", "query")}
+         "query": ("rmat",), "outofcore": ("rmat", "listing", "query"),
+         "api": ("rmat", "clustered", "listing", "query", "outofcore")}
 
 
 def with_needs(names) -> list:
@@ -2208,7 +2522,7 @@ def main() -> int:
     ap.add_argument("--quick", action="store_true",
                     help="device, build and kernel checks only")
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="main-path phases to run (default: all nine), "
+                    help="main-path phases to run (default: all ten), "
                          "with the phases they reuse (NEEDS)")
     ap.add_argument("--profile", action="store_true",
                     help="repeat each main-path count under "
@@ -2318,6 +2632,8 @@ def main() -> int:
             "query_listing": lambda: phase_query_listing(
                 torch, np, ops, shared, QUERY_LIST_SCALE,
                 QUERY_LIST_MEM_WORDS),
+            "api": lambda: phase_api(torch, np, ops, shared,
+                                     [rec_i, rec_r, rec_d, rec_f, rec_l]),
             "embedding_bag": lambda: phase_embedding_bag(
                 torch, np, ops, shared, bag_ops),
         }

@@ -25,7 +25,11 @@ itself with bounded memory (``data.edgestore.EdgeStoreWriter``).
 The lanes run on ``torch_device``, which is the CUDA card unless the
 caller asks for the CPU: there the dense, intersect and fused lanes launch
 the hand-written CUDA kernels of ``kernels/``. Counts are int64 end to
-end.
+end. The three density thresholds take ``'measured'``: a calibration
+timed on the engine's device and kept per device in the port's own
+crossover cache (``$REPRO_TORCH_CACHE_DIR/crossover.json``, default
+``~/.cache/repro_torch``). ``tracer=`` / ``metrics=`` take an
+``obs.trace.Tracer`` and an ``obs.metrics.MetricsRegistry``.
 
 Usage::
 
@@ -41,6 +45,10 @@ Usage::
 
 from __future__ import annotations
 
+import json
+import os
+import tempfile
+import time
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
@@ -51,10 +59,13 @@ from repro_torch.data.edgestore import (EdgeStore, EdgeStoreWriter,
                                         InMemoryEdgeSource)
 from repro_torch.data.pipeline import Prefetcher, edge_batches
 from repro_torch.kernels.intersect import ops as intersect_ops
+from repro_torch.kernels.lftj_fused import ops as fused_ops
+from repro_torch.kernels.triangle_dense import ops as dense_ops
 
 from .executor import SliceCache, StreamingExecutor
 from .iomodel import BlockDevice
-from .lftj_torch import (_count_rows_chunked, csr_from_edges, orient_edges,
+from .lftj_torch import (_count_chunked, _count_rows_chunked,
+                         csr_from_edges, orient_edges, pad_neighbors,
                          pad_neighbors_binned)
 
 BACKENDS = ("auto", "binary", "dense", "intersect", "host", "fused")
@@ -170,6 +181,276 @@ def resolve_torch_device(torch_device) -> torch.device:
     return dev
 
 
+# ---------------------------------------------------------------------------
+# measured density crossovers (binary lane vs the dense, intersect and fused
+# lanes), persisted per torch device under ~/.cache/repro_torch
+# ---------------------------------------------------------------------------
+
+_crossover_memo: dict = {}
+
+
+def _crossover_cache_file() -> str:
+    base = os.environ.get("REPRO_TORCH_CACHE_DIR") \
+        or os.path.join(os.path.expanduser("~"), ".cache", "repro_torch")
+    return os.path.join(base, "crossover.json")
+
+
+class _crossover_file_lock:
+    """Inter-process lock for the crossover cache's read-modify-write.
+
+    The JSON store itself is written atomically (tmp + ``os.replace``), but
+    two processes measuring at once still race load → merge → store, and
+    the slower one would drop the faster one's entries (lost update). An
+    ``flock`` on a sibling ``.lock`` file serializes the whole
+    read-modify-write; without ``fcntl`` (or with an unwritable cache
+    directory) it degrades to no lock rather than failing the run."""
+
+    def __init__(self):
+        self._f = None
+
+    def __enter__(self):
+        try:
+            import fcntl
+            path = _crossover_cache_file() + ".lock"
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            self._f = open(path, "a+")
+            fcntl.flock(self._f.fileno(), fcntl.LOCK_EX)
+        except (ImportError, OSError):
+            if self._f is not None:
+                self._f.close()
+                self._f = None
+        return self
+
+    def __exit__(self, *exc):
+        if self._f is not None:
+            try:
+                import fcntl
+                fcntl.flock(self._f.fileno(), fcntl.LOCK_UN)
+            except (ImportError, OSError):
+                pass
+            self._f.close()
+            self._f = None
+        return False
+
+
+def _crossover_load() -> dict:
+    try:
+        with open(_crossover_cache_file()) as f:
+            data = json.load(f)
+        return data if isinstance(data, dict) else {}
+    except (OSError, ValueError):
+        return {}
+
+
+def _crossover_store(data: dict) -> None:
+    path = _crossover_cache_file()
+    try:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path), suffix=".tmp")
+        with os.fdopen(fd, "w") as f:
+            json.dump(data, f, indent=2, sort_keys=True)
+        os.replace(tmp, path)
+    except OSError:
+        pass  # a read-only home must never break execution
+
+
+def _calibration_device(torch_device=None) -> torch.device:
+    """The device a calibration runs on: ``torch_device`` resolved, or,
+    when None, the card if this process has one and the CPU otherwise."""
+    if torch_device is None:
+        torch_device = "cuda" if torch.cuda.is_available() else "cpu"
+    return resolve_torch_device(torch_device)
+
+
+def _active_prefix(torch_device=None) -> str:
+    """Calibration namespace of the device: ``cuda:<card name>`` or
+    ``cpu:cpu``. Every crossover entry is keyed under it, so values timed
+    on the CPU never steer the card and values of one card model never
+    steer another."""
+    dev = _calibration_device(torch_device)
+    if dev.type == "cuda":
+        return f"cuda:{torch.cuda.get_device_name(dev)}"
+    return "cpu:cpu"
+
+
+_remeasured_prefixes: set = set()
+
+
+def _maybe_clear_remeasure(torch_device=None) -> None:
+    """``REPRO_TORCH_CROSSOVER_REMEASURE=1``: drop the active device's
+    cached entries once per process (other devices' calibrations in the
+    shared file survive), then fall through to the normal measure and
+    store, so a forced remeasure happens once, not on every call."""
+    prefix = _active_prefix(torch_device) + ":"
+    if prefix in _remeasured_prefixes:
+        return
+    _remeasured_prefixes.add(prefix)
+    if os.environ.get("REPRO_TORCH_CROSSOVER_REMEASURE", "") in ("", "0"):
+        return
+    with _crossover_file_lock():
+        data = _crossover_load()
+        kept = {k: v for k, v in data.items() if not k.startswith(prefix)}
+        if len(kept) != len(data):
+            _crossover_store(kept)
+    for k in list(_crossover_memo):
+        if k.startswith(prefix):
+            del _crossover_memo[k]
+
+
+def _cached_crossover(suffix: str, nv: int, measure,
+                      torch_device=None) -> float:
+    """Process-memoized, file-persisted crossover of the active device:
+    ``measure()`` runs only when neither the memo nor the JSON cache has a
+    valid entry for ``<device prefix>:nv<nv><suffix>``."""
+    _maybe_clear_remeasure(torch_device)
+    key = f"{_active_prefix(torch_device)}:nv{nv}{suffix}"
+    if key in _crossover_memo:
+        return _crossover_memo[key]
+    cached = _crossover_load().get(key)
+    if isinstance(cached, (int, float)) and 0.0 < cached <= 1.0:
+        _crossover_memo[key] = float(cached)
+        return float(cached)
+    value = measure()
+    _crossover_memo[key] = value
+    # merge under the lock: reload inside it so a concurrent process's
+    # freshly stored keys survive this store
+    with _crossover_file_lock():
+        data = _crossover_load()
+        data[key] = value
+        _crossover_store(data)
+    return value
+
+
+def _time(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def _calibration_graph(rng, nv: int, d: float, dev: torch.device):
+    """One calibration box: a random upper-triangular 0/1 graph of density
+    ``d`` on ``nv`` vertices, with its CSR and the binary lane's padded
+    matrix and edge lists on ``dev``; None when it has no edge."""
+    adj = np.triu(rng.random((nv, nv)) < d, k=1)
+    src, dst = np.nonzero(adj)
+    if len(src) == 0:
+        return None
+    indptr, indices = csr_from_edges(src, dst, n_nodes=nv)
+    npad = torch.from_numpy(pad_neighbors(indptr, indices)).to(dev)
+    eu = torch.from_numpy(src.astype(np.int64)).to(dev)
+    ev = torch.from_numpy(dst.astype(np.int64)).to(dev)
+    return adj, indptr, indices, npad, eu, ev
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _lowest_winning_density(nv: int, repeats: int, seed: int,
+                            dev: torch.device, densities, make_lane) -> float:
+    """The lowest density at which ``make_lane(graph)`` (a callable that
+    runs the lane once) beats the binary lane, min of ``repeats`` timings
+    each, with the device synchronized around every run; 1.0 when it never
+    wins on the grid."""
+    rng = np.random.default_rng(seed)
+    for d in densities:
+        g = _calibration_graph(rng, nv, d, dev)
+        if g is None:
+            continue
+        _, _, _, npad, eu, ev = g
+
+        def t_binary():
+            _count_chunked(npad, eu, ev, chunk=2048)
+            _sync(dev)
+
+        lane = make_lane(g)
+
+        def t_lane():
+            lane()
+            _sync(dev)
+
+        t_binary(); t_lane()    # builds and first launches stay untimed
+        tb = min(_time(t_binary) for _ in range(repeats))
+        tl = min(_time(t_lane) for _ in range(repeats))
+        if tl < tb:
+            return d
+    return 1.0
+
+
+def measure_dense_crossover(nv: int = 256, repeats: int = 3,
+                            seed: int = 0, torch_device="cuda") -> float:
+    """Lowest box density at which the dense lane beats the binary lane,
+    measured once per device: on the card the ``triangle_dense`` kernel,
+    on the CPU its plain version, against the plain ``_count_chunked``.
+
+    The value is kept in a JSON cache (``$REPRO_TORCH_CACHE_DIR/
+    crossover.json``, default ``~/.cache/repro_torch``) keyed by the
+    device (``cuda:<card name>`` or ``cpu:cpu``), so processes on the same
+    hardware calibrate once. ``REPRO_TORCH_CROSSOVER_REMEASURE=1`` drops
+    the active device's entries and measures afresh; other devices'
+    entries are kept. 1.0 (never dense) if dense never wins on the grid.
+    """
+    dev = resolve_torch_device(torch_device)
+
+    def dense_lane(g):
+        a = torch.from_numpy(g[0].astype(np.uint8)).to(dev)
+        return lambda: dense_ops.triangle_count(a, a, a)
+
+    return _cached_crossover(
+        "", nv, lambda: _lowest_winning_density(
+            nv, repeats, seed, dev, (0.01, 0.02, 0.05, 0.10, 0.20, 0.40),
+            dense_lane), dev)
+
+
+def measure_intersect_crossover(nv: int = 256, repeats: int = 3,
+                                seed: int = 0, torch_device="cuda") -> float:
+    """Lowest box density at which the intersect kernel
+    (``intersect_count_csr``) beats the binary lane: the measured lower
+    edge of the mid-density band (static default: dense crossover / 4).
+    Kept beside the dense crossover (key suffix ``:intersect``). Off the
+    card the band never runs, so the value is 1.0 without timing."""
+    dev = resolve_torch_device(torch_device)
+
+    def intersect_lane(g):
+        _, indptr, indices, _, eu, ev = g
+        off = torch.from_numpy(indptr).to(dev)
+        vals = torch.from_numpy(indices).to(dev)
+        return lambda: intersect_ops.intersect_count_csr(off, vals, eu, off,
+                                                         vals, ev)
+
+    return _cached_crossover(
+        ":intersect", nv,
+        lambda: 1.0 if dev.type != "cuda" else _lowest_winning_density(
+            nv, repeats, seed, dev, (0.005, 0.01, 0.02, 0.05, 0.10, 0.20),
+            intersect_lane), dev)
+
+
+def measure_fused_crossover(nv: int = 256, repeats: int = 3,
+                            seed: int = 0, torch_device="cuda") -> float:
+    """Lowest box density at which the fused count kernel (``fused_count``
+    over a whole triangle box) beats the binary lane: the calibration of
+    ``fused_threshold``. Kept beside the others (key suffix ``:fused``).
+    Off the card the value is 1.0 without timing."""
+    dev = resolve_torch_device(torch_device)
+
+    def fused_lane(g):
+        _, indptr, indices, _, _, _ = g
+        deg = np.diff(indptr)
+        keys = np.flatnonzero(deg > 0).astype(np.int64)
+        off = np.concatenate([[0], np.cumsum(deg[keys])]).astype(np.int64)
+        csr = tuple(torch.from_numpy(x).to(dev)
+                    for x in (keys, off, np.asarray(indices, np.int32)))
+        return lambda: fused_ops.fused_count(((0, 1), (0, 2), (1, 2)),
+                                             [csr, csr, csr], 3)
+
+    return _cached_crossover(
+        ":fused", nv,
+        lambda: 1.0 if dev.type != "cuda" else _lowest_winning_density(
+            nv, repeats, seed, dev, (0.005, 0.01, 0.02, 0.05, 0.10, 0.20),
+            fused_lane), dev)
+
+
 class TriangleEngine:
     """Boxed streaming triangle counting + listing on a torch device.
 
@@ -199,14 +480,17 @@ class TriangleEngine:
         ``kernels/lftj_fused`` invocation, falling back per box to
         intersect (card) / binary outside the kernel's envelope).
     dense_threshold : box edge-density above which 'auto' picks the dense
-        lane.
+        lane; the string 'measured' uses the persisted calibration of the
+        engine's device (``measure_dense_crossover``).
     intersect_threshold : lower edge of the mid-density band 'auto' routes
         to the intersect kernel (only on the card). Default
-        ``dense_threshold / 4``.
+        ``dense_threshold / 4``; 'measured' uses
+        ``measure_intersect_crossover`` (same cache).
     fused_threshold : density above which 'auto' prefers the fused lane
         over the intersect band (only on the card). Default ``None`` keeps
         density dispatch off the fused lane (heavy/light hub boxes still
-        route to it on the card).
+        route to it on the card); 'measured' uses
+        ``measure_fused_crossover`` (same cache).
     degree_bins : bin vertices by degree (power-of-4 widths) so the
         binary lane's padding is per bin instead of the box's widest row.
         In memory the lane's boxes go through the whole graph's bins; from
@@ -240,10 +524,16 @@ class TriangleEngine:
         (``use_kernels``) and 'auto' routes the mid-density band to the
         intersect kernel and hub boxes to the fused kernel; on the CPU the
         kernel wrappers run their plain torch versions.
+    tracer : optional ``obs.trace.Tracer``: ``engine.count`` /
+        ``engine.list`` spans, ``box.fetch`` / ``box.build`` /
+        ``box.compute`` spans per box, ``kernel.launch`` and ``cache.*``
+        events. Read-only: counts and ledgers are unchanged.
+    metrics : optional ``obs.metrics.MetricsRegistry``: ``kernel.*`` and
+        ``box.*`` series and the run's ``EngineStats`` as ``engine.*``
+        gauges.
 
-    Options of the reference engine that are not ported yet raise
-    ``NotImplementedError``: sharding (``shard=True``),
-    ``tracer``/``metrics`` and the ``'measured'`` thresholds.
+    The one option of the reference engine not ported yet, sharding
+    (``shard=True``), raises ``NotImplementedError``.
     """
 
     def __init__(self, src: Optional[np.ndarray] = None,
@@ -275,22 +565,18 @@ class TriangleEngine:
         if skew not in ("uniform", "heavy_light"):
             raise ValueError(
                 f"skew {skew!r} not in ('uniform', 'heavy_light')")
-        for given, feature in (
-                (shard is True, "sharded execution (shard=True)"),
-                (tracer is not None, "tracer="),
-                (metrics is not None, "metrics="),
-                (dense_threshold == "measured", "dense_threshold='measured'"),
-                (intersect_threshold == "measured",
-                 "intersect_threshold='measured'"),
-                (fused_threshold == "measured",
-                 "fused_threshold='measured'")):
-            if given:
-                raise _not_ported(feature)
+        if shard is True:
+            raise _not_ported("sharded execution (shard=True)")
         # one torch device per engine: the reference's shard="auto" rule
         # (shard across more than one device) never fires
         if shard not in ("auto", False):
             raise ValueError(f"shard {shard!r} not in ('auto', False, True)")
         self.torch_device = resolve_torch_device(torch_device)
+        # observability: span/event recorder (obs.trace.Tracer) and the
+        # metrics registry; None by default — the traced-off path is one
+        # attribute check per site
+        self.tracer = tracer
+        self.metrics = metrics
         # the port's counterpart of the reference's use_pallas_kernels:
         # kernels run on the card, their plain versions on the CPU
         self.use_kernels = self.torch_device.type == "cuda"
@@ -304,13 +590,24 @@ class TriangleEngine:
         self.workers = max(1, int(workers))
         self.inflight_boxes = max(1, int(inflight_boxes)) \
             if inflight_boxes is not None else max(2, 2 * self.workers)
+        if dense_threshold == "measured":
+            dense_threshold = measure_dense_crossover(
+                torch_device=self.torch_device)
         self.dense_threshold = float(dense_threshold)
         # lower edge of the mid-density band 'auto' routes to the intersect
-        # kernel (card only): the static crossover/4 by default
+        # kernel (card only): the static crossover/4 by default, 'measured'
+        # the persisted calibration
+        if intersect_threshold == "measured":
+            intersect_threshold = measure_intersect_crossover(
+                torch_device=self.torch_device)
         self.intersect_threshold = self.dense_threshold / 4.0 \
             if intersect_threshold is None else float(intersect_threshold)
         # density gate of the fused lane (card only): None keeps density
-        # dispatch off it; hub boxes still take it
+        # dispatch off it (hub boxes still take it), 'measured' uses the
+        # :fused calibration
+        if fused_threshold == "measured":
+            fused_threshold = measure_fused_crossover(
+                torch_device=self.torch_device)
         self.fused_threshold = None if fused_threshold is None \
             else float(fused_threshold)
         if (src is not None or dst is not None) + (csr is not None) \
@@ -358,7 +655,8 @@ class TriangleEngine:
         self.cache_words = int(cache_words)
         self._slice_cache: Optional[SliceCache] = None
         if self.cache_words > 0:
-            self._slice_cache = SliceCache(self.source, self.cache_words)
+            self._slice_cache = SliceCache(self.source, self.cache_words,
+                                           tracer=tracer)
             self.source = self._slice_cache
         self._bins = None
         # spill runs of the external sort when ``ingest`` built the store
@@ -540,7 +838,9 @@ class TriangleEngine:
                                  degree_bins=self.degree_bins
                                  and self.indices is None,
                                  inflight_boxes=self.inflight_boxes,
-                                 inflight_words=inflight_words)
+                                 inflight_words=inflight_words,
+                                 tracer=self.tracer,
+                                 metrics=self.metrics)
 
     def _reset_stats(self, n_boxes: int) -> None:
         self.stats = EngineStats(dense_threshold=self.dense_threshold,
@@ -580,6 +880,17 @@ class TriangleEngine:
     # -- counting and listing --------------------------------------------------
 
     def count(self) -> int:
+        if self.tracer is not None:
+            with self.tracer.span("engine.count", nv=self.nv,
+                                  workers=self.workers):
+                total = self._count_impl()
+        else:
+            total = self._count_impl()
+        if self.metrics is not None:
+            self.metrics.publish_stats(self.stats, "engine", mode="count")
+        return total
+
+    def _count_impl(self) -> int:
         boxes = self.plan()
         self._reset_stats(len(boxes))
         mark = self._io_mark()
@@ -670,6 +981,17 @@ class TriangleEngine:
         overflow is detected and resolved by rescanning with the capacity
         doubled until everything fits. Listing never bins.
         """
+        if self.tracer is not None:
+            with self.tracer.span("engine.list", nv=self.nv,
+                                  workers=self.workers):
+                tris = self._list_impl(capacity)
+        else:
+            tris = self._list_impl(capacity)
+        if self.metrics is not None:
+            self.metrics.publish_stats(self.stats, "engine", mode="list")
+        return tris
+
+    def _list_impl(self, capacity: Optional[int] = None) -> np.ndarray:
         boxes = self.plan()
         self._reset_stats(len(boxes))
         mark = self._io_mark()

@@ -65,6 +65,8 @@ from repro_torch.kernels import ledger as kernel_ledger
 from repro_torch.kernels.intersect import ops as intersect_ops
 from repro_torch.kernels.lftj_fused import ops as fused_ops
 from repro_torch.kernels.triangle_dense import ops as dense_ops
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs.trace import wrap_stage
 from repro_torch.parallel.sharding import box_queue_order
 
 from .lftj_torch import (SENTINEL, _count_chunked, _count_rows_chunked,
@@ -223,11 +225,16 @@ class SliceCache:
     consistent when the scheduler's workers share one cache; the scheduler
     also serializes slice fetches in plan order whenever a cache is
     attached, so the hit/miss sequence matches the serial run's.
+    ``tracer`` (an ``obs.trace.Tracer``) receives ``cache.hit`` /
+    ``cache.miss`` / ``cache.evict`` instant events.
     """
 
     def __init__(self, source, budget_words: int,
-                 block_rows: Optional[int] = None):
+                 block_rows: Optional[int] = None,
+                 tracer=None):
         self.source = source
+        # None (default) keeps the hot path at one attribute check
+        self.tracer = tracer
         self._lock = threading.RLock()
         self.budget_words = max(1, int(budget_words))
         if block_rows is None:
@@ -257,6 +264,22 @@ class SliceCache:
         self.passthrough_words += len(vals)
         return ip, vals
 
+    def _hit(self, bid: int, ent) -> None:
+        """Bookkeeping of one block served from the cache."""
+        self.hits += 1
+        self.hit_words += len(ent[1])
+        tr = self.tracer
+        if tr is not None:
+            tr.event("cache.hit", block=bid, words=len(ent[1]))
+
+    def _miss(self, n_blocks: int, n_words: int) -> None:
+        """Bookkeeping of a run of missing blocks read from the source."""
+        self.misses += n_blocks
+        self.miss_words += n_words
+        tr = self.tracer
+        if tr is not None:
+            tr.event("cache.miss", blocks=n_blocks, words=n_words)
+
     def _fetch_run(self, b0: int, b1: int) -> list:
         """One sequential source read covering missing blocks b0..b1, split
         into per-block cache entries, returned in block order (the caller
@@ -264,8 +287,7 @@ class SliceCache:
         this very request never forces a re-read)."""
         br = self.block_rows
         ip, vals = self.source.read_rows(b0 * br, b1 * br + br - 1)
-        self.misses += b1 - b0 + 1
-        self.miss_words += len(vals)
+        self._miss(b1 - b0 + 1, len(vals))
         entries = []
         for bid in range(b0, b1 + 1):
             r0 = (bid - b0) * br
@@ -302,8 +324,7 @@ class SliceCache:
             ent = self._blocks.get(bid)
             if ent is not None:
                 self._blocks.move_to_end(bid)
-                self.hits += 1
-                self.hit_words += len(ent[1])
+                self._hit(bid, ent)
                 if dev is not None:
                     dev.serve_from_cache(len(ent[1]))
                 parts.append(ent)
@@ -333,9 +354,13 @@ class SliceCache:
     def _insert(self, bid: int, ent) -> None:
         self._blocks[bid] = ent
         self._words += self._entry_words(ent)
+        tr = self.tracer
         while self._words > self.budget_words and len(self._blocks) > 1:
-            _, old = self._blocks.popitem(last=False)
+            old_bid, old = self._blocks.popitem(last=False)
             self._words -= self._entry_words(old)
+            if tr is not None:
+                tr.event("cache.evict", block=old_bid,
+                         words=self._entry_words(old))
 
     def clear(self) -> None:
         with self._lock:
@@ -353,13 +378,19 @@ def run_box_serial(items: List, *,
                    build: Callable[[object], object],
                    work: Callable[[object], object],
                    prefetch_depth: int = 2,
-                   cancel: Optional[threading.Event] = None) -> List:
+                   cancel: Optional[threading.Event] = None,
+                   tracer=None) -> List:
     """The ``workers=1`` oracle drain: one ``Prefetcher`` pipeline (fetch
     + build of the next item overlap the current item's ``work``), items
     strictly in list order, per-item results in list order (``None`` for
     skipped items). This is the serial counterpart of ``run_box_queue``;
     ``cancel`` aborts with ``BoxQueueCancelled`` exactly like the pooled
-    scheduler."""
+    scheduler. ``tracer`` wraps each stage in ``box.fetch``/``box.build``/
+    ``box.compute`` spans (``obs.trace``); tracing is read-only — stage
+    order, prefetch depth and every ledger are untouched."""
+    fetch = wrap_stage(tracer, "box.fetch", fetch)
+    build = wrap_stage(tracer, "box.build", build)
+    work = wrap_stage(tracer, "box.compute", work)
     results: List = [None] * len(items)
     pf = Prefetcher((build(fetch(it)[0]) for it in items),
                     depth=max(1, int(prefetch_depth)))
@@ -384,7 +415,8 @@ def run_box_queue(items: List, *, order: List[int],
                   workers: int,
                   inflight_items: int,
                   inflight_words: Optional[int] = None,
-                  cancel: Optional[threading.Event] = None):
+                  cancel: Optional[threading.Event] = None,
+                  tracer=None):
     """Drain a box work queue on a bounded worker pool.
 
     A pool of ``workers`` threads (clamped to the hardware parallelism and
@@ -414,7 +446,16 @@ def run_box_queue(items: List, *, order: List[int],
     (``None`` for skipped items) for deterministic reduction, plus the
     telemetry dict (wait/build/compute worker-seconds, in-flight peaks,
     wall time, pool size) the caller folds into its stats object.
+
+    ``tracer`` (an ``obs.trace.Tracer``) wraps the three stages in
+    ``box.fetch`` / ``box.build`` / ``box.compute`` spans, one per item per
+    stage, emitted from the worker thread running it. Tracing is
+    read-only: the turnstile, the admission window and every ledger behave
+    identically with it attached.
     """
+    fetch = wrap_stage(tracer, "box.fetch", fetch)
+    build = wrap_stage(tracer, "box.build", build)
+    work = wrap_stage(tracer, "box.compute", work)
     n = len(items)
     results: List = [None] * n
     max_boxes = max(1, int(inflight_items))
@@ -526,7 +567,8 @@ def run_box_queue(items: List, *, order: List[int],
 
 
 def merge_queue_telemetry(stats, tele: dict, lock: threading.Lock,
-                          inflight_boxes: int) -> None:
+                          inflight_boxes: int,
+                          metrics=None, lane: str = "all") -> None:
     """Fold one ``run_box_queue`` telemetry dict into a stats object that
     carries the scheduler fields (``EngineStats`` does).
 
@@ -534,6 +576,10 @@ def merge_queue_telemetry(stats, tele: dict, lock: threading.Lock,
     run can finish with ``wall == 0.0`` (perf_counter granularity) or a
     degenerate pool, in which case the ratio is undefined — it is
     reported as ``None``, never a garbage division.
+
+    ``metrics`` (an ``obs.metrics.MetricsRegistry``) also folds the
+    telemetry into the ``box.*{lane=...}`` series; the process-wide default
+    registry is used when none is passed.
     """
     busy = tele["build"] + tele["compute"]
     wall = tele["wall"]
@@ -550,6 +596,10 @@ def merge_queue_telemetry(stats, tele: dict, lock: threading.Lock,
                                        tele["hi_boxes"])
         stats.max_inflight_words = max(stats.max_inflight_words,
                                        tele["hi_words"])
+    reg = metrics if metrics is not None \
+        else obs_metrics.default_registry()
+    if reg is not None:
+        reg.note_queue(tele, lane=lane)
 
 
 class StreamingExecutor:
@@ -577,8 +627,14 @@ class StreamingExecutor:
                  workers: int = 1,
                  degree_bins: bool = False,
                  inflight_boxes: Optional[int] = None,
-                 inflight_words: Optional[int] = None):
+                 inflight_words: Optional[int] = None,
+                 tracer=None,
+                 metrics=None):
         self.source = source
+        # observability (both None by default: one attribute check per
+        # site): span/event recorder and the metrics registry
+        self.tracer = tracer
+        self.metrics = metrics
         self.pick_backend = pick_backend
         # a box-aware dispatcher takes the box as a fourth argument; plain
         # (n_edges, wx, wy) callables keep working
@@ -673,7 +729,8 @@ class StreamingExecutor:
         return self._compact(self._fetch(box, x_slab=x_slab))
 
     def _stream(self, boxes) -> Iterator[Optional[BoxSlice]]:
-        return Prefetcher((self._materialize(b) for b in boxes),
+        mat = wrap_stage(self.tracer, "box.fetch", self._materialize)
+        return Prefetcher((mat(b) for b in boxes),
                           depth=self.prefetch_depth)
 
     def _note(self, slc: BoxSlice) -> None:
@@ -933,17 +990,22 @@ class StreamingExecutor:
             return None
 
     def _count_slice(self, slc: BoxSlice) -> int:
-        with kernel_ledger.attach() as kl:
-            out = self._count_slice_dispatch(slc)
+        with kernel_ledger.attach(tracer=self.tracer) as kl:
+            out, op = self._count_slice_dispatch(slc)
         if self.stats is not None and kl.invocations:
             with self._stats_lock:
                 self.stats.device_invocations += kl.invocations
                 self.stats.device_transfer_bytes += kl.transfer_bytes
                 self.stats.max_box_device_invocations = max(
                     self.stats.max_box_device_invocations, kl.invocations)
+        if self.metrics is not None:
+            self.metrics.note_kernel(kl, op=op)
         return out
 
-    def _count_slice_dispatch(self, slc: BoxSlice) -> int:
+    def _count_slice_dispatch(self, slc: BoxSlice) -> Tuple[int, str]:
+        """Counts one slice; returns ``(count, lane)`` so the caller can
+        label the box's kernel launches (``kernel.*{op=..}``) with the lane
+        that actually ran, fallbacks included."""
         be = self._backend_for(slc)
         if be == "fused":
             out = self._count_fused(slc)
@@ -952,7 +1014,7 @@ class StreamingExecutor:
                     with self._stats_lock:
                         self.stats.n_fused_boxes += 1
                 self._note_padding(slc)
-                return out
+                return out, "fused"
             # box outside the fused kernel's envelope: fall back to the
             # staged kernel lane on the card, the binary lane elsewhere
             be = "intersect" if self.use_kernels else "binary"
@@ -963,7 +1025,7 @@ class StreamingExecutor:
                     with self._stats_lock:
                         self.stats.n_dense_boxes += 1
                 self._note_padding(slc)
-                return out
+                return out, "dense"
             # one-hot footprint over the cap: fall back. The box is above
             # the dense crossover, hence inside the intersect mid-band —
             # keep the kernel lane when running on the card
@@ -982,11 +1044,11 @@ class StreamingExecutor:
             out = self._count_host(slc)
         elif self.degree_bins:
             # the binned lane charges its own padded words
-            return self._count_binned_slice(slc)
+            return self._count_binned_slice(slc), "binned"
         else:
             out = self._count_binary(slc)
         self._note_padding(slc)
-        return out
+        return out, be
 
     def _list_slice(self, slc: BoxSlice,
                     capacity: Optional[int]) -> Optional[np.ndarray]:
@@ -1080,10 +1142,12 @@ class StreamingExecutor:
             work=work,
             workers=self.workers,
             inflight_items=self.inflight_boxes,
-            inflight_words=self.inflight_words)
+            inflight_words=self.inflight_words,
+            tracer=self.tracer)
         if self.stats is not None:
             merge_queue_telemetry(self.stats, tele, self._stats_lock,
-                                  inflight_boxes=self.inflight_boxes)
+                                  inflight_boxes=self.inflight_boxes,
+                                  metrics=self.metrics)
         return results
 
     # -- public entry points --------------------------------------------------
@@ -1103,13 +1167,14 @@ class StreamingExecutor:
             # deterministic reduction: fixed box order, not arrival order
             return sum(r for r in results if r is not None)
         total = 0
+        count = wrap_stage(self.tracer, "box.compute", self._count_slice)
         pf = self._stream(boxes)
         try:
             for slc in pf:
                 if slc is None or slc.n_edges == 0:
                     continue
                 self._note(slc)
-                total += self._count_slice(slc)
+                total += count(slc)
         finally:
             # a consumer-side error must not leave the producer thread
             # reading the source (and charging the device) in the background
@@ -1135,13 +1200,15 @@ class StreamingExecutor:
                 return np.zeros((0, 3), dtype=np.int64)
             return np.concatenate(parts)
         out: List[np.ndarray] = []
+        lst = wrap_stage(self.tracer, "box.compute",
+                         lambda slc: self._list_slice(slc, capacity))
         pf = self._stream(boxes)
         try:
             for slc in pf:
                 if slc is None or slc.n_edges == 0:
                     continue
                 self._note(slc)
-                tris = self._list_slice(slc, capacity)
+                tris = lst(slc)
                 if tris is not None:
                     out.append(tris)
         finally:

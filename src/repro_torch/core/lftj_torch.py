@@ -13,6 +13,9 @@ data-parallel primitive over fixed shapes:
 Every function that takes tensors runs on the device its inputs live on;
 counts are int64 throughout. ``triangle_count_dense`` is the dense
 formulation Σ A ⊙ (A Aᵀ) (``kernels/triangle_dense`` is its kernel).
+``triangle_count_vectorized`` and ``triangle_count_boxed_vectorized`` are
+the whole-graph entry points (numpy edges in, a count out) on
+``torch_device``.
 """
 
 from __future__ import annotations
@@ -269,6 +272,37 @@ def _list_chunked(npad: torch.Tensor, eu: torch.Tensor, ev: torch.Tensor,
     return total, buf[:cap]
 
 
+def triangle_count_vectorized(src: np.ndarray, dst: np.ndarray,
+                              orientation: str = "minmax",
+                              chunk: int = 2048,
+                              torch_device="cuda") -> int:
+    """End-to-end vectorized LFTJ-Δ triangle count of an undirected graph:
+    Σ over the oriented edges (u, v) of |N(u) ∩ N(v)|.
+
+    On the CPU it is the plain ``_count_chunked`` over the padded neighbor
+    matrix, as in the reference. On the card it is ONE
+    ``intersect_count_csr`` launch over the oriented CSR at every edge:
+    the reference's matrix is as wide as the widest row, which at RMAT
+    scale 20 under minmax cannot fit on a card. The total is int64 (the
+    reference's is int32 without x64).
+    """
+    from repro_torch.kernels.intersect import ops as intersect_ops
+
+    from .engine import resolve_torch_device
+    dev = resolve_torch_device(torch_device)
+    a, b = orient_edges(src, dst, orientation)
+    indptr, indices = csr_from_edges(a, b)
+    eu = torch.from_numpy(a.astype(np.int64)).to(dev)
+    ev = torch.from_numpy(b.astype(np.int64)).to(dev)
+    if dev.type == "cuda":
+        off = torch.from_numpy(indptr).to(dev)
+        vals = torch.from_numpy(indices).to(dev)
+        return int(intersect_ops.intersect_count_csr(off, vals, eu, off,
+                                                     vals, ev))
+    npad = torch.from_numpy(pad_neighbors(indptr, indices)).to(dev)
+    return int(_count_chunked(npad, eu, ev, chunk=chunk))
+
+
 # ---------------------------------------------------------------------------
 # dense formulation
 # ---------------------------------------------------------------------------
@@ -281,3 +315,33 @@ def triangle_count_dense(adj: torch.Tensor) -> torch.Tensor:
     """
     a = adj.to(torch.float64)
     return (a * (a @ a.T)).sum().to(torch.int64)
+
+
+def dense_adjacency(src: np.ndarray, dst: np.ndarray, n: int) -> np.ndarray:
+    adj = np.zeros((n, n), dtype=np.float32)
+    adj[src, dst] = 1.0
+    return adj
+
+
+# ---------------------------------------------------------------------------
+# per-box execution (the legacy single-host entry point)
+# ---------------------------------------------------------------------------
+
+def triangle_count_boxed_vectorized(src: np.ndarray, dst: np.ndarray,
+                                    mem_words: int,
+                                    orientation: str = "minmax",
+                                    dense_threshold: float = 0.05,
+                                    chunk: int = 2048,
+                                    torch_device="cuda") -> Tuple[int, dict]:
+    """Boxed execution with the per-box lanes of ``core.engine.
+    TriangleEngine`` (box plan from the paper's prober, per-box lane
+    dispatch). Returns ``(count, info)``."""
+    from .engine import TriangleEngine
+
+    eng = TriangleEngine(src, dst, mem_words=mem_words,
+                         orientation=orientation,
+                         dense_threshold=dense_threshold,
+                         chunk=chunk, shard=False,
+                         torch_device=torch_device)
+    count = eng.count()
+    return count, eng.stats.as_info()

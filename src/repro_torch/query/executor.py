@@ -41,8 +41,12 @@ Usage::
     rows = eng.list()              # (m, 4) bindings in head order
     eng.stats                      # boxes, rank, lanes, launches, I/O, cache
 
-Options of the reference engine that are not ported yet raise
-``NotImplementedError``: ``tracer`` and ``metrics``.
+``tracer=`` (an ``obs.trace.Tracer``) records ``query.plan`` and
+``query.boxes`` spans, ``box.fetch`` / ``box.build`` / ``box.compute``
+spans per box and ``kernel.launch`` / ``cache.*`` events; ``metrics=`` (an
+``obs.metrics.MetricsRegistry``) gets the ``kernel.*`` and ``box.*`` series
+and the run's ``QueryStats`` as ``query.*`` gauges. Every option of the
+reference engine is ported.
 """
 
 from __future__ import annotations
@@ -72,11 +76,6 @@ from .vectorized import BoundAtom, VectorizedBoxJoin, build_atom_slice
 
 # the reference's TPU-named "pallas" backend is the intersect kernel here
 BACKENDS = ("auto", "host", "intersect", "fused")
-
-
-def _not_ported(feature: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"QueryEngine: {feature} is not ported to repro_torch yet")
 
 
 @dataclass
@@ -225,6 +224,9 @@ class QueryEngine:
     cancel : optional ``threading.Event``; once set, no further box is
         claimed, in-progress boxes finish, and the run raises
         ``core.executor.BoxQueueCancelled``.
+    tracer / metrics : optional ``obs.trace.Tracer`` and
+        ``obs.metrics.MetricsRegistry`` (see the module note); read-only,
+        so counts, listings and ledgers are unchanged.
     """
 
     def __init__(self, query: Query, *,
@@ -254,11 +256,6 @@ class QueryEngine:
         if skew not in ("uniform", "heavy_light"):
             raise ValueError(
                 f"skew {skew!r} not in ('uniform', 'heavy_light')")
-        for given, feature in (
-                (tracer is not None, "tracer="),
-                (metrics is not None, "metrics=")):
-            if given:
-                raise _not_ported(feature)
         for a in query.atoms:
             if len(a.vars) != 2:
                 raise ValueError(
@@ -266,6 +263,10 @@ class QueryEngine:
                     "(graph-pattern) atoms; use core.queries.run_query for "
                     "general arities")
         self.query = query
+        # observability: span/event recorder and metrics registry, both
+        # None by default (one attribute check per site)
+        self.tracer = tracer
+        self.metrics = metrics
         self.backend = backend
         self.mem_words = mem_words
         self.cache_words = int(cache_words)
@@ -388,7 +389,7 @@ class QueryEngine:
                 continue
             src = raw[key]
             if self.cache_words > 0:
-                src = SliceCache(src, self.cache_words)
+                src = SliceCache(src, self.cache_words, tracer=tracer)
                 self._caches.append(src)
             self._sources[key] = src
         self._nv_all = max((s.n_nodes for s in self._sources.values()),
@@ -451,6 +452,11 @@ class QueryEngine:
         if self._plan_cache is not None \
                 and self._plan_cache[0] == self.mem_words:
             plan = self._plan_cache[1]
+        elif self.tracer is not None:
+            with self.tracer.span("query.plan", n_vars=self.n,
+                                  skew=self.skew):
+                plan = self._plan_uncached()
+            self._plan_cache = (self.mem_words, plan)
         else:
             plan = self._plan_uncached()
             self._plan_cache = (self.mem_words, plan)
@@ -601,11 +607,23 @@ class QueryEngine:
                 self.stats.device_transfer_bytes += kl.transfer_bytes
                 self.stats.max_box_device_invocations = max(
                     self.stats.max_box_device_invocations, kl.invocations)
+        if self.metrics is not None:
+            self.metrics.note_kernel(kl, op=self._join_op(vj))
+
+    @staticmethod
+    def _join_op(vj: VectorizedBoxJoin) -> str:
+        """The ``kernel.*{op=..}`` label of a finished box join: the lane
+        that actually ran, fallbacks resolved."""
+        if vj.used_fused:
+            return "fused"
+        if vj.used_kernel:
+            return "staged"
+        return "host"
 
     def _work_count(self, built) -> int:
         box, bound = built
         vj = self._make_join(bound, "count", lane=self._lane.get(box))
-        with kernel_ledger.attach() as kl:
+        with kernel_ledger.attach(tracer=self.tracer) as kl:
             out = vj.run()
         self._note_join(vj, kl)
         return out
@@ -618,7 +636,7 @@ class QueryEngine:
         triangle executor's box-granular overflow→rescan protocol)."""
         box, bound = built
         cap = capacity
-        with kernel_ledger.attach() as kl:
+        with kernel_ledger.attach(tracer=self.tracer) as kl:
             while True:
                 vj = self._make_join(bound, "list",
                                      lane=self._lane.get(box),
@@ -706,14 +724,17 @@ class QueryEngine:
                 workers=self.workers,
                 inflight_items=self.inflight_boxes,
                 inflight_words=inflight_words,
-                cancel=self.cancel)
+                cancel=self.cancel,
+                tracer=self.tracer)
             merge_queue_telemetry(self.stats, tele, self._stats_lock,
-                                  inflight_boxes=self.inflight_boxes)
+                                  inflight_boxes=self.inflight_boxes,
+                                  metrics=self.metrics)
             return results
         return run_box_serial(boxes, fetch=self._fetch_box,
                               build=self._build_box, work=work,
                               prefetch_depth=self.prefetch_depth,
-                              cancel=self.cancel)
+                              cancel=self.cancel,
+                              tracer=self.tracer)
 
     def run_boxes(self, mode: str = "count",
                   capacity: Optional[int] = None) -> List:
@@ -733,7 +754,12 @@ class QueryEngine:
         else:
             raise ValueError(f"mode {mode!r} not in ('count', 'list')")
         mark = self._io_mark()
-        results = self._run(plan.boxes, work)
+        if self.tracer is not None:
+            with self.tracer.span("query.boxes", mode=mode,
+                                  n_boxes=len(plan.boxes)):
+                results = self._run(plan.boxes, work)
+        else:
+            results = self._run(plan.boxes, work)
         self._io_collect(mark)
         if mode == "count":
             self.stats.n_results = sum(int(r) for r in results
@@ -741,6 +767,8 @@ class QueryEngine:
         else:
             self.stats.n_results = sum(len(r) for r in results
                                        if r is not None)
+        if self.metrics is not None:
+            self.metrics.publish_stats(self.stats, "query", mode=mode)
         return results
 
     # -- public entry points ----------------------------------------------------

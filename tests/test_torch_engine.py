@@ -15,7 +15,9 @@ from repro.core.iomodel import BlockDevice as RefDevice
 from repro.data import graphs as r_graphs
 from repro_torch import TriangleEngine, engine_count, engine_list
 from repro_torch.convert import engine_from_state
+from repro_torch.core import engine as core_engine
 from repro_torch.core.iomodel import BlockDevice
+from repro_torch.obs import MetricsRegistry, Tracer
 
 GRAPHS = {
     "er": lambda: r_graphs.random_graph(150, 1200, seed=4),
@@ -173,13 +175,24 @@ def test_conveniences_and_canonical_rows():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(shard=True), dict(tracer=object()), dict(metrics=object()),
+    dict(shard=True), dict(tracer=Tracer()), dict(metrics=MetricsRegistry()),
     dict(dense_threshold="measured"), dict(intersect_threshold="measured"),
     dict(fused_threshold="measured")])
-def test_unported_options_raise(kw):
+def test_unported_options_raise(kw, tmp_path, monkeypatch):
+    """Sharding is the one option not ported: it raises
+    NotImplementedError. ``tracer=``, ``metrics=`` and the 'measured'
+    thresholds are ported: they are taken and the count is unchanged (the
+    calibration is kept in a temporary cache)."""
     src, dst = GRAPHS["er"]()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TriangleEngine(src, dst, torch_device="cpu", **kw)
+    if "shard" in kw:
+        with pytest.raises(NotImplementedError, match="not ported"):
+            TriangleEngine(src, dst, torch_device="cpu", **kw)
+        return
+    monkeypatch.setenv("REPRO_TORCH_CACHE_DIR", str(tmp_path))
+    monkeypatch.setattr(core_engine, "_crossover_memo", {})
+    want = TriangleEngine(src, dst, mem_words=800, torch_device="cpu").count()
+    eng = TriangleEngine(src, dst, mem_words=800, torch_device="cpu", **kw)
+    assert eng.count() == want
 
 
 def test_reference_lane_name_is_rejected():

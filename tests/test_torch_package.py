@@ -54,12 +54,19 @@ def test_importing_every_module_pulls_in_no_jax_and_no_reference():
                                     "repro_torch.query.planner",
                                     "repro_torch.query.patterns",
                                     "repro_torch.kernels.embedding_bag.ops",
-                                    "repro_torch.kernels.embedding_bag.ref"])
+                                    "repro_torch.kernels.embedding_bag.ref",
+                                    "repro_torch.core.triangle",
+                                    "repro_torch.core.mgt",
+                                    "repro_torch.core.adversarial",
+                                    "repro_torch.obs",
+                                    "repro_torch.obs.trace",
+                                    "repro_torch.obs.metrics"])
 def test_fused_lane_modules_import_no_jax_and_no_reference(module):
     """The fused lane's and the QueryEngine's modules, the embedding_bag
-    entry point, and the executor and converter that reach them, load on a
-    host without JAX: importing each alone pulls in neither ``jax`` nor
-    ``repro``."""
+    entry point, the executor and converter that reach them, the public
+    triangle API with MGT and the adversarial instance, and ``obs``, load
+    on a host without JAX: importing each alone pulls in neither ``jax``
+    nor ``repro``."""
     code = (
         "import importlib, sys\n"
         f"importlib.import_module({module!r})\n"
@@ -148,3 +155,60 @@ def test_kernel_sources_and_library_names():
         assert path.parent == _build.BUILD_DIR
         assert path.name.startswith(name + "-") and path.suffix == ".so"
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_core_exports_every_reference_name():
+    """``repro_torch.core`` exports the reference core's public names, with
+    the GPU name ``measure_intersect_crossover`` for
+    ``measure_pallas_crossover``; the package root exports the public
+    triangle API, MGT, the adversarial instance, the calibrations and
+    ``obs``."""
+    import repro.core as ref_core
+    import repro_torch
+    import repro_torch.core as core
+    renamed = {"measure_pallas_crossover": "measure_intersect_crossover"}
+    for name in ref_core.__all__:
+        port_name = renamed.get(name, name)
+        assert port_name in core.__all__, name
+        assert getattr(core, port_name) is not None
+    for name in ("count_triangles", "list_triangles", "brute_force_count",
+                 "mgt_triangle_count", "adversarial_graph",
+                 "measure_dense_crossover", "measure_intersect_crossover",
+                 "measure_fused_crossover", "Tracer", "MetricsRegistry"):
+        assert name in repro_torch.__all__, name
+        assert getattr(repro_torch, name) is getattr(
+            core if hasattr(core, name) else repro_torch.obs, name)
+
+
+def _not_ported_features(path):
+    """String arguments of every ``_not_ported(...)`` call and every
+    ``NotImplementedError(...)`` raised in a module's source."""
+    tree = ast.parse((PKG / path).read_text(), filename=path)
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and getattr(node.func, "id", None) \
+                in ("_not_ported", "NotImplementedError") \
+                and node.args and isinstance(node.args[0], ast.Constant):
+            found.append(node.args[0].value)
+    return found
+
+
+def test_shard_is_the_only_option_not_ported():
+    """The engines raise NotImplementedError for ``shard=True`` only:
+    ``tracer=``, ``metrics=`` and the ``'measured'`` thresholds work."""
+    assert _not_ported_features("core/engine.py") == [
+        "sharded execution (shard=True)"]
+    assert _not_ported_features("query/executor.py") == []
+    from repro_torch import MetricsRegistry, QueryEngine, Tracer, patterns
+    from repro_torch import TriangleEngine
+    src, dst = np.array([0, 1, 0, 2]), np.array([1, 2, 2, 3])
+    with pytest.raises(NotImplementedError, match="shard=True"):
+        TriangleEngine(src, dst, shard=True, torch_device="cpu")
+    tr, reg = Tracer(), MetricsRegistry()
+    assert TriangleEngine(src, dst, torch_device="cpu", tracer=tr,
+                          metrics=reg).count() == 1
+    assert QueryEngine.from_graph(patterns.triangle(), src, dst,
+                                  torch_device="cpu", tracer=tr,
+                                  metrics=reg).count() == 1
+    assert "engine.count" in tr.span_names()
+    assert "query.boxes" in tr.span_names()

@@ -300,14 +300,17 @@ def test_intersect_count_rows_matches_reference(seed):
 
 
 def test_options_not_ported_and_devices():
-    """Unported options raise NotImplementedError; the default device is
-    the card and raises without CUDA; the reference's 'pallas' backend is
-    called 'intersect'."""
+    """Every option of the reference engine is ported: ``tracer=`` and
+    ``metrics=`` are taken and leave the count unchanged; the default
+    device is the card and raises without CUDA; the reference's 'pallas'
+    backend is called 'intersect'."""
+    from repro_torch.obs import MetricsRegistry, Tracer
     src, dst = GRAPHS["er"]()
     q = patterns.triangle()
-    for kw in ({"tracer": object()}, {"metrics": object()}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            QueryEngine.from_graph(q, src, dst, torch_device="cpu", **kw)
+    for kw in ({"tracer": Tracer()}, {"metrics": MetricsRegistry()}):
+        assert QueryEngine.from_graph(q, src, dst, torch_device="cpu",
+                                      **kw).count() \
+            == query_count(q, src, dst, torch_device="cpu")
     with pytest.raises(ValueError, match="backend"):
         QueryEngine.from_graph(q, src, dst, backend="pallas",
                                torch_device="cpu")
