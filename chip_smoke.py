@@ -81,7 +81,24 @@ Phases (the kernels each main-path phase must launch in brackets):
                   (spans per box, kernel.launch events = launches, counts
                   unchanged, Chrome trace exported). Calls of this phase
                   are not recorded for the timing phase.
- 12. embedding_bag — "auto" on the dlrm-mlperf configuration's largest
+ 12. shard      — sharded execution and the box fabric, four shards on
+                  the one card (its device repeated):
+                  ``TriangleEngine(shard=True)`` on phase 3's graph, unbinned
+                  and binned [intersect], and from a store (counts equal to
+                  phase 3's; the store read in one sequential pass; the
+                  padded (n_shards, R, K) slice never allocated); the
+                  sharded ``list()`` of phase 5's graph, unbinned and
+                  binned, with rescans (bytes equal to phase 5's);
+                  ``Fabric``: the triangle on phase 5's graph, host and mesh
+                  reductions [intersect], the diamond from phase 9's query
+                  store on ``backend="fused"`` [lftj_fused] (every shard's
+                  ledger equal to its oracle engine's), the four-clique
+                  ``list()`` of phase 10's graph on ``fused``
+                  [lftj_fused_list] (bytes equal to phase 10's); the worker
+                  CLI, two processes on the card at once, its merged count
+                  equal to the in-process fabric's. Calls of this phase are
+                  not recorded for the timing phase.
+ 13. embedding_bag — "auto" on the dlrm-mlperf configuration's largest
                   field (20.5 GB) [embedding_bag "dma"], its seventh
                   (3.7 MB) [embedding_bag "onehot", the row gather] and
                   its eighteenth (512 KB) [embedding_bag "onehot", the
@@ -90,7 +107,7 @@ Phases (the kernels each main-path phase must launch in brackets):
                   equal to "dma" bit for bit; each timed (the public call,
                   calls back to back, the launch alone, host syncs per
                   call), freed.
- 13. timing     — each kernel at the largest input the main path gave it,
+ 14. timing     — each kernel at the largest input the main path gave it,
                   against its plain version, a library call where one
                   exists, and its roofline bound; intersect, the dense
                   kernel, the fused count and the listing kernel also at
@@ -167,9 +184,11 @@ BAG_GRAPH_LAUNCHES = 20
 # whose padded (R, K) atoms hold at most this many words
 FUSED_PLAIN_WORDS_CAP = 1 << 30
 # the outofcore phase's slice caches: 2^20 words beside the rmat phase's
-# 2^21-word box budget (the scale-20 store is ~7.5x that budget), and
-# 2^13 beside the query phase's 2^14
-OOC_CACHE_WORDS, OOC_QUERY_CACHE_WORDS = 1 << 20, 1 << 13
+# 2^21-word box budget (the scale-20 store is ~7.5x that budget); its store
+# diamond at 2^16 words with a 2^15-word cache (179 boxes), not the query
+# phase's 2^14 (7,429 boxes, up to 86 s of host work: PERF.md §4)
+OOC_CACHE_WORDS = 1 << 20
+OOC_QUERY_MEM_WORDS, OOC_QUERY_CACHE_WORDS = 1 << 16, 1 << 15
 # TriangleEngine.ingest's default budget: below the scale-20 graph's edges,
 # so the external sort spills runs and merges them
 OOC_INGEST_BUDGET_WORDS = 1 << 22
@@ -178,7 +197,7 @@ OOC_INGEST_BUDGET_WORDS = 1 << 22
 # instance at the test size of tests/test_boxing.py (host joins) and at a
 # card size, its boxed_vec and mgt budget; the calibrations' box widths
 # (the reference's 256 and a card-sized one); the traced store diamond's
-# budget and cache (4x the outofcore phase's: PERF.md §4 says why)
+# budget and cache (the outofcore phase's: PERF.md §4 says why)
 MGT_BLOCK_WORDS = 4096
 ADV_TEST = (1600, 400, 16)
 ADV_CARD, ADV_CARD_BUDGET = (1 << 22, 1 << 16, 64), 1 << 21
@@ -186,6 +205,12 @@ CALIBRATION_NVS = (256, 4096)
 TRACE_QUERY_MEM_WORDS, TRACE_QUERY_CACHE_WORDS = 1 << 16, 1 << 15
 # the traced runs' ring buffer: room for every span and cache event
 TRACE_CAPACITY = 1 << 20
+# the shard phase: four shards on the one card (the device repeated), the
+# listing graph's list() at a capacity far below each shard's total (so
+# every sharded listing rescans), the fabric's store diamond at the traced
+# run's budget and cache (PERF.md §4), and the worker CLI's shard count
+SHARD_DEVICES, SHARD_LIST_CAPACITY = 4, 1 << 10
+CLI_SHARDS, CLI_TIMEOUT_S = 5, 300
 
 
 
@@ -1060,6 +1085,7 @@ def phase_rmat(torch, np, ops, shared, scale: int, mem_words: int,
     assert count == want, (count, want)
     shared["rmat"] = {"src": src, "dst": dst, "count": count,
                       "count_s": wall, "csr": (eng.indptr, eng.indices),
+                      "plan": eng.plan(),
                       "padded_words": stats.padded_words,
                       "actual_words": stats.actual_words,
                       "boxes": stats.n_boxes}
@@ -1613,7 +1639,7 @@ def phase_outofcore(torch, np, ops, shared) -> dict:
         write_edge_store_csr(tmp / "query.csr", *query["csr"],
                              orientation="minmax")
         qe = QueryEngine(patterns.diamond(), store=tmp / "query.csr",
-                         mem_words=QUERY_MEM_WORDS, backend="fused",
+                         mem_words=OOC_QUERY_MEM_WORDS, backend="fused",
                          cache_words=OOC_QUERY_CACHE_WORDS)
         count, wall, launches = run_query_count(torch, ops, qe)
         runs.append(launches)
@@ -1622,7 +1648,8 @@ def phase_outofcore(torch, np, ops, shared) -> dict:
         assert qe.stats.n_fused_boxes > 0, query_stats(qe.stats)
         assert launches["lftj_fused"] > 0, launches
         shared["outofcore"]["diamond_s"] = wall
-        out["diamond"] = {"scale": QUERY_SCALE, "mem_words": QUERY_MEM_WORDS,
+        out["diamond"] = {"scale": QUERY_SCALE,
+                          "mem_words": OOC_QUERY_MEM_WORDS,
                           "cache_words": OOC_QUERY_CACHE_WORDS,
                           "order": list(qe.order), "count": count,
                           "count_s": wall,
@@ -1680,6 +1707,10 @@ def phase_query_listing(torch, np, ops, shared, scale: int,
     oracle = four_clique_oracle(np, oriented_adjacency(np, src, dst))
     assert len(rows) == count_host == oracle, (len(rows), count_host,
                                                oracle)
+    shared["query_listing"] = {"csr": csr, "mem_words": mem_words,
+                               "list_s": t_list, "listed": len(rows),
+                               "list_sha256": hashlib.sha256(
+                                   rows.tobytes()).hexdigest()}
     return {"phase": "query_listing", "scale": scale, "edges": int(len(a)),
             "mem_words": mem_words, "listed": len(rows), "lanes": stats,
             "launches": launches, "rescans_default": rescans_default,
@@ -1944,6 +1975,265 @@ def phase_api(torch, np, ops, shared, recorders) -> dict:
         for rec in recorders:
             rec.paused = False
         os.environ.pop("REPRO_TORCH_CACHE_DIR", None)
+    out["launches"] = {k: sum(r[k] for r in runs) for k in ops}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase: sharded execution and the box fabric
+# ---------------------------------------------------------------------------
+
+def shard_stats(stats) -> dict:
+    """A sharded run's shard layout: the shards' edges and rows, and the
+    reference's padded (n_shards, R, K) slice with the bytes it would
+    take (int32), which the port never allocates."""
+    shape = stats.local_npad_shape
+    return {"n_shards": stats.n_shards, "shard_edges": stats.shard_edges,
+            "shard_rows": stats.shard_rows,
+            "local_npad_shape": list(shape) if shape else None,
+            "local_npad_bytes": 4 * shape[0] * shape[1] * shape[2]
+            if shape else None,
+            "lanes": lane_stats(stats), "n_rescans": stats.n_rescans}
+
+
+def fabric_ledgers_equal_oracles(fab) -> list:
+    """Each shard of the fabric's last count against its solo oracle
+    engine (the same boxes over the full store on a fresh device): the
+    per-box counts and every ledger field byte for byte. Returns the
+    shards' block reads."""
+    fields = ("block_reads", "block_writes", "word_reads", "cache_hits",
+              "cache_misses", "cache_hit_words", "slice_words_read",
+              "n_results")
+    reads = []
+    for rep in fab.reports:
+        orc = fab.oracle_engine(rep.shard)
+        want = orc.run_boxes("count")
+        assert [r for r in rep.results] == want, rep.shard
+        for f in fields:
+            assert getattr(rep.stats, f) == getattr(orc.stats, f), (
+                rep.shard, f, getattr(rep.stats, f), getattr(orc.stats, f))
+        reads.append(rep.stats.block_reads)
+    return reads
+
+
+def run_fabric_workers(tmp, scale: int, mem_words: int,
+                       torch_device: str = "cuda") -> tuple:
+    """The worker CLI, two processes on the card at once, each running its
+    half of a CLI_SHARDS-shard triangle fabric on the RMAT graph at
+    ``scale`` (the listing phase's seed); (merged count, wall s, each
+    process's shards). No process group: NCCL takes one rank a card."""
+    import os
+    from repro_torch.parallel.fabric import Fabric
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("REPRO_FABRIC_")}
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep \
+        + env.get("PYTHONPATH", "")
+    outs = [tmp / f"part{p}.json" for p in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.parallel.fabric",
+         "--pattern", "triangle", "--graph", "rmat", "--nv", str(1 << scale),
+         "--ne", str(16 << scale), "--seed", "1", "--shards",
+         str(CLI_SHARDS), "--mem-words", str(mem_words),
+         "--process-index", str(p), "--n-processes", "2",
+         "--torch-device", torch_device, "--out", str(out)],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for p, out in enumerate(outs)]
+    try:
+        for proc in procs:
+            stdout, stderr = proc.communicate(timeout=CLI_TIMEOUT_S)
+            assert proc.returncode == 0, stderr[-3000:]
+            assert "FABRIC-PARTIAL-OK" in stdout, stdout[-2000:]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    parts = [json.loads(out.read_text()) for out in outs]
+    return (Fabric.merge_partials(parts), wall,
+            [len(part["shards"]) for part in parts])
+
+
+def phase_shard(torch, np, ops, shared, recorders) -> dict:
+    """Sharded execution and the box fabric on the card, SHARD_DEVICES
+    shards on cuda:0 repeated: ``TriangleEngine(shard=True)`` on phase 3's
+    graph in memory, unbinned and binned [intersect], and from a store
+    (its count equal to phase 3's, its block reads one sequential pass);
+    the sharded ``list()`` of phase 5's graph, unbinned and binned, with
+    rescans (bytes equal to phase 5's); ``Fabric``: the triangle on phase
+    5's graph with host and mesh reductions [intersect], the diamond from
+    phase 9's query store on the fused lane [lftj_fused] with every shard's
+    ledger equal to its oracle engine's, the four-clique ``list()`` of
+    phase 10's graph on the fused lane [lftj_fused_list]; the worker CLI,
+    two processes on the card at once, merged. Calls of this phase are not
+    recorded for the timing phase."""
+    import tempfile
+    import warnings
+    from repro_torch import Fabric, TriangleEngine, patterns
+    from repro_torch import write_edge_store_csr
+    from repro_torch.convert import engine_from_state
+    from repro_torch.core.iomodel import BlockDevice
+    from repro_torch.data.edgestore import EdgeStore
+    from repro_torch.launch.mesh import fabric_mesh
+    rmat, listing = shared["rmat"], shared["listing"]
+    query, qlist = shared["query"], shared["query_listing"]
+    devices = fabric_mesh(SHARD_DEVICES,
+                          devices=[torch.device("cuda", 0)] * SHARD_DEVICES)
+    for rec in recorders:
+        rec.paused = True
+    runs, out = [], {"phase": "shard", "n_shards": SHARD_DEVICES,
+                     "devices": [str(d) for d in devices]}
+    try:
+        # TriangleEngine(shard=True) on the scale-20 graph, in memory
+        state = {"indptr": rmat["csr"][0], "indices": rmat["csr"][1],
+                 "orientation": "minmax", "nv": len(rmat["csr"][0]) - 1,
+                 "plan": rmat["plan"]}
+        mem = {}
+        for bins in (False, True):
+            eng = engine_from_state(state, mem_words=RMAT_MEM_WORDS,
+                                    shard=True, devices=devices,
+                                    degree_bins=bins)
+            torch.cuda.reset_peak_memory_stats()
+            count, wall, launches = drive(torch, ops, eng.count)
+            runs.append(launches)
+            peak = torch.cuda.max_memory_allocated()
+            assert count == rmat["count"], (bins, count, rmat["count"])
+            assert eng.stats.n_shards == SHARD_DEVICES, eng.stats.n_shards
+            assert launches["intersect"] > 0, launches
+            row = dict(shard_stats(eng.stats), count=count, count_s=wall,
+                       count_s_unsharded=rmat["count_s"], launches=launches,
+                       max_memory_allocated=peak)
+            if not bins:
+                # the padded slice is never allocated: the peak is below
+                # even one shard's (R, K) int32 matrix
+                _, r, k = eng.stats.local_npad_shape
+                assert peak < 4 * r * k, (peak, r, k)
+            mem["binned" if bins else "unbinned"] = row
+        out["memory"] = mem
+        del eng
+        with tempfile.TemporaryDirectory(prefix="shard-") as tmp:
+            tmp = Path(tmp)
+            # the same engine from phase 9's store (written from phase 3's
+            # CSR: phase 9 checks it equals the ingested file byte for byte)
+            write_edge_store_csr(tmp / "rmat.csr", *rmat["csr"],
+                                 orientation="minmax")
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
+                eng = TriangleEngine(store=tmp / "rmat.csr",
+                                     mem_words=RMAT_MEM_WORDS,
+                                     degree_bins=True,
+                                     cache_words=OOC_CACHE_WORDS,
+                                     shard=True, devices=devices)
+            torch.cuda.reset_peak_memory_stats()
+            count, wall, launches = drive(torch, ops, eng.count)
+            runs.append(launches)
+            assert count == rmat["count"], (count, rmat["count"])
+            assert launches["intersect"] > 0, launches
+            one_pass = BlockDevice(eng.device.B,
+                                   eng.device.cache_blocks)
+            whole = EdgeStore(tmp / "rmat.csr", device=one_pass)
+            whole.read_rows(0, whole.n_nodes - 1)
+            io = io_ledger(eng.stats)
+            assert io["block_reads"] == one_pass.stats.block_reads, io
+            assert io["word_reads"] == one_pass.stats.word_reads, io
+            assert io["cache_hits"] == io["cache_misses"] == 0, io
+            out["store"] = dict(shard_stats(eng.stats), count=count,
+                                count_s=wall, io=io,
+                                one_pass_block_reads=(
+                                    one_pass.stats.block_reads),
+                                launches=launches,
+                                max_memory_allocated=(
+                                    torch.cuda.max_memory_allocated()))
+            del eng, whole
+            # sharded list() on phase 5's graph, at a capacity that rescans
+            lst = {}
+            for bins in (False, True):
+                eng = engine_from_state(listing["state"],
+                                        mem_words=listing["mem_words"],
+                                        shard=True, devices=devices,
+                                        degree_bins=bins)
+                tris, wall, launches = drive(
+                    torch, ops, lambda: eng.list(
+                        capacity=SHARD_LIST_CAPACITY))
+                runs.append(launches)
+                digest = hashlib.sha256(tris.tobytes()).hexdigest()
+                assert digest == listing["list_sha256"], (bins, digest)
+                assert len(tris) == listing["oracle"], (bins, len(tris))
+                assert eng.stats.n_rescans > 0, eng.stats.n_rescans
+                lst["binned" if bins else "unbinned"] = dict(
+                    shard_stats(eng.stats), listed=len(tris), list_s=wall,
+                    list_s_unsharded=listing["list_s"],
+                    capacity=SHARD_LIST_CAPACITY, launches=launches)
+            out["listing"] = lst
+            del eng, tris
+            # the fabric: the triangle on phase 5's graph
+            fab_out = {}
+            lstate = listing["state"]
+            fab = Fabric(patterns.triangle(),
+                         relations=query_source(
+                             np, (lstate["indptr"], lstate["indices"])),
+                         mem_words=listing["mem_words"], mesh=devices)
+            for reduce in ("host", "mesh"):
+                count, wall, launches = drive(
+                    torch, ops, lambda: fab.count(reduce=reduce))
+                runs.append(launches)
+                assert count == listing["oracle"], (reduce, count)
+                assert launches["intersect"] > 0, launches
+                fab_out[f"triangle/{reduce}"] = {
+                    "count": count, "count_s": wall, "launches": launches,
+                    "boxes": fab.stats.n_boxes,
+                    "shard_boxes": fab.stats.shard_boxes,
+                    "shard_mass": fab.stats.shard_mass,
+                    "balance": fab.stats.balance}
+            # the diamond from phase 9's query store, fused
+            write_edge_store_csr(tmp / "query.csr", *query["csr"],
+                                 orientation="minmax")
+            fab = Fabric(patterns.diamond(), store=tmp / "query.csr",
+                         mem_words=TRACE_QUERY_MEM_WORDS,
+                         cache_words=TRACE_QUERY_CACHE_WORDS,
+                         backend="fused", mesh=devices)
+            count, wall, launches = drive(torch, ops, fab.count)
+            runs.append(launches)
+            assert count == query["oracles"]["diamond"], count
+            assert launches["lftj_fused"] > 0, launches
+            t0 = time.perf_counter()
+            reads = fabric_ledgers_equal_oracles(fab)
+            fab_out["diamond/store/fused"] = {
+                "count": count, "count_s": wall, "launches": launches,
+                "mem_words": TRACE_QUERY_MEM_WORDS,
+                "cache_words": TRACE_QUERY_CACHE_WORDS,
+                "boxes": fab.stats.n_boxes,
+                "shard_boxes": fab.stats.shard_boxes,
+                "shard_block_reads": reads,
+                "shipped_words": fab.stats.shipped_words,
+                "oracles_s": time.perf_counter() - t0}
+            # the four-clique list() of phase 10's graph, fused
+            fab = Fabric(patterns.four_clique(),
+                         relations=query_source(np, qlist["csr"]),
+                         mem_words=qlist["mem_words"], backend="fused",
+                         mesh=devices)
+            rows, wall, launches = drive(torch, ops, fab.list)
+            runs.append(launches)
+            digest = hashlib.sha256(rows.tobytes()).hexdigest()
+            assert digest == qlist["list_sha256"], digest
+            assert launches["lftj_fused_list"] > 0, launches
+            fab_out["four_clique/list/fused"] = {
+                "listed": len(rows), "list_s": wall,
+                "list_s_unsharded": qlist["list_s"], "launches": launches,
+                "boxes": fab.stats.n_boxes,
+                "shard_boxes": fab.stats.shard_boxes}
+            out["fabric"] = fab_out
+            # the worker CLI: two processes on the card at once
+            merged, wall, shards = run_fabric_workers(
+                tmp, LIST_SCALE, listing["mem_words"])
+            assert merged == fab_out["triangle/host"]["count"], merged
+            out["worker_cli"] = {"processes": 2, "shards": CLI_SHARDS,
+                                 "shards_per_process": shards,
+                                 "merged_count": merged, "wall_s": wall}
+    finally:
+        for rec in recorders:
+            rec.paused = False
     out["launches"] = {k: sum(r[k] for r in runs) for k in ops}
     return out
 
@@ -2497,11 +2787,12 @@ def bag_kernel_rows(timing: dict, launches: dict) -> list:
 
 
 PHASES = ("rmat", "clustered", "listing", "skew", "fused", "query",
-          "outofcore", "query_listing", "api", "embedding_bag")
+          "outofcore", "query_listing", "api", "shard", "embedding_bag")
 # the phases whose graphs and results a phase reuses
 NEEDS = {"skew": ("rmat",), "fused": ("clustered", "listing"),
          "query": ("rmat",), "outofcore": ("rmat", "listing", "query"),
-         "api": ("rmat", "clustered", "listing", "query", "outofcore")}
+         "api": ("rmat", "clustered", "listing", "query", "outofcore"),
+         "shard": ("rmat", "listing", "query", "query_listing")}
 
 
 def with_needs(names) -> list:
@@ -2522,7 +2813,7 @@ def main() -> int:
     ap.add_argument("--quick", action="store_true",
                     help="device, build and kernel checks only")
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="main-path phases to run (default: all ten), "
+                    help="main-path phases to run (default: all eleven), "
                          "with the phases they reuse (NEEDS)")
     ap.add_argument("--profile", action="store_true",
                     help="repeat each main-path count under "
@@ -2634,6 +2925,9 @@ def main() -> int:
                 QUERY_LIST_MEM_WORDS),
             "api": lambda: phase_api(torch, np, ops, shared,
                                      [rec_i, rec_r, rec_d, rec_f, rec_l]),
+            "shard": lambda: phase_shard(torch, np, ops, shared,
+                                         [rec_i, rec_r, rec_d, rec_f,
+                                          rec_l]),
             "embedding_bag": lambda: phase_embedding_bag(
                 torch, np, ops, shared, bag_ops),
         }

@@ -11,7 +11,11 @@ through an optional ``SliceCache``) on an NVIDIA card, with hand-written
 CUDA kernels for the intersect, dense and fused lanes, and the
 ``embedding_bag`` entry point (``kernels/embedding_bag/ops.py``). Both
 engines take ``tracer=`` / ``metrics=`` (``obs``) and ``'measured'``
-density thresholds calibrated on the card. It imports ``torch`` and numpy
+density thresholds calibrated on the card. ``TriangleEngine(shard=True,
+devices=[...])`` shards its boxes over several devices (or one device,
+repeated), and ``Fabric`` runs a ``QueryEngine`` plan as shards, each on
+only the byte ranges its boxes touch, in one process or across several
+(``python -m repro_torch.parallel.fabric``). It imports ``torch`` and numpy
 only. Entry points run on the card unless the caller passes
 ``torch_device="cpu"`` (or CPU tensors, for ``embedding_bag``).
 """
@@ -31,15 +35,29 @@ from repro_torch.data.edgestore import (EdgeStore, EdgeStoreWriter,
                                         write_edge_store_csr,
                                         write_edge_store_streaming)
 from repro_torch.kernels.embedding_bag.ops import embedding_bag
+from repro_torch.launch.mesh import (fabric_mesh, maybe_init_distributed,
+                                     resolve_fabric_shards)
 from repro_torch.obs import MetricsRegistry, Tracer
 from repro_torch.query import QueryEngine, QueryStats, patterns, query_count
 
-__all__ = ["EdgeStore", "EdgeStoreWriter", "EngineStats", "MetricsRegistry",
-           "QueryEngine", "QueryStats", "SliceCache", "Tracer",
+__all__ = ["EdgeStore", "EdgeStoreWriter", "EngineStats", "Fabric",
+           "FabricShippingError", "MetricsRegistry", "QueryEngine",
+           "QueryStats", "ShippedEdgeSource", "SliceCache", "Tracer",
            "TriangleEngine", "adversarial_graph", "brute_force_count",
            "count_triangles", "embedding_bag", "engine_count", "engine_list",
-           "list_triangles", "measure_dense_crossover",
-           "measure_fused_crossover", "measure_intersect_crossover",
-           "mgt_triangle_count", "patterns", "query_count",
-           "write_edge_store", "write_edge_store_csr",
-           "write_edge_store_streaming"]
+           "fabric_mesh", "list_triangles", "maybe_init_distributed",
+           "measure_dense_crossover", "measure_fused_crossover",
+           "measure_intersect_crossover", "mgt_triangle_count", "patterns",
+           "query_count", "resolve_fabric_shards", "write_edge_store",
+           "write_edge_store_csr", "write_edge_store_streaming"]
+
+# the fabric loads on first use, so ``python -m repro_torch.parallel.fabric``
+# runs its module once
+_FABRIC = ("Fabric", "FabricShippingError", "ShippedEdgeSource")
+
+
+def __getattr__(name):
+    if name in _FABRIC:
+        from repro_torch.parallel import fabric
+        return getattr(fabric, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

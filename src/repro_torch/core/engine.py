@@ -15,6 +15,11 @@ The engine is split into two layers:
     ``core.iomodel.BlockDevice`` attached, source reads are charged to it
     and ``EngineStats`` carries the measured block I/Os.
 
+Sharded (``shard=True``, or ``devices=`` with more than one device), the
+binary boxes' edges are LPT-scheduled onto shards, each holding only the
+rows its edges reference, as compact CSR on its device
+(``parallel.sharding``); the partials are summed as int64.
+
 Out of core (``store=``), only the (V+1)-word degree index is resident and
 every box's slice is read from the store, charged to a ``BlockDevice``.
 With ``cache_words > 0`` the source is wrapped in an LRU
@@ -35,6 +40,8 @@ Usage::
 
     eng = TriangleEngine(src, dst, mem_words=1 << 16)        # on the card
     eng = TriangleEngine(src, dst, torch_device="cpu")       # on the CPU
+    eng = TriangleEngine(src, dst, mem_words=1 << 16,        # 4 shards on
+                         devices=["cuda:0"] * 4)             # one card
     eng = TriangleEngine.ingest("graph.csr", (src, dst),     # out of core
                                 mem_words=1 << 16, cache_words=1 << 14,
                                 degree_bins=True)
@@ -49,8 +56,9 @@ import json
 import os
 import tempfile
 import time
+import warnings
 from dataclasses import dataclass, field
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -61,10 +69,15 @@ from repro_torch.data.pipeline import Prefetcher, edge_batches
 from repro_torch.kernels.intersect import ops as intersect_ops
 from repro_torch.kernels.lftj_fused import ops as fused_ops
 from repro_torch.kernels.triangle_dense import ops as dense_ops
+from repro_torch.parallel.sharding import (ShardSlice, balanced_box_schedule,
+                                           box_mass_costs, box_mesh,
+                                           iter_shard_local_csr,
+                                           local_slice_shape)
 
-from .executor import SliceCache, StreamingExecutor
+from .executor import SliceCache, StreamingExecutor, _pow2
 from .iomodel import BlockDevice
 from .lftj_torch import (_count_chunked, _count_rows_chunked,
+                         _list_csr_chunked, _list_pairs_chunked,
                          csr_from_edges, orient_edges, pad_neighbors,
                          pad_neighbors_binned)
 
@@ -72,11 +85,6 @@ BACKENDS = ("auto", "binary", "dense", "intersect", "host", "fused")
 
 # dense-path feasibility guard: one-hot words per box (slice-scaled estimate)
 _DENSE_WORDS_CAP = 64_000_000
-
-
-def _not_ported(feature: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"TriangleEngine: {feature} is not ported to repro_torch yet")
 
 
 @dataclass
@@ -143,7 +151,9 @@ class EngineStats:
     cache_hits: int = 0
     cache_misses: int = 0
     cache_hit_words: int = 0
-    # sharded-path shapes (not ported yet: always empty)
+    # sharded-path shapes: the reference's padded (n_shards, R, K) slice
+    # layout and each shard's referenced rows, from host metadata (the
+    # port's shards hold compact CSR, never that padded slice)
     local_npad_shape: Optional[Tuple[int, int, int]] = None
     shard_rows: List[int] = field(default_factory=list)
     source: str = "memory"
@@ -531,9 +541,23 @@ class TriangleEngine:
     metrics : optional ``obs.metrics.MetricsRegistry``: ``kernel.*`` and
         ``box.*`` series and the run's ``EngineStats`` as ``engine.*``
         gauges.
-
-    The one option of the reference engine not ported yet, sharding
-    (``shard=True``), raises ``NotImplementedError``.
+    devices : the shard devices of a sharded run (default
+        ``[torch_device]``), all of ``torch_device``'s kind; a device may
+        repeat, and shards that share one run one after the other.
+    shard : True, False or 'auto' (shard exactly when ``devices`` holds
+        more than one device). A sharded run keeps the dense (and, on the
+        card, intersect) boxes on the local executor and schedules every
+        other box's edges onto the shards (LPT on edge counts, on slice
+        mass under ``skew='heavy_light'``). Each shard holds only the rows
+        its edges reference, as compact CSR on its device: a count is one
+        ``intersect_count_csr`` call a shard (the intersect kernel on the
+        card), the partials summed as int64 with one host read; a listing
+        is the plain chunked listing over that CSR, or with
+        ``degree_bins`` one ``_list_pairs_chunked`` per (bin_u, bin_v)
+        pair. ``EngineStats`` records ``n_shards``, ``shard_edges``,
+        ``shard_rows`` and the reference's padded ``local_npad_shape``,
+        which is never allocated. A store-backed graph is staged through
+        host memory in one charged sequential pass first.
     """
 
     def __init__(self, src: Optional[np.ndarray] = None,
@@ -552,6 +576,7 @@ class TriangleEngine:
                  degree_bins: bool = False,
                  skew: str = "uniform",
                  heavy_threshold: Optional[int] = None,
+                 devices: Optional[Sequence] = None,
                  shard="auto",
                  chunk: int = 2048,
                  prefetch_depth: int = 2,
@@ -565,13 +590,15 @@ class TriangleEngine:
         if skew not in ("uniform", "heavy_light"):
             raise ValueError(
                 f"skew {skew!r} not in ('uniform', 'heavy_light')")
-        if shard is True:
-            raise _not_ported("sharded execution (shard=True)")
-        # one torch device per engine: the reference's shard="auto" rule
-        # (shard across more than one device) never fires
-        if shard not in ("auto", False):
+        if shard not in ("auto", False, True):
             raise ValueError(f"shard {shard!r} not in ('auto', False, True)")
         self.torch_device = resolve_torch_device(torch_device)
+        self.devices = box_mesh(devices, self.torch_device)
+        if self.devices[0].type != self.torch_device.type:
+            raise ValueError(f"devices {self.devices} are not of "
+                             f"torch_device {self.torch_device}'s kind")
+        self.shard = len(self.devices) > 1 if shard == "auto" \
+            else bool(shard)
         # observability: span/event recorder (obs.trace.Tracer) and the
         # metrics registry; None by default — the traced-off path is one
         # attribute check per site
@@ -658,6 +685,12 @@ class TriangleEngine:
             self._slice_cache = SliceCache(self.source, self.cache_words,
                                            tracer=tracer)
             self.source = self._slice_cache
+        if self.shard and self.indices is None:
+            warnings.warn(
+                "sharded execution stages the store-backed neighbor stream "
+                "through host memory (one full sequential pass); for graphs "
+                "larger than host RAM pass shard=False to keep the "
+                "bounded-memory streaming path.", stacklevel=2)
         self._bins = None
         # spill runs of the external sort when ``ingest`` built the store
         self.n_spill_runs = 0
@@ -678,6 +711,31 @@ class TriangleEngine:
         if self._bins is None:
             self._bins = pad_neighbors_binned(self.indptr, self.indices)
         return self._bins
+
+    def _resident_csr(self) -> Tuple[np.ndarray, np.ndarray]:
+        """The whole graph's CSR: the resident one in memory; from a store,
+        one sequential read of every row, charged, that bypasses the slice
+        cache (a single pass cannot hit and would churn its LRU)."""
+        if self.indices is not None:
+            return self.indptr, self.indices
+        src = self._slice_cache.source if self._slice_cache is not None \
+            else self.source
+        _, indices = src.read_rows(0, self.nv - 1)
+        return self.indptr, indices
+
+    def _staged_source(self):
+        """Source of the sharded paths. They concatenate every box's edges
+        on the host before any shard runs, so a store-backed graph is
+        staged through host memory with ONE sequential charged pass
+        (|E|/B block reads) instead of re-reading overlapping x-slabs per
+        box and again per shard gather. In memory it is the engine's own
+        source. Bounded-memory execution is the non-sharded streaming
+        path."""
+        if self.indices is not None:
+            return self.source
+        indptr, indices = self._resident_csr()
+        return InMemoryEdgeSource(indptr, indices,
+                                  orientation=self.orientation)
 
     # -- streaming ingest ------------------------------------------------------
 
@@ -819,13 +877,13 @@ class TriangleEngine:
 
     # -- executor / stats plumbing --------------------------------------------
 
-    def _make_executor(self) -> StreamingExecutor:
+    def _make_executor(self, source=None) -> StreamingExecutor:
         # total resident slice words of the parallel window are bounded by
         # window-size × per-box budget (each planned slice is itself under
         # mem_words, modulo pinned spill rows)
         inflight_words = self.inflight_boxes * self.mem_words \
             if self.mem_words is not None else None
-        return StreamingExecutor(self.source,
+        return StreamingExecutor(self.source if source is None else source,
                                  pick_backend=self._pick_backend,
                                  torch_device=self.torch_device,
                                  chunk=self.chunk,
@@ -894,24 +952,67 @@ class TriangleEngine:
         boxes = self.plan()
         self._reset_stats(len(boxes))
         mark = self._io_mark()
-        ex = self._make_executor()
-        if self.degree_bins and self.indices is not None:
-            total = self._count_binned_boxes(boxes, ex)
-        else:
-            total = ex.run_count(boxes)
+        if not self.shard:
+            ex = self._make_executor()
+            if self.degree_bins and self.indices is not None:
+                total = self._count_binned_boxes(boxes, ex)
+            else:
+                total = ex.run_count(boxes)
+            self._io_collect(mark)
+            return total
+        # sharded: dense and intersect boxes run locally through the
+        # executor; every other box's edges join the shards' work-lists.
+        # The neighbor stream is staged through host memory once
+        # (_staged_source).
+        total = 0
+        staged = self._staged_source()
+        ex = self._make_executor(source=staged)
+        sparse: List[Tuple[np.ndarray, np.ndarray]] = []
+        sparse_boxes: List[Tuple[int, int, int, int]] = []
+        local: List[Tuple[int, int, int, int]] = []
+        for box in boxes:
+            eu, ev, wx, wy, slab = self._box_edges_full(box, staged)
+            if len(eu) == 0:
+                continue
+            be = self._pick_backend(len(eu), wx, wy, box)
+            if be in ("dense", "intersect"):
+                if self.workers > 1 \
+                        and getattr(staged, "device", None) is None:
+                    # the local boxes take the async queue of the unsharded
+                    # path, but only over an uncharged source: the queue's
+                    # fresh x-slab read would bill the read the slab reuse
+                    # saves a second time
+                    local.append(box)
+                else:
+                    total += ex.count_box(box, x_slab=slab)
+            else:
+                sparse.append((eu, ev))
+                sparse_boxes.append(box)
+                self.stats.n_binary_boxes += 1
+        if local:
+            total += ex.run_count(local)
+        if sparse:
+            if self.degree_bins:
+                total += self._count_sharded_binned(sparse, staged,
+                                                    boxes=sparse_boxes)
+            else:
+                total += self._count_sharded(sparse, staged,
+                                             boxes=sparse_boxes)
         self._io_collect(mark)
         return total
 
-    def _box_edges_full(self, box):
-        """In-box oriented edges (x ∈ [lx,hx], y ∈ [ly,hy]), the box widths
-        and the raw x-range slab, so a follow-up
-        ``StreamingExecutor.count_box`` reuses the already-charged read."""
+    def _box_edges_full(self, box, source=None):
+        """In-box oriented edges (x ∈ [lx,hx], y ∈ [ly,hy]) read from
+        ``source`` (default: the engine's), the box widths and the raw
+        x-range slab, so a follow-up ``StreamingExecutor.count_box`` reuses
+        the already-charged read."""
+        src = self.source if source is None else source
         lx, hx, ly, hy = box
         lx_, hx_ = max(lx, 0), min(hx, self.nv - 1)
         ly_, hy_ = max(ly, 0), min(hy, self.nv - 1)
         if hx_ < lx_ or hy_ < ly_:
             return (np.zeros(0, np.int64), np.zeros(0, np.int64), 0, 0, None)
-        ip, vals = self.source.read_rows(lx_, hx_)
+        ip, vals = src.read_rows(lx_, hx_)
         eu = np.repeat(np.arange(lx_, hx_ + 1), np.diff(ip))
         ev = vals.astype(np.int64)
         sel = (ev >= ly_) & (ev <= hy_)
@@ -973,13 +1074,139 @@ class TriangleEngine:
                     chunk=self.chunk))
         return total
 
+    # -- sharded execution ---------------------------------------------------
+
+    def _schedule(self, edge_lists, boxes=None) -> List[List[int]]:
+        """LPT shard schedule. The uniform planner balances on in-box edge
+        counts; under ``skew="heavy_light"`` the cost is the box's slice
+        mass (``box_mass_costs``): on skewed graphs a hub box's work is
+        its neighbor mass, not its edge count."""
+        if boxes is not None and self.skew == "heavy_light":
+            return balanced_box_schedule(
+                box_mass_costs(self.indptr, boxes), len(self.devices))
+        return balanced_box_schedule([len(eu) for eu, _ in edge_lists],
+                                     len(self.devices))
+
+    def _gather(self, rows: np.ndarray, source=None) -> Tuple[np.ndarray,
+                                                              np.ndarray]:
+        """(deg, concat neighbor values) for sorted global rows, reading
+        contiguous runs from the source (charged when it is)."""
+        src = self.source if source is None else source
+        if len(rows) == 0:
+            return np.zeros(0, np.int64), np.zeros(0, np.int32)
+        splits = np.flatnonzero(np.diff(rows) > 1) + 1
+        degs, vals = [], []
+        for run in np.split(rows, splits):
+            ip, v = src.read_rows(int(run[0]), int(run[-1]))
+            # runs are consecutive ids, so every row in [run0, run-1] is ours
+            degs.append(np.diff(ip))
+            vals.append(v)
+        return np.concatenate(degs), np.concatenate(vals)
+
+    def _shard_slices(self, edge_lists, schedule, source=None):
+        """Each shard's local slice (``iter_shard_local_csr``: its rows
+        gathered from ``source``, charged), yielded in schedule order so a
+        shard's device work overlaps the next shard's gather. Fills
+        ``n_shards``, ``shard_edges``, ``shard_rows`` and the reference's
+        padded ``local_npad_shape`` once the last shard is out."""
+        slices = []
+        for slc in iter_shard_local_csr(
+                edge_lists, schedule, lambda rows: self._gather(rows,
+                                                                source)):
+            slices.append(slc)
+            yield slc
+        self.stats.n_shards = len(self.devices)
+        self.stats.shard_edges = [len(slc.eu) for slc in slices]
+        self.stats.shard_rows = [len(slc.rows) for slc in slices]
+        self.stats.local_npad_shape = local_slice_shape(slices)
+
+    @staticmethod
+    def _to_device(slc: ShardSlice, dev: torch.device):
+        """The slice's CSR and local edge ids on ``dev``: (offsets int64,
+        values int32, eu int64, ev int64)."""
+        return (torch.from_numpy(slc.offsets).to(dev),
+                torch.from_numpy(np.asarray(slc.vals, np.int32)).to(dev),
+                torch.from_numpy(np.asarray(slc.eu, np.int64)).to(dev),
+                torch.from_numpy(np.asarray(slc.ev, np.int64)).to(dev))
+
+    @staticmethod
+    def _sum_partials(parts: List[torch.Tensor]) -> int:
+        """The exact int64 sum of per-shard 0-d partials, each on its own
+        device, with one host read."""
+        if not parts:
+            return 0
+        dev = parts[0].device
+        return int(torch.stack([p.to(dev) for p in parts]).sum())
+
+    def _count_shard(self, slc: ShardSlice, dev: torch.device
+                     ) -> torch.Tensor:
+        """Σ |N(u) ∩ N(v)| over one shard's edges as a 0-d int64 tensor on
+        ``dev``: one ``intersect_count_csr`` call over the shard's compact
+        CSR (the kernel on the card, its plain version on the CPU)."""
+        if len(slc.eu) == 0:
+            return torch.zeros((), dtype=torch.int64, device=dev)
+        off, vals, eu, ev = self._to_device(slc, dev)
+        return intersect_ops.intersect_count_csr(off, vals, eu, off, vals,
+                                                 ev)
+
+    def _count_sharded(self, edge_lists, source=None, boxes=None) -> int:
+        """Data-parallel box execution with *non-replicated* neighbor data:
+        every shard receives only the renumbered rows its boxes touch, so
+        per-device memory is O(slice), not O(V·K)."""
+        schedule = self._schedule(edge_lists, boxes=boxes)
+        parts = [self._count_shard(slc, self.devices[s]) for s, slc in
+                 enumerate(self._shard_slices(edge_lists, schedule, source))]
+        return self._sum_partials(parts)
+
+    def _binned_csr(self, source=None) -> Tuple[np.ndarray, np.ndarray]:
+        """The CSR the binned shard paths read their rows from, uncharged,
+        as the reference's bins are: the resident one in memory, the
+        staged source's from a store."""
+        if self.indices is not None:
+            return self.indptr, self.indices
+        src = self.source if source is None else source
+        return np.asarray(src.indptr), np.asarray(src.indices)
+
+    def _binned_layout(self, source=None):
+        """(row_bin, bins, bin_pos) of the degree bins: the cached global
+        layout in memory; from a store, built from the staged source's CSR
+        (the sharded paths stage the neighbor stream through host memory
+        anyway), so ``degree_bins=True`` works sharded for both."""
+        row_bin, bins = self.bins if self.indices is not None \
+            else pad_neighbors_binned(*self._binned_csr(source))
+        bin_pos = np.zeros(self.nv, dtype=np.int64)
+        for rows, _ in bins:
+            bin_pos[rows] = np.arange(len(rows))
+        return row_bin, bins, bin_pos
+
+    def _count_sharded_binned(self, edge_lists, source=None,
+                              boxes=None) -> int:
+        """Sharded count through the degree bins. The reference runs one
+        kernel per (bin_u, bin_v) width pair over per-bin padded matrices;
+        the CSR kernel takes rows of unequal width, so here each shard is
+        one ``intersect_count_csr`` call, as unbinned, over the rows it
+        references read from the binned CSR. Stats are the reference's:
+        ``n_shards`` and ``shard_edges``."""
+        ip, ix = self._binned_csr(source)
+        deg = np.diff(ip)
+        schedule = self._schedule(edge_lists, boxes=boxes)
+        self.stats.n_shards = len(schedule)
+        self.stats.shard_edges = [sum(len(edge_lists[b][0]) for b in ids)
+                                  for ids in schedule]
+        slices = iter_shard_local_csr(
+            edge_lists, schedule,
+            lambda rows: (deg[rows], _rows_values(ip, ix, rows, deg[rows])))
+        return self._sum_partials([self._count_shard(slc, self.devices[s])
+                                   for s, slc in enumerate(slices)])
+
     def list(self, capacity: Optional[int] = None) -> np.ndarray:
         """Enumerate all triangles; returns canonical sorted (m, 3) rows.
 
-        The output buffer is bounded (``capacity`` triangles per box);
-        because the lanes return the *exact* total alongside the buffer,
-        overflow is detected and resolved by rescanning with the capacity
-        doubled until everything fits. Listing never bins.
+        The output buffer is bounded (``capacity`` triangles per box, or
+        per shard when sharded); because the lanes return the *exact*
+        total alongside the buffer, overflow is detected and resolved by
+        rescanning with the capacity doubled until everything fits. Only
+        the sharded listing bins.
         """
         if self.tracer is not None:
             with self.tracer.span("engine.list", nv=self.nv,
@@ -995,9 +1222,126 @@ class TriangleEngine:
         boxes = self.plan()
         self._reset_stats(len(boxes))
         mark = self._io_mark()
-        tris = self._make_executor().run_list(boxes, capacity)
+        if not self.shard:
+            tris = self._make_executor().run_list(boxes, capacity)
+            self._io_collect(mark)
+            return self._canonical(tris)
+        staged = self._staged_source()
+        edge_lists, kept_boxes = [], []
+        for box in boxes:
+            eu, ev, _, _, _ = self._box_edges_full(box, staged)
+            if len(eu):
+                edge_lists.append((eu, ev))
+                kept_boxes.append(box)
+        if not edge_lists:
+            # as in the reference, an empty sharded listing reports no I/O
+            return np.zeros((0, 3), dtype=np.int64)
+        if capacity is None:
+            capacity = max(256, sum(len(eu) for eu, _ in edge_lists))
+        cap = _pow2(max(2, capacity))
+        if self.degree_bins:
+            tris = self._list_sharded_binned(edge_lists, cap, staged,
+                                             boxes=kept_boxes)
+        else:
+            tris = self._list_sharded(edge_lists, cap, staged,
+                                      boxes=kept_boxes)
         self._io_collect(mark)
         return self._canonical(tris)
+
+    def _rescan_cap(self, totals: List[int], cap: int) -> int:
+        """The capacity every total fits in after the reference's rescans
+        (double until no total exceeds it), counting each doubling in
+        ``n_rescans``. The totals are exact, so the overflowed calls rerun
+        once, at that capacity."""
+        while max(totals, default=0) > cap:
+            self.stats.n_rescans += 1
+            cap *= 2
+        return cap
+
+    def _list_sharded(self, edge_lists, cap: int, source=None,
+                      boxes=None) -> np.ndarray:
+        """Sharded listing: each shard's slice gathered (charged) and put
+        on its device once, then listed by ``_list_csr_chunked`` over that
+        compact CSR (edge order, z ascending) into a (cap, 3) buffer; the
+        shards whose exact total overflowed rerun at the doubled
+        capacity. Local row ids map back to global vertices on the
+        host."""
+        chunk = min(self.chunk, 1024)
+        schedule = self._schedule(edge_lists, boxes=boxes)
+        slices = list(self._shard_slices(edge_lists, schedule, source))
+        on_dev = [self._to_device(slc, dev)
+                  for slc, dev in zip(slices, self.devices)]
+        outs = [_list_csr_chunked(*t, cap=cap, chunk=chunk) for t in on_dev]
+        cap_all = self._rescan_cap([t for t, _ in outs], cap)
+        outs = [_list_csr_chunked(*t, cap=cap_all, chunk=chunk)
+                if out[0] > cap else out for t, out in zip(on_dev, outs)]
+        parts = []
+        for slc, (total, buf) in zip(slices, outs):
+            if total == 0:
+                continue
+            tris = buf[:total].cpu().numpy().astype(np.int64)
+            tris[:, 0] = slc.rows[tris[:, 0]]   # local -> global ids
+            tris[:, 1] = slc.rows[tris[:, 1]]   # (z is already global)
+            parts.append(tris)
+        tris = np.concatenate(parts) if parts \
+            else np.zeros((0, 3), np.int64)
+        if self.device is not None:
+            self.device.write_words(3 * len(tris))
+        return tris
+
+    def _list_sharded_binned(self, edge_lists, cap: int, source=None,
+                             boxes=None) -> np.ndarray:
+        """Sharded listing through the degree bins (the listing analogue
+        of ``_count_sharded_binned``): one ``_list_pairs_chunked`` call per
+        (bin_u, bin_v) width pair and shard, each shard holding only the
+        bin rows its edges reference. The lane emits *global* (u, v, z)
+        triangles directly; a pair whose exact total overflowed reruns
+        at the doubled capacity."""
+        row_bin, bins, bin_pos = self._binned_layout(source)
+        per_shard = []
+        for shard_boxes in self._schedule(edge_lists, boxes=boxes):
+            if shard_boxes:
+                eu = np.concatenate([edge_lists[b][0] for b in shard_boxes])
+                ev = np.concatenate([edge_lists[b][1] for b in shard_boxes])
+            else:
+                eu = ev = np.zeros(0, np.int64)
+            per_shard.append((eu, ev))
+        self.stats.n_shards = len(per_shard)
+        self.stats.shard_edges = [len(eu) for eu, _ in per_shard]
+        pairs = set()
+        for eu, ev in per_shard:
+            if len(eu):
+                live = (row_bin[eu] >= 0) & (row_bin[ev] >= 0)
+                pairs |= set(zip(row_bin[eu[live]].tolist(),
+                                 row_bin[ev[live]].tolist()))
+        chunk = min(self.chunk, 1024)
+        parts: List[np.ndarray] = []
+        for (i, j) in sorted(pairs):
+            npa_i, npb_j = bins[i][1], bins[j][1]
+            calls = []
+            for (eu, ev), dev in zip(per_shard, self.devices):
+                sel = (row_bin[eu] == i) & (row_bin[ev] == j)
+                if not sel.any():
+                    continue
+                eu_s, ev_s = eu[sel], ev[sel]
+                ur, vr = np.unique(eu_s), np.unique(ev_s)
+                calls.append(tuple(torch.from_numpy(x).to(dev) for x in (
+                    npa_i[bin_pos[ur]], npb_j[bin_pos[vr]],
+                    np.searchsorted(ur, eu_s), np.searchsorted(vr, ev_s),
+                    eu_s, ev_s)))
+            outs = [_list_pairs_chunked(*c, cap=cap, chunk=chunk)
+                    for c in calls]
+            cap_p = self._rescan_cap([t for t, _ in outs], cap)
+            outs = [_list_pairs_chunked(*c, cap=cap_p, chunk=chunk)
+                    if out[0] > cap else out for c, out in zip(calls, outs)]
+            for total, buf in outs:
+                if total:
+                    parts.append(buf[:total].cpu().numpy().astype(np.int64))
+        tris = np.concatenate(parts) if parts \
+            else np.zeros((0, 3), np.int64)
+        if self.device is not None:
+            self.device.write_words(3 * len(tris))
+        return tris
 
     @staticmethod
     def _canonical(tris: np.ndarray) -> np.ndarray:
@@ -1006,6 +1350,18 @@ class TriangleEngine:
         tris = np.sort(np.asarray(tris, dtype=np.int64), axis=1)
         order = np.lexsort((tris[:, 2], tris[:, 1], tris[:, 0]))
         return tris[order]
+
+
+def _rows_values(indptr: np.ndarray, indices: np.ndarray, rows: np.ndarray,
+                 deg: np.ndarray) -> np.ndarray:
+    """The neighbor lists of sorted ``rows`` (degrees ``deg``) of a CSR,
+    concatenated, without a source read."""
+    n = int(deg.sum())
+    if n == 0:
+        return np.zeros(0, np.int32)
+    start = np.repeat(indptr[rows], deg)
+    within = np.arange(n) - np.repeat(np.cumsum(deg) - deg, deg)
+    return np.asarray(indices[start + within], np.int32)
 
 
 # ---------------------------------------------------------------------------

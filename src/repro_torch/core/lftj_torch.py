@@ -25,6 +25,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.data.graphs import unique_pairs
+
 SENTINEL = np.iinfo(np.int32).max
 
 
@@ -57,8 +59,7 @@ def orient_edges(src: np.ndarray, dst: np.ndarray,
         b = np.where(swap, src, dst)
     else:
         raise ValueError(mode)
-    e = np.unique(np.stack([a, b], axis=1), axis=0)
-    return e[:, 0], e[:, 1]
+    return unique_pairs(a, b)
 
 
 def csr_from_edges(src: np.ndarray, dst: np.ndarray,
@@ -228,6 +229,25 @@ def _count_rows_chunked(a_rows: torch.Tensor, b_rows: torch.Tensor,
 # listing (enumeration) — bounded output buffer, overflow detected by caller
 # ---------------------------------------------------------------------------
 
+def _write_hits(buf: torch.Tensor, total: int, cap: int, a: torch.Tensor,
+                b: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> int:
+    """Probe every row of ``a`` into the matching row of ``b`` (sorted,
+    SENTINEL-padded) and write each hit z as the row (u[r], v[r], z) of
+    ``buf``, from slot ``total`` on, in row then z order; slots at or past
+    ``cap`` land on the spill row ``buf[cap]``. Returns the number of
+    hits."""
+    pos = torch.searchsorted(b, a).clamp_(max=b.shape[1] - 1)
+    hit = (torch.gather(b, 1, pos) == a) & (a != SENTINEL)
+    r, c = hit.nonzero(as_tuple=True)          # row-major: edge, then z
+    n_hit = int(r.shape[0])
+    if n_hit:
+        slot = torch.arange(total, total + n_hit, device=buf.device) \
+            .clamp_(max=cap)
+        buf[slot] = torch.stack([u[r].to(torch.int32), v[r].to(torch.int32),
+                                 a[r, c]], dim=1)
+    return n_hit
+
+
 def _list_chunked(npad: torch.Tensor, eu: torch.Tensor, ev: torch.Tensor,
                   cap: int, chunk: int = 1024,
                   deg: Optional[torch.Tensor] = None
@@ -259,16 +279,75 @@ def _list_chunked(npad: torch.Tensor, eu: torch.Tensor, ev: torch.Tensor,
         a, b = npad[u, :ka], npad[v, :kb]
         if a.shape[1] > b.shape[1]:
             a, b = b, a
-        pos = torch.searchsorted(b, a).clamp_(max=b.shape[1] - 1)
-        hit = (torch.gather(b, 1, pos) == a) & (a != SENTINEL)
-        r, c = hit.nonzero(as_tuple=True)          # row-major: edge, then z
-        n_hit = int(r.shape[0])
-        if n_hit:
-            slot = torch.arange(total, total + n_hit, device=dev) \
-                .clamp_(max=cap)
-            buf[slot] = torch.stack([u[r].to(torch.int32),
-                                     v[r].to(torch.int32), a[r, c]], dim=1)
-        total += n_hit
+        total += _write_hits(buf, total, cap, a, b, u, v)
+    return total, buf[:cap]
+
+
+def _list_csr_chunked(off: torch.Tensor, vals: torch.Tensor,
+                      eu: torch.Tensor, ev: torch.Tensor, cap: int,
+                      chunk: int = 1024) -> Tuple[int, torch.Tensor]:
+    """``_list_chunked`` over a compact CSR (int64 offsets ``off``, sorted
+    int32 rows ``vals``) instead of a padded matrix: each edge chunk
+    gathers only its own rows, as wide as the chunk's widest one, so
+    memory is O(chunk · K) and no (rows, K) matrix is ever built. Same
+    ``(total, buf)``, traversal order and spill row; ``eu``/``ev`` are
+    int64 row ids, emitted as they are."""
+    from repro_torch.kernels.intersect.ref import _tile
+
+    dev = vals.device
+    buf = torch.zeros((cap + 1, 3), dtype=torch.int32, device=dev)
+    m = eu.shape[0]
+    total = 0
+    if m == 0:
+        return total, buf[:cap]
+    deg = off[1:] - off[:-1]
+    n = -(-m // chunk)
+    pad = n * chunk - m
+    du = torch.nn.functional.pad(deg[eu], (0, pad)).view(n, chunk).amax(1)
+    dv = torch.nn.functional.pad(deg[ev], (0, pad)).view(n, chunk).amax(1)
+    for i, (ka, kb) in enumerate(torch.stack([du, dv], 1).tolist()):
+        if min(ka, kb) == 0:
+            continue
+        u, v = eu[i * chunk:(i + 1) * chunk], ev[i * chunk:(i + 1) * chunk]
+        a, b = _tile(off, vals, u, deg[u], ka), _tile(off, vals, v, deg[v], kb)
+        if a.shape[1] > b.shape[1]:
+            a, b = b, a
+        total += _write_hits(buf, total, cap, a, b, u, v)
+    return total, buf[:cap]
+
+
+def _list_pairs_chunked(npa: torch.Tensor, npb: torch.Tensor,
+                        eu: torch.Tensor, ev: torch.Tensor,
+                        us: torch.Tensor, vs: torch.Tensor,
+                        cap: int, chunk: int = 1024
+                        ) -> Tuple[int, torch.Tensor]:
+    """Enumerate (us[i], vs[i], z) with z ∈ npa[eu[i]] ∩ npb[ev[i]].
+
+    The degree-binned listing analogue of ``_count_rows_chunked`` +
+    ``_list_chunked``: the two padded neighbor matrices may have different
+    widths (per-bin K), the narrower side is probed into the wider (the
+    sides swap when ``npa`` is the wider, as in the reference), and the
+    emitted triangle carries the caller-supplied *global* edge endpoints
+    ``us``/``vs``, so no local-row remap is needed afterwards. Edges whose
+    row is all SENTINEL on either side contribute nothing. Returns
+    ``(total, buf)``: the exact total as a Python int (the reference's is
+    int32) and a (cap, 3) int32 buffer holding the first ``min(total,
+    cap)`` triangles in traversal order (edge, then z ascending) and zeros
+    after them; positions at or past ``cap`` go to a spill row that is cut
+    off, so the caller rescans on ``total > cap``.
+    """
+    if npa.shape[1] > npb.shape[1]:     # z values are symmetric in a∩b
+        npa, npb = npb, npa
+        eu, ev = ev, eu
+    buf = torch.zeros((cap + 1, 3), dtype=torch.int32, device=npa.device)
+    total = 0
+    if npa.shape[1] == 0 or npb.shape[1] == 0:
+        return total, buf[:cap]
+    for s in range(0, eu.shape[0], chunk):
+        a = npa[eu[s:s + chunk].long()]
+        b = npb[ev[s:s + chunk].long()]
+        total += _write_hits(buf, total, cap, a, b, us[s:s + chunk],
+                             vs[s:s + chunk])
     return total, buf[:cap]
 
 

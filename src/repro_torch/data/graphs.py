@@ -15,14 +15,28 @@ from typing import Tuple
 import numpy as np
 
 
+def unique_pairs(a: np.ndarray, b: np.ndarray
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """The distinct (a[i], b[i]) pairs in lexicographic order, as the two
+    columns of ``np.unique(np.stack([a, b], axis=1), axis=0)``. Non-negative
+    ids below 2^31 are sorted as one int64 key a·n + b, which is the same
+    order and an order of magnitude faster than sorting rows; other ids
+    take the row sort."""
+    a, b = np.asarray(a), np.asarray(b)
+    dtype = np.result_type(a, b)
+    n = int(max(a.max(initial=-1), b.max(initial=-1))) + 1
+    if a.size == 0 or min(a.min(), b.min()) < 0 or n > (1 << 31):
+        e = np.unique(np.stack([a, b], axis=1), axis=0)
+        return e[:, 0], e[:, 1]
+    key = np.unique(a.astype(np.int64) * n + b.astype(np.int64))
+    return (key // n).astype(dtype), (key % n).astype(dtype)
+
+
 def simplify_edges(src: np.ndarray, dst: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """Remove self loops and duplicate (undirected) edges."""
     keep = src != dst
     src, dst = src[keep], dst[keep]
-    a = np.minimum(src, dst)
-    b = np.maximum(src, dst)
-    e = np.unique(np.stack([a, b], axis=1), axis=0)
-    return e[:, 0], e[:, 1]
+    return unique_pairs(np.minimum(src, dst), np.maximum(src, dst))
 
 
 def random_graph(n_nodes: int, n_edges: int, seed: int = 0

@@ -1,30 +1,69 @@
-"""Box work-queue ordering and interval bookkeeping shared by the
-streaming executor and the QueryEngine.
+"""Box scheduling for the streaming executor, the QueryEngine and the
+multi-device tier.
 
-Only the numpy scheduling policies (``lpt_order`` and ``box_queue_order``)
-and the §5 interval helpers (``merge_interval``, ``interval_gaps``) are
-ported so far; multi-device sharding comes with its own slice.
+Boxes are overlap-free, independent work items (paper §3.3), so sharding
+them is pure data parallelism: a list of torch devices (``box_mesh``), a
+greedy size-balanced (LPT) assignment of boxes to shards
+(``balanced_box_schedule``), and per shard a renumbered *local* neighbor
+slice covering only the rows its boxes reference (``iter_shard_local_csr``)
+— nothing is replicated. ``TriangleEngine(shard=True)`` runs each shard's
+slice as compact CSR on its device; ``shard_local_slices`` is the
+reference's padded (n_shards, R, K) layout of the same slices, for small
+inputs and parity, and ``local_slice_shape`` its shape from metadata.
+
+The rank-r helpers (``box_mass_costs_nd``, ``shard_shipped_ranges`` and
+the §5 interval algebra ``merge_interval`` / ``interval_gaps``) price the
+``QueryEngine``'s n-dimensional boxes and plan the byte ranges each
+``parallel.fabric`` shard must hold. All of it is numpy in, numpy out.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import (Callable, Dict, Iterator, List, NamedTuple, Optional,
+                    Sequence, Tuple)
+
+import numpy as np
+import torch
+
+# core.lftj_torch's padding value (imported there from here would cycle:
+# core's executor imports this module)
+SENTINEL = np.iinfo(np.int32).max
+
+
+def box_mesh(devices: Optional[Sequence] = None,
+             torch_device="cuda") -> List[torch.device]:
+    """The shard devices of a box-sharded run: ``devices`` as torch devices
+    (a device may repeat: several shards then share it), or
+    ``[torch_device]``. Every device is resolved, so ``"cuda"`` raises
+    where there is no card, and all must be of one kind."""
+    from repro_torch.core.engine import resolve_torch_device
+
+    devs = [resolve_torch_device(d) for d in
+            ([torch_device] if devices is None else list(devices))]
+    if not devs:
+        raise ValueError("box_mesh: empty device list")
+    if len({d.type for d in devs}) != 1:
+        raise ValueError(f"box_mesh: devices of more than one kind: {devs}")
+    return devs
 
 
 def lpt_order(costs: Sequence[float]) -> List[int]:
     """Box indices in Longest-Processing-Time-first order (descending cost,
     ties broken by index so the order is deterministic).
 
-    The async streaming scheduler (``core.executor.StreamingExecutor``)
-    drains its work queue in this order, so the long-pole box starts first
-    and its device compute overlaps every later slice build."""
+    This is the shared priority order of both box-parallel paths: the
+    shard schedule (``balanced_box_schedule`` hands boxes to shards in
+    this order) and the async streaming scheduler
+    (``core.executor.StreamingExecutor`` drains its work queue in this
+    order, so the long-pole box starts first and its device compute
+    overlaps every later slice build)."""
     return sorted(range(len(costs)), key=lambda i: (-float(costs[i]), i))
 
 
 def box_queue_order(costs: Sequence[float],
                     ledger_sensitive: bool) -> List[int]:
-    """Priority order the triangle ``StreamingExecutor`` drains its box
-    work-queue in.
+    """Priority order a box work-queue is drained in — shared by the
+    triangle ``StreamingExecutor`` and the generic ``query.QueryEngine``.
 
     ``ledger_sensitive=False`` (pure in-memory source): LPT-first — only
     makespan matters, so the long-pole box starts first. With a slice
@@ -40,15 +79,17 @@ def box_queue_order(costs: Sequence[float],
     drain IS the oracle in any order). That is deliberate, not an
     oversight: the drain order must be a function of the engine's
     configuration alone, never of its worker count, so a query's measured
-    I/O ledger is reproducible across ``workers`` settings."""
+    I/O ledger is reproducible across ``workers`` settings and a shard of
+    a distributed run (``parallel.fabric``) can be re-executed solo at any
+    worker count and land on byte-identical ledgers."""
     if ledger_sensitive:
         return list(range(len(costs)))
     return lpt_order(costs)
 
 
 # ---------------------------------------------------------------------------
-# interval bookkeeping (§5 slice dedup) — the QueryEngine's per-box
-# fetch walk
+# interval bookkeeping (§5 slice dedup) — shared by the QueryEngine's
+# per-box fetch walk and the fabric's rank-r byte-range shipping planner
 # ---------------------------------------------------------------------------
 
 def merge_interval(covered: List[Tuple[int, int]], lo: int,
@@ -90,3 +131,226 @@ def interval_gaps(covered: List[Tuple[int, int]], lo: int,
     if cur <= hi:
         gaps.append((cur, hi))
     return gaps
+
+
+# ---------------------------------------------------------------------------
+# box pricing and shard schedules
+# ---------------------------------------------------------------------------
+
+def box_mass_costs_nd(boxes: Sequence[Tuple[Tuple[int, int], ...]],
+                      dim_keys: Sequence[Tuple[int, Sequence[str]]],
+                      indptr_by_key: Dict[str, np.ndarray]) -> List[int]:
+    """Rank-r generalization of ``box_mass_costs``: per-box slice mass in
+    raw CSR words for n-dimensional ``QueryPlan`` boxes, from the resident
+    degree indexes alone.
+
+    ``dim_keys`` lists, per *owned* dimension, the distinct relation keys
+    whose rows that dimension provisions (``QueryEngine.owned_dim_keys()``
+    hands exactly this); ``indptr_by_key`` maps each key to its resident
+    (V+1)-word prefix sums. Per box, each key's row intervals are walked
+    dimension by dimension with the same §5 interval dedup the engine's
+    ``_fetch_box`` / ``_est_box_words`` use, so the cost of a box equals
+    the raw words its fetch will actually read — the LPT input of
+    ``balanced_box_schedule`` and the shipping mass of
+    ``shard_shipped_ranges``."""
+    costs: List[int] = []
+    ips = {k: np.asarray(ip, dtype=np.int64) for k, ip in
+           indptr_by_key.items()}
+    for box in boxes:
+        covered: Dict[str, List[Tuple[int, int]]] = {}
+        words = 0
+        for d, keys in dim_keys:
+            lo, hi = box[d]
+            for key in keys:
+                ip = ips[key]
+                lo_, hi_ = max(int(lo), 0), min(int(hi), len(ip) - 2)
+                if hi_ < lo_:
+                    continue
+                for glo, ghi in interval_gaps(covered.get(key, []),
+                                              lo_, hi_):
+                    words += int(ip[ghi + 1] - ip[glo])
+                covered[key] = merge_interval(covered.get(key, []),
+                                              lo_, hi_)
+        costs.append(words)
+    return costs
+
+
+def shard_shipped_ranges(boxes: Sequence[Tuple[Tuple[int, int], ...]],
+                         schedule: Sequence[Sequence[int]],
+                         dim_keys: Sequence[Tuple[int, Sequence[str]]],
+                         nv_by_key: Dict[str, int]
+                         ) -> List[Dict[str, List[Tuple[int, int]]]]:
+    """Per-shard byte-range shipping plan: the rank-r generalization of
+    ``shard_local_slices`` at the CSR row-interval layer.
+
+    For every shard in ``schedule`` (lists of box ids) and every relation
+    key, returns the sorted disjoint list of vertex-row intervals that
+    shard's boxes touch through their owned dimensions — exactly the rows
+    whose neighbor bytes a ``fabric.ShippedEdgeSource`` must hold for the
+    shard to execute its boxes without reaching back to the origin store.
+    Nothing is replicated: a row outside every assigned box's owned ranges
+    appears in no interval. The union over shards covers every row some
+    box touches (shards may overlap where their boxes share rows — slices
+    are read-only)."""
+    out: List[Dict[str, List[Tuple[int, int]]]] = []
+    for box_ids in schedule:
+        ranges: Dict[str, List[Tuple[int, int]]] = {}
+        for b in box_ids:
+            box = boxes[b]
+            for d, keys in dim_keys:
+                lo, hi = box[d]
+                for key in keys:
+                    nv = int(nv_by_key[key])
+                    lo_, hi_ = max(int(lo), 0), min(int(hi), nv - 1)
+                    if hi_ < lo_:
+                        continue
+                    ranges[key] = merge_interval(ranges.get(key, []),
+                                                 lo_, hi_)
+        out.append(ranges)
+    return out
+
+
+def box_mass_costs(indptr: np.ndarray,
+                   boxes: Sequence[Tuple[int, int, int, int]]) -> List[int]:
+    """Per-box *slice mass* (raw CSR words the box's slice provisions),
+    computed from the resident degree index alone: the x-slab's neighbor
+    words plus the y-range's, with the x/y overlap deduped (§5) — the same
+    accounting ``StreamingExecutor._est_slice_words`` uses for its queue
+    window. This is the LPT cost the skew-aware scheduler balances on:
+    under a heavy/light plan, a one-row hub box carries its true hub mass
+    instead of looking as cheap as its edge count."""
+    ip = np.asarray(indptr, dtype=np.int64)
+    nv = len(ip) - 1
+    costs: List[int] = []
+    for (lx, hx, ly, hy) in boxes:
+        lx_, hx_ = max(int(lx), 0), min(int(hx), nv - 1)
+        ly_, hy_ = max(int(ly), 0), min(int(hy), nv - 1)
+        if hx_ < lx_ or hy_ < ly_:
+            costs.append(0)
+            continue
+        words = int(ip[hx_ + 1] - ip[lx_])
+        for seg_lo, seg_hi in ((ly_, min(hy_, lx_ - 1)),
+                               (max(ly_, hx_ + 1), hy_)):
+            if seg_hi >= seg_lo:
+                words += int(ip[seg_hi + 1] - ip[seg_lo])
+        costs.append(words)
+    return costs
+
+
+def balanced_box_schedule(costs: Sequence[float],
+                          n_shards: int) -> List[List[int]]:
+    """Greedy LPT: assign each box (descending cost) to the least-loaded
+    shard. Returns ``n_shards`` lists of box indices. Classic 4/3-OPT
+    makespan bound — good enough given per-box costs are themselves
+    estimates (in-box edge counts)."""
+    shards: List[List[int]] = [[] for _ in range(max(1, n_shards))]
+    loads = np.zeros(max(1, n_shards))
+    for i in lpt_order(costs):
+        s = int(np.argmin(loads))
+        shards[s].append(i)
+        loads[s] += costs[i]
+    return shards
+
+
+# ---------------------------------------------------------------------------
+# per-shard local slices
+# ---------------------------------------------------------------------------
+
+class ShardSlice(NamedTuple):
+    """One shard's renumbered local slice in compact CSR form: its boxes'
+    edges concatenated in schedule order as local row ids ``eu``/``ev``,
+    the distinct rows they reference (sorted global ids: ``rows[eu]`` are
+    the edges' global sources) and those rows' neighbor lists (``deg``,
+    ``vals``)."""
+
+    eu: np.ndarray
+    ev: np.ndarray
+    rows: np.ndarray
+    deg: np.ndarray
+    vals: np.ndarray
+
+    @property
+    def offsets(self) -> np.ndarray:
+        return np.concatenate([np.zeros(1, np.int64),
+                               np.cumsum(self.deg, dtype=np.int64)])
+
+
+def iter_shard_local_csr(edge_lists: Sequence[Tuple[np.ndarray,
+                                                    np.ndarray]],
+                         schedule: Sequence[Sequence[int]],
+                         gather: Callable[[np.ndarray],
+                                          Tuple[np.ndarray, np.ndarray]]
+                         ) -> Iterator[ShardSlice]:
+    """Per-shard renumbered local slices, nothing replicated, one at a
+    time in schedule order: its boxes' (eu, ev) edges, the distinct
+    endpoint rows, and their neighbor lists fetched through
+    ``gather(rows) -> (deg, concat_values)`` (charged there when the
+    source is). Per-device memory scales with the shard's slice, not the
+    graph; no padded matrix is built."""
+    for boxes in schedule:
+        if boxes:
+            gu = np.concatenate([edge_lists[b][0] for b in boxes])
+            gv = np.concatenate([edge_lists[b][1] for b in boxes])
+            rows = np.unique(np.concatenate([gu, gv]))
+        else:
+            gu = gv = np.zeros(0, np.int64)
+            rows = np.zeros(0, np.int64)
+        deg, vals = gather(rows)
+        yield ShardSlice(np.searchsorted(rows, gu), np.searchsorted(rows, gv),
+                         rows, np.asarray(deg, np.int64), vals)
+
+
+def local_slice_shape(slices: Sequence[ShardSlice]) -> Tuple[int, int, int]:
+    """(n_shards, R, K) of the reference's padded layout of ``slices``:
+    R = the most rows a shard references + 1 (the all-SENTINEL pad row),
+    K = the widest referenced row (at least 1). Host metadata only."""
+    r = max([len(s.rows) for s in slices] + [0]) + 1
+    k = max([int(s.deg.max(initial=1)) for s in slices] + [1])
+    return len(slices), r, k
+
+
+def shard_local_slices(edge_lists: Sequence[Tuple[np.ndarray, np.ndarray]],
+                       schedule: Sequence[Sequence[int]],
+                       gather,
+                       pad_multiple: int = 1):
+    """Per-shard *renumbered local* neighbor slices in the reference's
+    padded layout (``iter_shard_local_csr`` padded out). Device arrays scale
+    with the shard's slice — rows×K_local — instead of the global V×K_max
+    matrix, but K_local is still the widest row any shard references, so
+    on a skewed graph this layout is for small inputs and metadata only.
+
+    Returns ``(eu, ev, valid, npad, rows)``:
+
+      * ``eu``/``ev``/``valid``: (n_shards, L) local edge endpoints (row ids
+        into the shard's slice); padded slots reference the shard's
+        all-SENTINEL pad row and carry valid == 0;
+      * ``npad``: (n_shards, R, K) per-shard padded neighbor matrices, where
+        R = max referenced rows + 1 (pad row) and K = max referenced degree;
+      * ``rows``: (n_shards, R) local row id -> global vertex id (-1 pads).
+    """
+    slices = list(iter_shard_local_csr(edge_lists, schedule, gather))
+    n_shards, R, K = local_slice_shape(slices)
+    lmax = max([len(s.eu) for s in slices] + [1])
+    L = int(-(-lmax // pad_multiple) * pad_multiple)
+
+    npad_s = np.full((n_shards, R, K), SENTINEL, np.int32)
+    rows_s = np.full((n_shards, R), -1, np.int64)
+    eu_s = np.zeros((n_shards, L), np.int32)
+    ev_s = np.zeros((n_shards, L), np.int32)
+    ok_s = np.zeros((n_shards, L), np.int32)
+    for s, slc in enumerate(slices):
+        pad_row = len(slc.rows)        # all-SENTINEL: intersects to zero
+        eu_s[s, :] = pad_row
+        ev_s[s, :] = pad_row
+        rows_s[s, :len(slc.rows)] = slc.rows
+        if len(slc.rows):
+            deg = slc.deg
+            rr = np.repeat(np.arange(len(slc.rows)), deg)
+            cc = np.arange(int(deg.sum())) \
+                - np.repeat(np.cumsum(deg) - deg, deg)
+            npad_s[s, rr, cc] = slc.vals
+        if len(slc.eu):
+            eu_s[s, :len(slc.eu)] = slc.eu
+            ev_s[s, :len(slc.ev)] = slc.ev
+            ok_s[s, :len(slc.eu)] = 1
+    return eu_s, ev_s, ok_s, npad_s, rows_s

@@ -67,6 +67,7 @@ from repro_torch.core.leapfrog import Atom
 from repro_torch.core.lftj_torch import csr_from_edges, orient_edges
 from repro_torch.core.queries import Query, is_consistent, validate
 from repro_torch.data.edgestore import EdgeStore, InMemoryEdgeSource
+from repro_torch.data.graphs import unique_pairs
 from repro_torch.kernels import ledger as kernel_ledger
 from repro_torch.parallel.sharding import (box_queue_order, interval_gaps,
                                            merge_interval)
@@ -332,8 +333,7 @@ class QueryEngine:
                 v = np.asarray(src[1], dtype=np.int64)
                 nv = int(max(u.max(initial=-1), v.max(initial=-1))) + 1
                 if len(u):
-                    e = np.unique(np.stack([u, v], axis=1), axis=0)
-                    u, v = e[:, 0], e[:, 1]
+                    u, v = unique_pairs(u, v)
                 ip, ix = csr_from_edges(u, v, n_nodes=nv) if nv else \
                     (np.zeros(1, np.int64), np.zeros(0, np.int32))
                 # the device (given or store-created) charges these reads
@@ -361,6 +361,9 @@ class QueryEngine:
         self.order = validate(query, order, require_consistent=any_store)
         self.n = len(self.order)
         pos = {v: i for i, v in enumerate(self.order)}
+        # every registered source, unwrapped (derived reversed indexes land
+        # here too): the fabric ships shard slices out of these
+        self._raw = raw
         metas: List[_AtomMeta] = []
         for i, a in enumerate(query.atoms):
             ori = getattr(raw[a.rel], "orientation", "raw")
@@ -709,6 +712,63 @@ class QueryEngine:
         head_cols = [self.order.index(h) for h in self.query.head]
         return rows[:, head_cols]
 
+    # -- serving-layer hooks ------------------------------------------------
+    # a serving layer drives the engine's per-box stages through its own
+    # run_box_queue round (fault capture, I/O attribution, result
+    # streaming); these public accessors are that contract — the stages
+    # themselves stay the single implementation.
+
+    def queue_order(self, boxes) -> List[int]:
+        """Queue drain order for ``boxes`` (``sharding.box_queue_order``
+        policy: plan order whenever an I/O ledger is attached)."""
+        return self._queue_order(boxes)
+
+    def box_stages(self, mode: str, capacity: Optional[int] = None):
+        """``(est_words, fetch, build, work)`` stage callables for
+        ``run_box_queue`` — ``mode`` 'count' or 'list'; ``capacity`` is
+        the bounded-listing per-box buffer (None = unbounded)."""
+        if mode == "count":
+            work = self._work_count
+        elif mode == "list":
+            work = lambda built: self._work_list(built, capacity)  # noqa: E731
+        else:
+            raise ValueError(f"mode {mode!r} not in ('count', 'list')")
+        return self._est_box_words, self._fetch_box, self._build_box, work
+
+    def io_mark(self):
+        """Snapshot of the device + cache counters (pair with
+        ``io_collect``). Only meaningful when this engine is the device's
+        sole client in the window."""
+        return self._io_mark()
+
+    def io_collect(self, mark) -> None:
+        self._io_collect(mark)
+
+    # -- fabric hooks -------------------------------------------------------
+    # ``parallel.fabric`` plans once on a full-source engine, ships each
+    # shard only the byte ranges its boxes touch, and re-runs a restricted
+    # plan per shard; these accessors expose exactly the plan inputs that
+    # shipping needs (relation keys incl. reversed indexes, which dimension
+    # provisions which key) without reaching into privates.
+
+    def source_keys(self) -> List[str]:
+        """Relation source keys actually read by this engine's atoms, in
+        registration order — forward relation names plus any derived
+        ``"<rel>~rev"`` reversed indexes."""
+        return list(self._sources)
+
+    def source_for(self, key: str):
+        """The (possibly cache-wrapped) EdgeSource behind ``key``; the
+        unwrapped source is at ``.source`` when a cache is attached."""
+        return self._sources[key]
+
+    def owned_dim_keys(self) -> List[Tuple[int, List[str]]]:
+        """Per owned dimension, the distinct relation keys whose rows it
+        provisions — the ``dim_keys`` input of the fabric's
+        ``sharding.box_mass_costs_nd`` / ``shard_shipped_ranges``."""
+        return [(d, self._dim_keys(self._owned[d]))
+                for d in range(self.n) if self._owned[d]]
+
     def _run(self, boxes, work) -> List:
         """Per-box results in plan order — serial Prefetcher pipeline for
         ``workers=1`` (the oracle), the shared pool otherwise."""
@@ -742,7 +802,9 @@ class QueryEngine:
         (``None`` for empty boxes): counts for ``mode='count'``, raw
         binding rows (variable-order columns, unprojected) for
         ``mode='list'``. ``count()`` and ``list()`` reduce them in plan
-        order."""
+        order; so does ``parallel.fabric`` across shards, in global box
+        order, which keeps a distributed run byte-identical to this
+        engine's."""
         plan = self.plan()
         self._reset_stats(plan)
         if mode == "count":

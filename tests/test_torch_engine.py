@@ -179,15 +179,11 @@ def test_conveniences_and_canonical_rows():
     dict(dense_threshold="measured"), dict(intersect_threshold="measured"),
     dict(fused_threshold="measured")])
 def test_unported_options_raise(kw, tmp_path, monkeypatch):
-    """Sharding is the one option not ported: it raises
-    NotImplementedError. ``tracer=``, ``metrics=`` and the 'measured'
-    thresholds are ported: they are taken and the count is unchanged (the
-    calibration is kept in a temporary cache)."""
+    """No option raises any more: sharding (``shard=True``), ``tracer=``,
+    ``metrics=`` and the 'measured' thresholds are ported; each is taken
+    and the count is unchanged (the calibration is kept in a temporary
+    cache)."""
     src, dst = GRAPHS["er"]()
-    if "shard" in kw:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            TriangleEngine(src, dst, torch_device="cpu", **kw)
-        return
     monkeypatch.setenv("REPRO_TORCH_CACHE_DIR", str(tmp_path))
     monkeypatch.setattr(core_engine, "_crossover_memo", {})
     want = TriangleEngine(src, dst, mem_words=800, torch_device="cpu").count()

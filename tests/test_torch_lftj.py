@@ -66,6 +66,32 @@ def test_host_helpers_identical(name, mode):
         np.testing.assert_array_equal(rn, pn)
 
 
+@pytest.mark.parametrize("case,dtype", [
+    (c, d) for c in ("empty", "small", "wide", "negative")
+    for d in (np.int32, np.int64)] + [("huge", np.int64)])
+def test_unique_pairs_equals_row_unique(case, dtype):
+    """``orient_edges``, ``simplify_edges`` and tuple relations dedupe
+    through ``unique_pairs``: the same columns, order and dtype as the
+    reference's row ``np.unique(..., axis=0)``, on the int64-key route and
+    on the row-sort fallback (negative ids, ids past 2^31)."""
+    from repro_torch.data.graphs import unique_pairs
+    rng = np.random.default_rng(7)
+    n = {"empty": 0, "small": 5, "wide": 3000, "negative": 50,
+         "huge": 50}[case]
+    a = rng.integers(0, max(1, n), size=4 * n).astype(np.int64)
+    b = rng.integers(0, max(1, n), size=4 * n).astype(np.int64)
+    if case == "negative":
+        a[::7] = -a[::7] - 1
+    if case == "huge":
+        a[::5] += 1 << 40
+    a, b = a.astype(dtype), b.astype(dtype)
+    want = np.unique(np.stack([a, b], axis=1), axis=0)
+    got = unique_pairs(a, b)
+    for g, w in zip(got, (want[:, 0], want[:, 1])):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+
+
 def test_pad_neighbors_rejects_truncation():
     _, _, indptr, indices = oriented_csr("rmat")
     with pytest.raises(ValueError, match="truncate"):

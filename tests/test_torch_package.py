@@ -194,16 +194,18 @@ def _not_ported_features(path):
 
 
 def test_shard_is_the_only_option_not_ported():
-    """The engines raise NotImplementedError for ``shard=True`` only:
-    ``tracer=``, ``metrics=`` and the ``'measured'`` thresholds work."""
-    assert _not_ported_features("core/engine.py") == [
-        "sharded execution (shard=True)"]
-    assert _not_ported_features("query/executor.py") == []
+    """No option of the engines raises NotImplementedError any more: the
+    last one, ``shard=True``, is ported, and ``tracer=``, ``metrics=`` and
+    the ``'measured'`` thresholds work."""
+    for path in ("core/engine.py", "query/executor.py",
+                 "parallel/fabric.py", "parallel/sharding.py",
+                 "launch/mesh.py"):
+        assert _not_ported_features(path) == [], path
     from repro_torch import MetricsRegistry, QueryEngine, Tracer, patterns
     from repro_torch import TriangleEngine
     src, dst = np.array([0, 1, 0, 2]), np.array([1, 2, 2, 3])
-    with pytest.raises(NotImplementedError, match="shard=True"):
-        TriangleEngine(src, dst, shard=True, torch_device="cpu")
+    eng = TriangleEngine(src, dst, shard=True, torch_device="cpu")
+    assert eng.count() == 1 and eng.stats.n_shards == 1
     tr, reg = Tracer(), MetricsRegistry()
     assert TriangleEngine(src, dst, torch_device="cpu", tracer=tr,
                           metrics=reg).count() == 1
