@@ -46,8 +46,8 @@ Phases (the kernels each main-path phase must launch in brackets):
                   [lftj_fused]; the count must equal phase 3's.
   7. fused      — ``backend="fused"`` on phase 4's and phase 5's graphs
                   [lftj_fused]; the counts must equal their oracles.
-  8. query      — ``QueryEngine``: the triangle on phase 3's graph, on the
-                  degree planner's boxes, count equal to phase 3's
+  8. query      — ``QueryEngine``: the triangle on phase 5's graph, on the
+                  degree planner's boxes, count equal to phase 5's
                   [intersect]; four-clique and diamond on ``auto`` [the
                   diamond: intersect] and ``backend="fused"`` [lftj_fused]
                   at QUERY_SCALE, each equal to its scipy oracle.
@@ -65,8 +65,8 @@ Phases (the kernels each main-path phase must launch in brackets):
                   rescan run's; total equal to the host backend and the
                   scipy oracle.
  11. api        — the public triangle API: ``count_triangles`` vectorized
-                  on phase 3's graph in both orientations [intersect, one
-                  launch each], dense on phase 4's [triangle_dense, one
+                  on phase 3's graph in minmax orientation and on phase
+                  5's in degree orientation [intersect, one launch each], dense on phase 4's [triangle_dense, one
                   8,192² call], boxed_vec and auto with a budget on phase
                   5's, each equal to that phase's count; MGT on phase 3's
                   graph [intersect, one launch a chunk] at phase 3's
@@ -98,7 +98,25 @@ Phases (the kernels each main-path phase must launch in brackets):
                   CLI, two processes on the card at once, its merged count
                   equal to the in-process fabric's. Calls of this phase are
                   not recorded for the timing phase.
- 13. embedding_bag — "auto" on the dlrm-mlperf configuration's largest
+ 13. serve      — the query server, its queries as threads of one process
+                  on the card's default stream: Server A
+                  (``Server.from_graph`` on phase 8's scale-13 graph,
+                  ``auto``) serves SERVE_CLIENTS clients at once, each
+                  query at its admitted share of the pool [intersect],
+                  equal to its serial ``solo_run`` (listings row for row)
+                  and to scipy, block reads within 2x the solo envelopes;
+                  Server B (phase 8's graph as a store, ``fused``) serves
+                  two diamonds at once, one with a fault injected once
+                  (one retry round) [lftj_fused], then the diamond through
+                  the box fabric from a ``Session`` (each shard's ledger
+                  equal to its oracle engine's); Server C (phase 10's
+                  graph, ``fused``) counts and streams the four-clique
+                  [lftj_fused, lftj_fused_list], pages equal to phase 10's
+                  bytes, a second stream cancelled after its first page.
+                  No query but the injected one retries; every thread the
+                  phase starts is joined. Calls of this phase are not
+                  recorded for the timing phase.
+ 14. embedding_bag — "auto" on the dlrm-mlperf configuration's largest
                   field (20.5 GB) [embedding_bag "dma"], its seventh
                   (3.7 MB) [embedding_bag "onehot", the row gather] and
                   its eighteenth (512 KB) [embedding_bag "onehot", the
@@ -107,7 +125,7 @@ Phases (the kernels each main-path phase must launch in brackets):
                   equal to "dma" bit for bit; each timed (the public call,
                   calls back to back, the launch alone, host syncs per
                   call), freed.
- 14. timing     — each kernel at the largest input the main path gave it,
+ 15. timing     — each kernel at the largest input the main path gave it,
                   against its plain version, a library call where one
                   exists, and its roofline bound; intersect, the dense
                   kernel, the fused count and the listing kernel also at
@@ -211,6 +229,26 @@ TRACE_CAPACITY = 1 << 20
 # run's budget and cache (PERF.md §4), and the worker CLI's shard count
 SHARD_DEVICES, SHARD_LIST_CAPACITY = 4, 1 << 10
 CLI_SHARDS, CLI_TIMEOUT_S = 5, 300
+# the serve phase (PERF.md §4): Server A on the query phase's graph, a
+# 2^18-word pool split four ways (each submit asks for 2^16 words, so four
+# queries hold grants at once), SERVE_CLIENTS clients of SERVE_QUERIES
+# queries each, round-robin from SERVE_MIX (benchmarks/serve_load.py's mix
+# less the four-clique, which Server C runs), aggregate block reads within
+# SERVE_ENVELOPE_FACTOR (serve_load.py's) of the solo envelopes; Server B
+# on the query store, two diamonds at once at the outofcore diamond's
+# budget with its cache as each one's floor (so that run is their solo
+# run), and the fabric's four shards; Server C on the query-listing graph
+# at that phase's budget, pages of 65,536 rows, two in the queue
+SERVE_MEM_WORDS, SERVE_WANT_WORDS = 1 << 18, 1 << 16
+SERVE_MAX_ACTIVE, SERVE_QUEUE_DEPTH, SERVE_WORKERS = 4, 8, 2
+SERVE_CLIENTS, SERVE_QUERIES = 4, 2
+SERVE_MIX = (("triangle", "count"), ("path3", "count"), ("triangle", "list"))
+SERVE_ENVELOPE_FACTOR = 2.0
+SERVE_B_MAX_ACTIVE, SERVE_FABRIC_SHARDS = 2, 4
+SERVE_B_MEM_WORDS, SERVE_B_WANT_WORDS = 1 << 17, OOC_QUERY_MEM_WORDS
+SERVE_B_CACHE_WORDS = SERVE_B_MAX_ACTIVE * OOC_QUERY_CACHE_WORDS
+SERVE_C_MEM_WORDS, SERVE_C_PAGE_ROWS, SERVE_C_PAGE_DEPTH = 1 << 16, 65_536, 2
+SERVE_TIMEOUT_S = 300
 
 
 
@@ -1200,6 +1238,7 @@ def phase_listing(torch, np, ops, shared, scale: int,
     oracle = int(adj.multiply(adj @ adj.T).sum())
     assert oracle == count, (oracle, count)
     shared["listing"] = {"state": state_of(eng), "oracle": oracle,
+                         "src": src, "dst": dst,
                          "mem_words": mem_words, "count_s": t_count,
                          "list_sha256": hashlib.sha256(tris.tobytes())
                          .hexdigest(), "list_s": t_list}
@@ -1434,35 +1473,36 @@ def run_query_count(torch, ops, eng) -> tuple:
 
 
 def phase_query(torch, np, ops, shared, scale: int, mem_words: int) -> dict:
-    """QueryEngine counts on the card: the triangle pattern on phase 3's
+    """QueryEngine counts on the card: the triangle pattern on phase 5's
     graph (its plan must be the triangle degree planner's,
-    ``plan_boxes_from_degrees``, box for box, and its count phase 3's),
+    ``plan_boxes_from_degrees``, box for box, and its count phase 5's),
     then the four-clique and the diamond on `auto` and
     on `fused` at ``scale``, each equal to its scipy oracle."""
     from repro_torch.core.boxing import plan_boxes_from_degrees
     from repro_torch.core.lftj_torch import csr_from_edges, orient_edges
     from repro_torch.data.graphs import rmat_graph
     from repro_torch.query import QueryEngine, patterns
-    rmat = shared["rmat"]
+    listing = shared["listing"]
+    state = listing["state"]
     out = {"phase": "query", "runs": {}}
     t0 = time.perf_counter()
     eng = QueryEngine(patterns.triangle(),
-                      relations=query_source(np, rmat["csr"]),
-                      mem_words=RMAT_MEM_WORDS, workers=QUERY_WORKERS)
+                      relations=query_source(
+                          np, (state["indptr"], state["indices"])),
+                      mem_words=listing["mem_words"], workers=QUERY_WORKERS)
     plan = eng.plan()
     t_plan = time.perf_counter() - t0
     boxes = [(b[0][0], b[0][1], b[1][0], b[1][1]) for b in plan.boxes]
-    want = plan_boxes_from_degrees(rmat["csr"][0], RMAT_MEM_WORDS)
+    want = plan_boxes_from_degrees(state["indptr"], listing["mem_words"])
     assert boxes == [tuple(b) for b in want], (len(boxes), len(want))
     count, wall, launches = run_query_count(torch, ops, eng)
     assert launches["intersect"] > 0, launches
-    assert count == rmat["count"], (count, rmat["count"])
+    assert count == listing["oracle"], (count, listing["oracle"])
     out["runs"]["triangle/auto"] = {
-        "scale": RMAT_SCALE, "mem_words": RMAT_MEM_WORDS,
+        "scale": LIST_SCALE, "mem_words": listing["mem_words"],
         "workers": QUERY_WORKERS, "count": count,
-        "count_rmat_phase": rmat["count"], "boxes": len(boxes),
-        "boxes_rmat_phase": rmat["boxes"], "plan_s": t_plan,
-        "count_s": wall, "launches": launches,
+        "count_listing_phase": listing["oracle"], "boxes": len(boxes),
+        "plan_s": t_plan, "count_s": wall, "launches": launches,
         "lanes": query_stats(eng.stats)}
     runs = [launches]
     t0 = time.perf_counter()
@@ -1477,7 +1517,8 @@ def phase_query(torch, np, ops, shared, scale: int, mem_words: int) -> dict:
     out.update(scale=scale, mem_words=mem_words, edges=int(len(a)),
                gen_s=t_gen, oracle_s=time.perf_counter() - t0,
                oracles=oracles)
-    shared["query"] = {"csr": csr, "oracles": oracles}
+    shared["query"] = {"csr": csr, "oracles": oracles, "src": src,
+                       "dst": dst}
     for name in ("four_clique", "diamond"):
         for backend in ("auto", "fused"):
             workers = QUERY_WORKERS if backend == "auto" else 1
@@ -1648,6 +1689,7 @@ def phase_outofcore(torch, np, ops, shared) -> dict:
         assert qe.stats.n_fused_boxes > 0, query_stats(qe.stats)
         assert launches["lftj_fused"] > 0, launches
         shared["outofcore"]["diamond_s"] = wall
+        shared["outofcore"]["diamond_io"] = io_ledger(qe.stats)
         out["diamond"] = {"scale": QUERY_SCALE,
                           "mem_words": OOC_QUERY_MEM_WORDS,
                           "cache_words": OOC_QUERY_CACHE_WORDS,
@@ -1708,6 +1750,7 @@ def phase_query_listing(torch, np, ops, shared, scale: int,
     assert len(rows) == count_host == oracle, (len(rows), count_host,
                                                oracle)
     shared["query_listing"] = {"csr": csr, "mem_words": mem_words,
+                               "src": src, "dst": dst,
                                "list_s": t_list, "listed": len(rows),
                                "list_sha256": hashlib.sha256(
                                    rows.tobytes()).hexdigest()}
@@ -1803,16 +1846,21 @@ def phase_api(torch, np, ops, shared, recorders) -> dict:
         rec.paused = True
     runs, out = [], {"phase": "api"}
     try:
-        # vectorized: one intersect launch over every oriented edge
+        # vectorized: one intersect launch over every oriented edge, in
+        # minmax orientation on phase 3's graph and in degree orientation
+        # on phase 5's (PERF.md §4 says why)
         vec = {}
-        for orientation in ("minmax", "degree"):
+        for orientation, graph, want in (
+                ("minmax", rmat, rmat["count"]),
+                ("degree", listing, listing["oracle"])):
             count, wall, launches = drive(torch, ops, lambda: count_triangles(
-                rmat["src"], rmat["dst"], method="vectorized",
+                graph["src"], graph["dst"], method="vectorized",
                 orientation=orientation))
             runs.append(launches)
-            assert count == rmat["count"], (orientation, count)
+            assert count == want, (orientation, count, want)
             assert launches["intersect"] == 1, launches
-            vec[orientation] = {"count": count, "wall_s": wall}
+            vec[orientation] = {"count": count, "wall_s": wall,
+                                "edges": int(len(graph["src"]))}
         dev = torch.device("cuda")
         a, b = csr_edges(np, *rmat["csr"])
         off = torch.from_numpy(rmat["csr"][0]).to(dev)
@@ -2235,6 +2283,448 @@ def phase_shard(torch, np, ops, shared, recorders) -> dict:
         for rec in recorders:
             rec.paused = False
     out["launches"] = {k: sum(r[k] for r in runs) for k in ops}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase: the query server (concurrent queries, admission, shared caches,
+# streamed listing, retry rounds)
+# ---------------------------------------------------------------------------
+
+def live_threads_since(before: set) -> list:
+    """Threads started since ``before`` (a set of idents) still alive,
+    after up to 10 s for them to wind down."""
+    import threading
+    deadline = time.monotonic() + 10.0
+    while True:
+        left = [t for t in threading.enumerate()
+                if t.ident not in before and t.is_alive()]
+        if not left or time.monotonic() > deadline:
+            return [t.name for t in left]
+        time.sleep(0.01)
+
+
+def latency_quantiles(reg, modes) -> dict:
+    """p50/p90/p99 of the ``serve.latency_s`` histogram per mode (queries
+    that finished), read from the server's MetricsRegistry."""
+    return {mode: {f"p{int(q * 100)}": reg.quantile(
+        "serve.latency_s", q, mode=mode, status="done")
+        for q in (0.5, 0.9, 0.99)} for mode in modes}
+
+
+def tags_sum_to_global(device) -> bool:
+    """The device's per-query ledgers sum exactly to its global ledger."""
+    tags = device.all_tag_stats().values()
+    return all(sum(getattr(t, f) for t in tags) == getattr(device.stats, f)
+               for f in ("block_reads", "block_writes", "word_reads"))
+
+
+def serve_line(srv, reg, n_queries: int, wall: float, launches: dict,
+               solo_reads: int, solo_wall: float, modes,
+               reads=None) -> dict:
+    """A server's JSON record: throughput, latency quantiles, admission
+    peak, block reads (default: the device's, every query's) against the
+    solo envelopes, plan cache, retry rounds and the kernels' launches."""
+    if reads is None:
+        reads = srv.device.stats.block_reads
+    return {"queries": n_queries, "wall_s": wall,
+            "queries_per_s": n_queries / wall if wall else None,
+            "latency_s": latency_quantiles(reg, modes),
+            "mem_words": srv.mem_words,
+            "peak_reserved": srv.admission.peak_reserved,
+            "peak_active": srv.admission.peak_active,
+            "block_reads": reads, "solo_block_reads": solo_reads,
+            "envelope_ratio": reads / solo_reads if solo_reads else None,
+            "plan_hits": srv.plan_hits, "plan_misses": srv.plan_misses,
+            "launches": launches, "solo_wall_sum_s": solo_wall,
+            "served_over_solo_wall": wall / solo_wall if solo_wall else None}
+
+
+def serve_check_common(srv, handles, line: dict) -> None:
+    assert line["peak_reserved"] <= srv.mem_words, line
+    assert tags_sum_to_global(srv.device), srv.device.all_tag_stats()
+    assert srv.admission.reserved_words == 0 and srv.admission.active == 0
+    for h in handles:
+        assert h.status in ("done", "cancelled"), (h.qid, h.status)
+
+
+def serve_a(torch, np, ops, shared) -> dict:
+    """Server A: the query phase's graph in memory on ``auto``; clients
+    submit round-robin from SERVE_MIX at once, each query held to its
+    serial ``solo_run`` at the same admitted budget and to the scipy
+    oracle; block reads within SERVE_ENVELOPE_FACTOR of the solo sum."""
+    import threading
+    from repro_torch import MetricsRegistry
+    from repro_torch.serve import Server
+    query = shared["query"]
+    adj = oriented_adjacency(np, query["src"], query["dst"])
+    # path3: each edge (y, z) with any in-neighbour of y and any
+    # out-neighbour of z
+    indeg = np.asarray(adj.sum(axis=0)).ravel()
+    outdeg = np.asarray(adj.sum(axis=1)).ravel()
+    oracles = {"triangle": int(adj.multiply(adj @ adj.T).sum()),
+               "path3": int(indeg @ (adj @ outdeg))}
+    reg = MetricsRegistry()
+    before = {t.ident for t in threading.enumerate()}
+    srv = Server.from_graph(query["src"], query["dst"],
+                            mem_words=SERVE_MEM_WORDS,
+                            max_active=SERVE_MAX_ACTIVE,
+                            queue_depth=SERVE_QUEUE_DEPTH,
+                            workers_per_query=SERVE_WORKERS, metrics=reg)
+    records, errors, handles = [], [], []
+    lock, gate = threading.Lock(), threading.Event()
+
+    def client(c: int) -> None:
+        try:
+            gate.wait(SERVE_TIMEOUT_S)
+            for k in range(SERVE_QUERIES):
+                name, mode = SERVE_MIX[(c + k) % len(SERVE_MIX)]
+                stream = mode == "list"
+                t0 = time.perf_counter()
+                h = srv.submit(name, mode, want_words=SERVE_WANT_WORDS,
+                               stream=stream, timeout=SERVE_TIMEOUT_S)
+                with lock:
+                    handles.append(h)
+                pages = list(h.pages()) if stream else None
+                result = h.result(SERVE_TIMEOUT_S)
+                if stream:
+                    # the pages in plan order are the whole listing
+                    assert pages and np.concatenate(pages).tobytes() \
+                        == result.tobytes(), h.qid
+                with lock:
+                    records.append({
+                        "name": name, "mode": mode, "result": result,
+                        "words": h.admitted_words, "qid": h.qid,
+                        "retry_rounds": h.retry_rounds,
+                        "pages": None if pages is None else len(pages),
+                        "latency_s": time.perf_counter() - t0})
+        except Exception as e:                   # noqa: BLE001
+            with lock:
+                errors.append(f"client {c}: {e!r}")
+
+    threads = [threading.Thread(target=client, args=(c,),
+                                name=f"serve-client-{c}")
+               for c in range(SERVE_CLIENTS)]
+    try:
+        reset_launches(ops)
+        torch.cuda.synchronize()
+        for t in threads:
+            t.start()
+        t0 = time.perf_counter()
+        gate.set()
+        for t in threads:
+            t.join(SERVE_TIMEOUT_S * SERVE_QUERIES)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches(ops)
+        assert not any(t.is_alive() for t in threads), "client hung"
+        assert not errors, errors
+        assert len(records) == SERVE_CLIENTS * SERVE_QUERIES, len(records)
+        # the serial oracle: one solo run per (pattern, mode, budget)
+        solos = {}
+        reset_launches(ops)
+        for r in records:
+            key = (r["name"], r["mode"], r["words"])
+            if key not in solos:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out, st = srv.solo_run(r["name"], r["mode"], words=r["words"])
+                torch.cuda.synchronize()
+                solos[key] = (out, st.block_reads, time.perf_counter() - t0)
+        solo_launches = read_launches(ops)
+        for r in records:
+            want, _, _ = solos[(r["name"], r["mode"], r["words"])]
+            assert r["retry_rounds"] == 0, r["qid"]
+            if r["mode"] == "count":
+                assert r["result"] == want == oracles[r["name"]], (
+                    r["qid"], r["name"], r["result"], want)
+            else:
+                assert r["result"].tobytes() == want.tobytes(), r["qid"]
+                assert len(want) == oracles["triangle"], len(want)
+        solo_reads = sum(solos[(r["name"], r["mode"], r["words"])][1]
+                         for r in records)
+        solo_wall = sum(solos[(r["name"], r["mode"], r["words"])][2]
+                        for r in records)
+        reg.collect()
+        line = serve_line(srv, reg, len(records), wall, launches,
+                          solo_reads, solo_wall, ("count", "list"))
+        assert line["block_reads"] \
+            <= SERVE_ENVELOPE_FACTOR * solo_reads, line
+        assert srv.plan_hits > 0, line
+        assert launches["intersect"] > 0, launches
+        serve_check_common(srv, handles, line)
+    finally:
+        srv.close()
+    left = live_threads_since(before)
+    assert not left, left
+    line.update(scale=QUERY_SCALE, edges=int(adj.nnz),
+                admitted_words=sorted({r["words"] for r in records}),
+                oracles=oracles,
+                pages=sum(r["pages"] or 0 for r in records),
+                retry_rounds=sum(r["retry_rounds"] for r in records),
+                client_latency_s={m: sorted(r["latency_s"] for r in records
+                                            if r["mode"] == m)
+                                  for m in ("count", "list")},
+                solo_launches=solo_launches)
+    return {"line": line, "runs": [launches, solo_launches]}
+
+
+def serve_b(torch, np, ops, shared) -> dict:
+    """Server B: the query phase's graph as a store on ``fused``; two
+    diamond counts at once, one with a fault injected once into the work
+    stage of one box (exactly one retry round), held to the outofcore
+    phase's store diamond (the same query, budget, cache and store: the
+    solo envelope); then the diamond through the box fabric from a
+    Session, every shard's ledger equal to its oracle engine's."""
+    import tempfile
+    from repro_torch import write_edge_store_csr
+    query = shared["query"]
+    with tempfile.TemporaryDirectory(prefix="serve-") as tmp:
+        path = Path(tmp) / "query.csr"
+        write_edge_store_csr(path, *query["csr"], orientation="minmax")
+        return serve_b_store(torch, ops, path, query["oracles"]["diamond"],
+                             shared["outofcore"])
+
+
+def serve_b_store(torch, ops, path, want: int, ooc: dict) -> dict:
+    """Server B over the store at ``path`` (serve_b); ``want`` is the
+    query phase's scipy diamond count, ``ooc`` the outofcore phase's
+    results."""
+    import threading
+    from repro_torch import Fabric, MetricsRegistry, patterns
+    from repro_torch.serve import Server, Session
+    reg = MetricsRegistry()
+    before = {t.ident for t in threading.enumerate()}
+    srv = Server({"E": str(path)}, mem_words=SERVE_B_MEM_WORDS,
+                 cache_words=SERVE_B_CACHE_WORDS,
+                 max_active=SERVE_B_MAX_ACTIVE, backend="fused",
+                 metrics=reg)
+    fired, lock = [], threading.Lock()
+
+    def fault(stage, qid, i):
+        if stage == "work" and qid == "q0":
+            with lock:
+                if not fired:
+                    fired.append(i)
+                    raise RuntimeError(f"injected fault in box {i}")
+
+    runs = []
+    try:
+        srv.fault_hook = fault
+        reset_launches(ops)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        handles = [srv.submit("diamond", want_words=SERVE_B_WANT_WORDS)
+                   for _ in range(2)]
+        counts = [h.result(SERVE_TIMEOUT_S) for h in handles]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches(ops)
+        runs.append(launches)
+        srv.fault_hook = None
+        assert counts == [want, want], (counts, want)
+        assert len(fired) == 1, fired
+        assert [h.retry_rounds for h in handles] == [1, 0], [
+            h.retry_rounds for h in handles]
+        assert srv.admission.peak_active == 2, srv.admission.peak_active
+        assert launches["lftj_fused"] > 0, launches
+        words = handles[0].admitted_words
+        assert handles[1].admitted_words == words
+        # solo_run at this grant is the outofcore phase's store diamond
+        assert (words, srv.floor_words) == (
+            OOC_QUERY_MEM_WORDS, OOC_QUERY_CACHE_WORDS), words
+        solo_reads = ooc["diamond_io"]["block_reads"]
+        reg.collect()
+        line = serve_line(srv, reg, len(handles), wall, launches,
+                          2 * solo_reads, 2 * ooc["diamond_s"], ("count",))
+        assert line["block_reads"] \
+            <= SERVE_ENVELOPE_FACTOR * line["solo_block_reads"], line
+        serve_check_common(srv, handles, line)
+        line.update(retry_rounds=[h.retry_rounds for h in handles],
+                    injected_box=fired[0], admitted_words=words,
+                    cache_words=SERVE_B_CACHE_WORDS,
+                    floor_words=srv.floor_words)
+        # the box fabric over the server's warm store, from a Session;
+        # the server's fabric_run is wrapped to keep the FabricStats that
+        # Session.fabric_count drops
+        fabric_runs, fabric_run = [], srv.fabric_run
+        srv.fabric_run = lambda *a, **kw: fabric_runs.append(
+            fabric_run(*a, **kw)) or fabric_runs[-1]
+        with Session(srv, n_shards=SERVE_FABRIC_SHARDS,
+                     want_words=SERVE_B_WANT_WORDS) as ses:
+            count_f, wall_f, launches_f = drive(
+                torch, ops, lambda: ses.fabric_count("diamond"))
+        runs.append(launches_f)
+        assert count_f == want, (count_f, want)
+        assert launches_f["lftj_fused"] > 0, launches_f
+        assert len(fabric_runs) == 1, len(fabric_runs)
+        fstats = fabric_runs[0][1]
+        # each shard's ledger against its oracle engine: the same
+        # restricted plan over the full store on a fresh device
+        fab = Fabric(patterns.diamond(), store=str(path),
+                     order=srv._order_for(patterns.diamond()),
+                     n_shards=SERVE_FABRIC_SHARDS,
+                     mem_words=SERVE_B_WANT_WORDS,
+                     cache_words=srv.floor_words,
+                     io_block_words=srv.device.B, backend="fused",
+                     workers=srv.workers_per_query)
+        reset_launches(ops)
+        oracle_reads, oracle_count = [], 0
+        for s in range(SERVE_FABRIC_SHARDS):
+            orc = fab.oracle_engine(s)
+            oracle_count += sum(int(r) for r in orc.run_boxes("count")
+                                if r is not None)
+            oracle_reads.append([orc.stats.block_reads,
+                                 orc.stats.word_reads])
+        runs.append(read_launches(ops))
+        assert oracle_count == want, (oracle_count, want)
+        assert [list(x) for x in zip(fstats.shard_block_reads,
+                                     fstats.shard_word_reads)] \
+            == oracle_reads, (fstats, oracle_reads)
+        assert srv.admission.reserved_words == 0
+        line["fabric"] = {"shards": fstats.n_shards, "count": count_f,
+                          "session_wall_s": wall_f, "launches": launches_f,
+                          "shard_boxes": fstats.shard_boxes,
+                          "shard_block_reads": fstats.shard_block_reads,
+                          "balance": fstats.balance}
+    finally:
+        srv.close()
+    left = live_threads_since(before)
+    assert not left, left
+    return {"line": line, "runs": runs}
+
+
+def serve_c(torch, np, ops, shared) -> dict:
+    """Server C: the query-listing phase's graph in memory on ``fused``; a
+    four-clique count, then a streamed four-clique listing consumed slowly
+    enough that its page queue fills (pages equal to that phase's bytes),
+    then a streamed listing cancelled after its first page (its consumer
+    gets QueryCancelled) and a count after it, still exact."""
+    import threading
+    from repro_torch import MetricsRegistry
+    from repro_torch.serve import QueryCancelled, Server
+    qlist = shared["query_listing"]
+    words = qlist["mem_words"]
+    reg = MetricsRegistry()
+    before = {t.ident for t in threading.enumerate()}
+    srv = Server.from_graph(qlist["src"], qlist["dst"],
+                            mem_words=SERVE_C_MEM_WORDS, backend="fused",
+                            page_rows=SERVE_C_PAGE_ROWS,
+                            page_queue_depth=SERVE_C_PAGE_DEPTH,
+                            metrics=reg)
+    handles, runs = [], []
+    try:
+        reset_launches(ops)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = srv.submit("four_clique", want_words=words)
+        handles.append(h)
+        count = h.result(SERVE_TIMEOUT_S)
+        assert count == qlist["listed"], (count, qlist["listed"])
+        # the streamed listing: the consumer waits at each page until the
+        # queue is full (the box workers then block on it) or the query
+        # has finished
+        h = srv.submit("four_clique", "list", stream=True, want_words=words)
+        handles.append(h)
+        digest, n_rows, n_pages, full_seen = hashlib.sha256(), 0, 0, 0
+        for page in h.pages():
+            q = h._stream._q
+            while not q.full() and not h.done():
+                time.sleep(0.001)
+            full_seen += q.full()
+            digest.update(page.tobytes())
+            n_rows += len(page)
+            n_pages += 1
+        rows = h.result(SERVE_TIMEOUT_S)
+        assert digest.hexdigest() == qlist["list_sha256"], n_rows
+        assert hashlib.sha256(rows.tobytes()).hexdigest() \
+            == qlist["list_sha256"]
+        assert n_rows == qlist["listed"] and n_pages == h._stream.n_pages
+        assert full_seen > 0, full_seen
+        # a streamed listing cancelled after its first page
+        h = srv.submit("four_clique", "list", stream=True, want_words=words)
+        handles.append(h)
+        pages = h.pages()
+        first = next(pages)
+        h.cancel()
+        cancelled = False
+        try:
+            for _ in pages:
+                pass
+        except QueryCancelled:
+            cancelled = True
+        assert cancelled and h.wait(SERVE_TIMEOUT_S), h.status
+        assert h.status == "cancelled", h.status
+        h = srv.submit("four_clique", want_words=words)
+        handles.append(h)
+        after = h.result(SERVE_TIMEOUT_S)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches(ops)
+        runs.append(launches)
+        assert after == qlist["listed"], (after, qlist["listed"])
+        assert launches["lftj_fused"] > 0, launches
+        assert launches["lftj_fused_list"] > 0, launches
+        for h in handles:
+            assert h.retry_rounds == 0, (h.qid, h.retry_rounds)
+        # the counts' solo envelope (the listing's bytes are held to phase
+        # 10's run of the same query at the same budget, whose wall stands
+        # for its solo wall)
+        reset_launches(ops)
+        t0 = time.perf_counter()
+        solo, solo_st = srv.solo_run("four_clique", words=words)
+        torch.cuda.synchronize()
+        solo_count_s = time.perf_counter() - t0
+        runs.append(read_launches(ops))
+        assert solo == qlist["listed"], solo
+        counts = [h for h in handles if h.mode == "count"]
+        reg.collect()
+        line = serve_line(
+            srv, reg, len(handles), wall, launches,
+            len(counts) * solo_st.block_reads,
+            len(counts) * solo_count_s + qlist["list_s"], ("count", "list"),
+            reads=sum(h.stats.block_reads for h in counts))
+        assert line["block_reads"] \
+            <= SERVE_ENVELOPE_FACTOR * line["solo_block_reads"], line
+        serve_check_common(srv, handles, line)
+        line.update(scale=QUERY_LIST_SCALE, admitted_words=words,
+                    listed=n_rows, pages=n_pages, page_rows=SERVE_C_PAGE_ROWS,
+                    page_queue_depth=SERVE_C_PAGE_DEPTH,
+                    queue_full_at_pages=full_seen,
+                    cancelled_after_rows=len(first),
+                    list_block_reads=handles[1].stats.block_reads,
+                    device_block_reads=srv.device.stats.block_reads,
+                    retry_rounds=sum(h.retry_rounds for h in handles))
+    finally:
+        srv.close()
+    left = live_threads_since(before)
+    assert not left, left
+    return {"line": line, "runs": runs}
+
+
+def phase_serve(torch, np, ops, shared, recorders) -> dict:
+    """The query server on the card: Server A (in memory, ``auto``,
+    concurrent clients), Server B (a store, ``fused``, a fault injected
+    once, the box fabric from a Session) and Server C (in memory,
+    ``fused``, streamed four-clique listings, one cancelled). Calls of
+    this phase are not recorded for the timing phase."""
+    for rec in recorders:
+        rec.paused = True
+    out, runs = {"phase": "serve"}, []
+    try:
+        for name, run in (("server_a", serve_a), ("server_b", serve_b),
+                          ("server_c", serve_c)):
+            t0 = time.perf_counter()
+            res = run(torch, np, ops, shared)
+            res["line"]["server_s"] = time.perf_counter() - t0
+            out[name] = res["line"]
+            runs.extend(res["runs"])
+    finally:
+        for rec in recorders:
+            rec.paused = False
+    out["launches"] = {k: sum(r[k] for r in runs) for k in ops}
+    for k in ("intersect", "lftj_fused", "lftj_fused_list"):
+        assert out["launches"][k] > 0, (k, out["launches"])
     return out
 
 
@@ -2787,12 +3277,14 @@ def bag_kernel_rows(timing: dict, launches: dict) -> list:
 
 
 PHASES = ("rmat", "clustered", "listing", "skew", "fused", "query",
-          "outofcore", "query_listing", "api", "shard", "embedding_bag")
+          "outofcore", "query_listing", "api", "shard", "serve",
+          "embedding_bag")
 # the phases whose graphs and results a phase reuses
 NEEDS = {"skew": ("rmat",), "fused": ("clustered", "listing"),
-         "query": ("rmat",), "outofcore": ("rmat", "listing", "query"),
+         "query": ("listing",), "outofcore": ("rmat", "listing", "query"),
          "api": ("rmat", "clustered", "listing", "query", "outofcore"),
-         "shard": ("rmat", "listing", "query", "query_listing")}
+         "shard": ("rmat", "listing", "query", "query_listing"),
+         "serve": ("listing", "query", "outofcore", "query_listing")}
 
 
 def with_needs(names) -> list:
@@ -2813,7 +3305,7 @@ def main() -> int:
     ap.add_argument("--quick", action="store_true",
                     help="device, build and kernel checks only")
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="main-path phases to run (default: all eleven), "
+                    help="main-path phases to run (default: all twelve), "
                          "with the phases they reuse (NEEDS)")
     ap.add_argument("--profile", action="store_true",
                     help="repeat each main-path count under "
@@ -2926,6 +3418,9 @@ def main() -> int:
             "api": lambda: phase_api(torch, np, ops, shared,
                                      [rec_i, rec_r, rec_d, rec_f, rec_l]),
             "shard": lambda: phase_shard(torch, np, ops, shared,
+                                         [rec_i, rec_r, rec_d, rec_f,
+                                          rec_l]),
+            "serve": lambda: phase_serve(torch, np, ops, shared,
                                          [rec_i, rec_r, rec_d, rec_f,
                                           rec_l]),
             "embedding_bag": lambda: phase_embedding_bag(

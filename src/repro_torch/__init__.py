@@ -15,8 +15,10 @@ density thresholds calibrated on the card. ``TriangleEngine(shard=True,
 devices=[...])`` shards its boxes over several devices (or one device,
 repeated), and ``Fabric`` runs a ``QueryEngine`` plan as shards, each on
 only the byte ranges its boxes touch, in one process or across several
-(``python -m repro_torch.parallel.fabric``). It imports ``torch`` and numpy
-only. Entry points run on the card unless the caller passes
+(``python -m repro_torch.parallel.fabric``). ``Server`` / ``Session``
+(``serve``) keep relations warm and serve concurrent pattern queries, each
+within its admitted share of one memory budget. It imports ``torch`` and
+numpy only. Entry points run on the card unless the caller passes
 ``torch_device="cpu"`` (or CPU tensors, for ``embedding_bag``).
 """
 
@@ -39,10 +41,12 @@ from repro_torch.launch.mesh import (fabric_mesh, maybe_init_distributed,
                                      resolve_fabric_shards)
 from repro_torch.obs import MetricsRegistry, Tracer
 from repro_torch.query import QueryEngine, QueryStats, patterns, query_count
+from repro_torch.serve import Server, Session
 
 __all__ = ["EdgeStore", "EdgeStoreWriter", "EngineStats", "Fabric",
            "FabricShippingError", "MetricsRegistry", "QueryEngine",
-           "QueryStats", "ShippedEdgeSource", "SliceCache", "Tracer",
+           "QueryStats", "Server", "Session", "ShippedEdgeSource",
+           "SliceCache", "Tracer",
            "TriangleEngine", "adversarial_graph", "brute_force_count",
            "count_triangles", "embedding_bag", "engine_count", "engine_list",
            "fabric_mesh", "list_triangles", "maybe_init_distributed",

@@ -358,3 +358,89 @@ def test_argument_checks():
         # the default device is the card, which this host does not have
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             Fabric.from_graph(PATTERNS["triangle"](), *SMALL, n_shards=2)
+
+
+# ---------------------------------------------------------------------------
+# serving layer integration (admission-gated fabric runs)
+# ---------------------------------------------------------------------------
+
+class TestServeFabric:
+    def test_fabric_run_equals_reference(self, thread_guard):
+        """``Server.fabric_run`` and ``Session.fabric_count`` /
+        ``fabric_list`` over the port's ``Fabric``: the reference server's
+        results, shard stats and shipping-read ledger, and the admission
+        reservation returned afterwards."""
+        from repro.serve import Server as RefServer
+        from repro.serve import Session as RefSession
+        from repro_torch.serve import Server, Session
+
+        ref = RefServer.from_graph(*SMALL, mem_words=1 << 15,
+                                   use_pallas_kernels=False)
+        srv = Server.from_graph(*SMALL, mem_words=1 << 15,
+                                torch_device="cpu")
+        try:
+            want = srv.submit("triangle").result(timeout=300)
+            assert want == ref.submit("triangle").result(timeout=300)
+            for mode in ("count", "list"):
+                for shards in (1, 4):
+                    got, stats = srv.fabric_run("triangle", mode,
+                                                n_shards=shards)
+                    r_got, r_stats = ref.fabric_run("triangle", mode,
+                                                    n_shards=shards)
+                    if mode == "count":
+                        assert got == r_got == want == oracle("triangle")
+                    else:
+                        assert got.tobytes() == r_got.tobytes()
+                        np.testing.assert_array_equal(
+                            got, oracle("triangle", "list"))
+                    assert stats.n_shards == shards
+                    assert dataclasses.asdict(stats) == \
+                        dataclasses.asdict(r_stats)
+            assert srv.device.stats.block_reads == \
+                ref.device.stats.block_reads
+            assert srv.admission.reserved_words == 0
+            assert srv.admission.active == 0
+            with Session(srv) as ses, RefSession(ref) as rses:
+                assert ses.fabric_count("triangle", n_shards=2) == want
+                rows = ses.fabric_list("diamond", n_shards=2)
+                assert rows.tobytes() == \
+                    rses.fabric_list("diamond", n_shards=2).tobytes()
+                # the server's order keeps every atom consistent, so
+                # its rows come in another order than the oracle's
+                want_rows = oracle("diamond", "list")
+                np.testing.assert_array_equal(
+                    rows[np.lexsort(rows.T[::-1])],
+                    want_rows[np.lexsort(want_rows.T[::-1])])
+        finally:
+            srv.close()
+            ref.close()
+
+    def test_fabric_run_over_a_store_equals_reference(self, store_path,
+                                                      thread_guard):
+        """A store-backed server: the fabric's per-shard ledgers equal
+        each shard's oracle engine's and the reference's."""
+        from repro.serve import Server as RefServer
+        from repro_torch.serve import Server
+
+        kw = dict(mem_words=1 << 13, cache_words=1 << 12)
+        with RefServer({"E": store_path}, use_pallas_kernels=False,
+                       **kw) as ref, \
+                Server({"E": store_path}, torch_device="cpu", **kw) as srv:
+            got, stats = srv.fabric_run("diamond", n_shards=4,
+                                        want_words=1 << 12)
+            want, r_stats = ref.fabric_run("diamond", n_shards=4,
+                                           want_words=1 << 12)
+            assert got == want
+            assert dataclasses.asdict(stats) == dataclasses.asdict(r_stats)
+            assert srv.admission.reserved_words == 0
+
+    def test_fabric_run_rejects_as_submit_does(self):
+        from repro_torch.serve import Server
+        with Server.from_graph(*SMALL, mem_words=1 << 14,
+                               torch_device="cpu") as srv:
+            with pytest.raises(ValueError, match="mode"):
+                srv.fabric_run("triangle", "sum")
+            with pytest.raises(ValueError, match="unknown pattern"):
+                srv.fabric_run("pentagon")
+        with pytest.raises(Exception, match="closed"):
+            srv.fabric_run("triangle")

@@ -12,7 +12,14 @@ to ``stats.device_invocations``, the same non-time series in
 transfer bytes only for presence), and counts and listings unchanged with
 tracing on. The reference calls the intersect lane "pallas" (and counts
 it in ``n_pallas_boxes``); the comparison maps those names, in this file.
-Tolerance: none — names, counts and series values are exact.
+Tolerance: none — names, counts and series values are exact. Served runs
+(``tests/test_obs.py``'s serve cases): a served query records the span
+taxonomy (``serve.admission`` / ``serve.query`` / ``query.plan`` / box
+spans, cache and kernel events) and the ``serve.latency_s`` histogram,
+with the reference's multisets of names; the registry's ``io.*`` and
+``cache.*`` series sum exactly to the raw device and shared-cache
+ledgers, departed tenants included, and equal the reference server's
+series after the same serial queries.
 """
 
 import json
@@ -21,6 +28,7 @@ from collections import Counter
 
 import numpy as np
 import pytest
+from hypothesis import given, settings, strategies as st
 
 from repro.core.engine import TriangleEngine as RefEngine
 from repro.data.graphs import random_graph, rmat_graph
@@ -28,7 +36,8 @@ from repro.obs import MetricsRegistry as RefRegistry
 from repro.obs import Tracer as RefTracer
 from repro.query import QueryEngine as RefQueryEngine
 from repro.query import patterns as ref_patterns
-from repro_torch import QueryEngine, TriangleEngine, patterns
+from repro.serve import Server as RefServer
+from repro_torch import QueryEngine, Server, TriangleEngine, patterns
 from repro_torch.core.engine import EngineStats
 from repro_torch.core.executor import merge_queue_telemetry
 from repro_torch.obs import (MetricsRegistry, Tracer, default_registry,
@@ -455,3 +464,153 @@ def test_slice_cache_events_match_its_counters():
     assert len(hits) == eng.stats.cache_hits
     assert sum(e["args"]["blocks"] for e in misses) == eng.stats.cache_misses
     assert sum(e["args"]["words"] for e in hits) == eng.stats.cache_hit_words
+
+
+# ---------------------------------------------------------------------------
+# served runs: span taxonomy + registry/ledger exact-sum invariants
+# ---------------------------------------------------------------------------
+
+IO_FIELDS = ("block_reads", "block_writes", "word_reads", "probes",
+             "cache_served_words")
+CACHE_FIELDS = ("hits", "misses", "hit_words", "miss_words",
+                "passthrough_words")
+
+
+def labeled_sum(reg, name, label):
+    """Sum of every series of ``name`` carrying ``label`` (any value)."""
+    return sum(v for key, v in reg.series(name).items()
+               if any(k == label for k, _ in key))
+
+
+def unlabeled_value(reg, name, label):
+    """The one series of ``name`` with no ``label`` label (the global)."""
+    vals = [v for key, v in reg.series(name).items()
+            if not any(k == label for k, _ in key)]
+    assert len(vals) == 1, (name, vals)
+    return vals[0]
+
+
+class TestServeObservability:
+    def test_span_taxonomy_and_latency_histogram(self, thread_guard):
+        """One served run on the intersect lane records the acceptance
+        taxonomy (admission, planning, per-box fetch/compute, a cache
+        event, a kernel launch) with the reference's span and event
+        multisets, and a latency histogram."""
+        r_tr, p_tr = RefTracer(), Tracer()
+        r_reg, p_reg = RefRegistry(), MetricsRegistry()
+        # the reference's "pallas" backend is the port's "intersect"
+        ref = RefServer.from_graph(*SMALL, mem_words=1 << 15,
+                                   backend="pallas",
+                                   use_pallas_kernels=False, tracer=r_tr,
+                                   metrics=r_reg)
+        port = Server.from_graph(*SMALL, mem_words=1 << 15,
+                                 backend="intersect", torch_device="cpu",
+                                 tracer=p_tr, metrics=p_reg)
+        with ref, port:
+            want = ref.submit("triangle", "count").result(timeout=300)
+            got = port.submit("triangle", "count").result(timeout=300)
+        assert got == want == QueryEngine.from_graph(
+            patterns.triangle(), *SMALL, mem_words=1 << 14,
+            torch_device="cpu").count()
+        names = p_tr.span_names()
+        for required in ("serve.admission", "serve.query", "query.plan",
+                         "box.fetch", "box.compute"):
+            assert required in names, (required, names)
+        events = {e["name"] for e in p_tr.snapshot() if e["ph"] == "i"}
+        assert any(n.startswith("cache.") for n in events), events
+        assert "kernel.launch" in events, events
+        r_spans, r_inst, r_launch = _events(r_tr)
+        p_spans, p_inst, p_launch = _events(p_tr)
+        assert p_spans == r_spans
+        assert p_inst == r_inst
+        assert p_launch == r_launch > 0
+        assert p_reg.quantile("serve.latency_s", 0.5, mode="count",
+                              status="done") is not None
+
+    def test_streamed_listing_records_page_offers(self, thread_guard):
+        tr = Tracer()
+        # tests/test_serve.py's graph: several boxes at 2^12 words
+        graph = rmat_graph(512, 6000, seed=21)
+        with Server.from_graph(*graph, mem_words=1 << 12, page_rows=64,
+                               torch_device="cpu", tracer=tr) as srv:
+            h = srv.submit("path3", "list", stream=True)
+            n_rows = sum(len(p) for p in h.pages())
+            assert h.wait(60)
+        offers = [e for e in tr.snapshot()
+                  if e["ph"] == "i" and e["name"] == "serve.page.offer"]
+        assert len(offers) == h.stats.n_boxes > 1
+        assert n_rows == h.stats.n_results
+
+    @settings(max_examples=5, deadline=None)
+    @given(st.lists(st.sampled_from(["triangle", "path3", "four_clique"]),
+                    min_size=1, max_size=3),
+           st.sampled_from(["count", "list"]))
+    def test_registry_sums_match_raw_ledgers(self, names, mode):
+        reg = MetricsRegistry()
+        with Server.from_graph(*SMALL, mem_words=1 << 15,
+                               torch_device="cpu", metrics=reg) as srv:
+            handles = [srv.submit(n, mode) for n in names]
+            for h in handles:
+                h.result(timeout=300)
+            reg.collect()
+            for f in IO_FIELDS:
+                raw = int(getattr(srv.device.stats, f))
+                assert unlabeled_value(reg, f"io.{f}", "tag") == raw
+                assert labeled_sum(reg, f"io.{f}", "tag") == raw, f
+            tags = {dict(k).get("tag")
+                    for k in reg.series("io.block_reads") if k}
+            assert "_untagged" in tags
+            for rel, cache in srv.caches.items():
+                for f in CACHE_FIELDS:
+                    raw = int(getattr(cache, f))
+                    series = {k: v for k, v in
+                              reg.series(f"cache.{f}").items()
+                              if dict(k).get("relation") == rel}
+                    tenant_sum = sum(
+                        v for k, v in series.items()
+                        if any(lk == "tenant" for lk, _ in k))
+                    assert tenant_sum == raw, (rel, f)
+                tenants = {dict(k).get("tenant")
+                           for k in reg.series("cache.hits")
+                           if dict(k).get("relation") == rel}
+                assert "_shared" in tenants
+
+    def test_departed_tenants_keep_summing(self, thread_guard):
+        reg = MetricsRegistry()
+        with Server.from_graph(*SMALL, mem_words=1 << 15,
+                               torch_device="cpu", metrics=reg) as srv:
+            for _ in range(2):
+                srv.submit("triangle", "count").result(timeout=300)
+            reg.collect()
+            cache = srv.caches["E"]
+            assert cache.hits > 0
+            assert labeled_sum(reg, "cache.hits", "tenant") == cache.hits
+            assert set(cache.all_tenant_stats()) == {"q0", "q1"}
+
+    def test_served_series_equal_reference(self, thread_guard):
+        """The same queries served one at a time on both host lanes: the
+        same io.*, cache.* and query.* series (times for presence only),
+        so the registry adopts the port's ledgers as it does the
+        reference's."""
+        r_reg, p_reg = RefRegistry(), MetricsRegistry()
+        ref = RefServer.from_graph(*SMALL, mem_words=1 << 13,
+                                   use_pallas_kernels=False, metrics=r_reg)
+        port = Server.from_graph(*SMALL, mem_words=1 << 13,
+                                 use_kernels=False, torch_device="cpu",
+                                 metrics=p_reg)
+        with ref, port:
+            for name, mode in (("triangle", "count"), ("path3", "list"),
+                               ("triangle", "count")):
+                want = ref.submit(name, mode).result(timeout=300)
+                got = port.submit(name, mode).result(timeout=300)
+                if mode == "count":
+                    assert got == want
+                else:
+                    assert got.tobytes() == want.tobytes()
+            r_reg.collect()
+            p_reg.collect()
+        r_snap = _canon_series(r_reg.snapshot(), ref=True)
+        p_snap = _canon_series(p_reg.snapshot(), ref=False)
+        assert p_snap == r_snap
+        assert any(k[0].startswith("cache.") for k in p_snap["counters"]) \
+            or any(k[0].startswith("cache.") for k in p_snap["gauges"])

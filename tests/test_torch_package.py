@@ -214,3 +214,31 @@ def test_shard_is_the_only_option_not_ported():
                                   metrics=reg).count() == 1
     assert "engine.count" in tr.span_names()
     assert "query.boxes" in tr.span_names()
+
+
+def test_serve_and_runtime_import_no_jax_and_no_reference():
+    """The serving layer and the runtime load on a host without JAX:
+    importing ``repro_torch.serve`` and ``repro_torch.runtime`` (and the
+    package root, which exports ``Server`` / ``Session``) in a fresh
+    interpreter pulls in neither ``jax`` nor ``repro``, and leaves the
+    fabric to load on first use."""
+    code = (
+        "import sys\n"
+        "import repro_torch.serve, repro_torch.runtime\n"
+        "from repro_torch import Server, Session\n"
+        "from repro_torch.serve import server\n"
+        "from repro_torch.runtime import straggler, elastic\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "assert 'repro_torch.parallel.fabric' not in sys.modules\n"
+        "assert Server is server.Server\n"
+        "print('IMPORT_OK')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "IMPORT_OK" in out.stdout
+    for path in ("serve/server.py", "serve/cache.py", "serve/admission.py",
+                 "runtime/straggler.py", "runtime/elastic.py"):
+        assert _not_ported_features(path) == [], path
