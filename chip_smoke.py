@@ -33,7 +33,25 @@ Phases (the kernels each main-path phase must launch in brackets):
                   "onehot" on the variant ops.onehot_route picks, equal
                   to "dma" bit for bit; int32 and int64 indices read in
                   place, int64 PAD values past 2^31; a negative index in
-                  a child process per kernel must fail).
+                  a child process per kernel must fail); embedding_bag on
+                  bfloat16 tables (both kernels, both "onehot" variants,
+                  float32 output, equal to the plain version bit for bit
+                  at L = 1).
+ 2a. dryrun     — the fabric dry run (``repro_torch.launch.dryrun``) at
+                  the reference test's size and the CLI's defaults, and
+                  its CLI in a child process that sees no card; no launch.
+ 2b. dlrm       — DLRM serving at the full dlrm-mlperf width (26 bfloat16
+                  tables, 187,775,488 rows x 128, initialised on the card):
+                  ``serve_step`` at serve_p99 (B = 512) and serve_bulk (B =
+                  262,144), ``retrieval_score`` at retrieval_cand (one
+                  query, 1,000,000 candidates), and ``serve_step`` at
+                  serve_p99 with the tables row-sharded over the card
+                  repeated twice [embedding_bag "dma" 11 and "onehot" 15
+                  a forward]; each against ``use_kernels=False``: lookups
+                  equal bit for bit, scores within 1e-6, top-100 indices
+                  equal, the sharded scores equal the unsharded; the peak
+                  below 80 GB; timed; the tables freed. dryrun and dlrm
+                  run first, on an empty card.
   3. rmat       — Graph500-style RMAT, ``backend="auto"`` [intersect]; the
                   count must equal the plain torch ``binary`` lane.
   4. clustered  — triangle-rich planted-partition graph [triangle_dense];
@@ -198,6 +216,26 @@ BAG_D, BAG_B = 128, 65_536
 BAG_LS, BAG_PAD_SHARE = (1, 8), 0.1
 # launches a CUDA graph holds to time the embedding_bag kernels alone
 BAG_GRAPH_LAUNCHES = 20
+# the dlrm phase: dlrm-mlperf's full CONFIG (26 bfloat16 tables,
+# 187,775,488 padded rows x 128 = 48.07 GB) served on the card at its
+# cells' shapes (RECSYS_SHAPES: serve_p99 B = 512, serve_bulk B = 262,144,
+# retrieval_cand one query against 1,000,000 candidates), batches from the
+# Criteo-like generator at the config's hot = 1, params and candidates
+# from seeded generators; the p99 batch once more with the tables
+# row-sharded over the card repeated twice; the peak must stay below the
+# card's 80 GB; the kernels line's bfloat16 rows time the lookup at L = 1,
+# B = BAG_B on the largest field (table 19) and the eighteenth (table 17)
+DLRM_ARCH, DLRM_SEED = "dlrm-mlperf", 0
+DLRM_TABLE_ROWS = 187_775_488
+DLRM_SHARD_DEVICES = 2
+DLRM_PEAK_LIMIT = 80e9
+DLRM_SCORE_ATOL = 1e-6
+DLRM_BF16_FIELDS = (("largest", 19), ("eighteenth", 17))
+# kernels by device time in the profile of one serve step
+DLRM_PROFILE_TOP = 12
+# the dryrun phase: the fabric dry run at the reference test's sizes and at
+# its CLI's defaults
+DRYRUN_SHARDS = (3, 4)
 # the fused kernel's plain version is timed on the largest main-path input
 # whose padded (R, K) atoms hold at most this many words
 FUSED_PLAIN_WORDS_CAP = 1 << 30
@@ -391,6 +429,12 @@ def count_syncs(torch, fn):
 
 def profile_count(torch, eng, label: str, top: int = 10) -> dict:
     """Device time by kernel name over one more ``eng.count()`` under
+    ``torch.profiler`` (``profile_call``)."""
+    return profile_call(torch, eng.count, label, top)
+
+
+def profile_call(torch, fn, label: str, top: int = 10) -> dict:
+    """Device time by kernel name over one ``fn()`` under
     ``torch.profiler``; ``idle_share`` is the share of the wall time in
     which no kernel or copy ran."""
     from torch.profiler import ProfilerActivity, profile
@@ -398,7 +442,7 @@ def profile_count(torch, eng, label: str, top: int = 10) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        eng.count()
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only (kernels, copies, memsets): the operator
@@ -939,6 +983,22 @@ BAG_CASES = ((1, 1, 1, 1), (100, 16, 37, 5), (1000, 128, 64, 8),
              (1817, 128, 500, 8), (1816, 128, 500, 1), (1817, 128, 500, 1),
              (1024, 128, 300, 0), (1024, 128, 300, 40), (1024, 128, 5, 8),
              (14528, 128, 500, 8), (14529, 128, 500, 8))
+# bfloat16 tables (V, D, B, L): D = 1 and a width no 8-value vector
+# divides (one element a load), D = 8 and 16 (slices narrower than the
+# route takes: the row gather's 16-byte loads), the dlrm-mlperf width D =
+# 128 at the edges of each bfloat16 slice width (908 rows: w = 128; 909
+# and 1,816: w = 64; 3,632: w = 32; 3,633 and 7,264: w = 16; 14,528: w =
+# 8; 14,529: no slice), the eighteenth field (1,024 rows) at L = 1, L = 0
+# and L = 40, fewer bags than the grid has ranges, the largest bfloat16
+# "onehot" field (13,312 rows) at L = 1
+BAG_BF16_CASES = ((1, 1, 1, 1), (1000, 12, 50, 3), (5000, 130, 513, 9),
+                  (50, 8, 10, 40), (100, 16, 37, 5), (908, 128, 300, 3),
+                  (909, 128, 300, 8), (1816, 128, 500, 8),
+                  (3632, 128, 500, 8), (3633, 128, 500, 1),
+                  (7264, 128, 500, 8), (14528, 128, 500, 8),
+                  (14529, 128, 500, 8), (1024, 128, 2000, 1),
+                  (1024, 128, 300, 0), (1024, 128, 300, 40),
+                  (1024, 128, 5, 8), (13312, 128, 2000, 1))
 # the reference test's bound (tests/test_kernels.py): the kernel adds in
 # slot order, the plain version in PyTorch's order
 BAG_ATOL = 1e-4
@@ -978,7 +1038,8 @@ def bag_modes(torch, bag_ops, table, idx, want) -> dict:
     launch of its mode, "onehot" on the variant the rule picks and equal
     to "dma" bit for bit. Returns the worst error and the variant."""
     v, d = table.shape
-    w = bag_ops.onehot_route(v, d, table.data_ptr() % 16 == 0)
+    w = bag_ops.onehot_route(v, d, table.data_ptr() % 16 == 0,
+                             table.element_size())
     variant = "slices" if w else "rows"
     got = {}
     worst = 0.0
@@ -1078,12 +1139,57 @@ def phase_bag_cases(torch, np, bag_ops, children: dict) -> dict:
     worst = max(worst, r["err"])
     variants[r["variant"]] += 1
     n_cases += 1
+    bf16 = bag_bf16_cases(torch, np, bag_ops, gen, rng)
     torch.cuda.synchronize()
     negative = bag_negative_results(children)
     return {"phase": "kernels", "of": ["embedding_bag"],
             "cases": n_cases, "onehot_variants": dict(variants),
             "atol": BAG_ATOL, "max_abs_err": worst,
-            "onehot_equals_dma": True, "negative_index": negative}
+            "onehot_equals_dma": True, "bf16": bf16,
+            "negative_index": negative}
+
+
+def bag_bf16_cases(torch, np, bag_ops, gen, rng) -> dict:
+    """bfloat16 tables: both kernels and both "onehot" variants on
+    BAG_BF16_CASES with int64 and int32 indices, and an unaligned view
+    (2 bytes in: one element a load, "onehot" on the row gather), each
+    within BAG_ATOL of the plain version (float32 output), "onehot" equal
+    to "dma" bit for bit; at L = 1 both equal the plain version bit for
+    bit (a bag is one widened row)."""
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    dev = torch.device("cuda")
+    worst = 0.0
+    n_cases = 0
+    variants = Counter()
+    widths = Counter()
+    for v, d, b, ll in BAG_BF16_CASES:
+        table = torch.randn((v, d), generator=gen, device=dev) \
+            .to(torch.bfloat16)
+        idx = torch.from_numpy(bag_indices(np, rng, v, b, ll)).to(dev)
+        want = embedding_bag_ref(table, idx)
+        assert want.dtype == torch.float32
+        for ix in (idx, idx.to(torch.int32)):
+            r = bag_modes(torch, bag_ops, table, ix, want)
+            if ll == 1:
+                assert torch.equal(bag_ops.embedding_bag(table, ix), want), \
+                    (v, d, b)
+            worst = max(worst, r["err"])
+            variants[r["variant"]] += 1
+            widths[r["w"]] += 1
+            n_cases += 1
+    buf = torch.randn(1000 * 128 + 1, generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    table = buf[1:].view(1000, 128)
+    idx = torch.from_numpy(bag_indices(np, rng, 1000, 77, 6)).to(dev)
+    r = bag_modes(torch, bag_ops, table, idx, embedding_bag_ref(table, idx))
+    assert r["variant"] == "rows", r
+    worst = max(worst, r["err"])
+    variants[r["variant"]] += 1
+    n_cases += 1
+    assert variants["slices"] and variants["rows"], variants
+    return {"cases": n_cases, "onehot_variants": dict(variants),
+            "slice_widths": {str(w): n for w, n in sorted(widths.items())},
+            "max_abs_err": worst, "onehot_equals_dma": True}
 
 
 # ---------------------------------------------------------------------------
@@ -2760,8 +2866,9 @@ def time_bag(torch, bag_ops, table, idx, reps: int) -> dict:
     from repro_torch import embedding_bag
     from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
     v, d = table.shape
+    elem = table.element_size()
     mode = bag_ops.resolve_mode(table, "auto")
-    w = bag_ops.onehot_route(v, d) if mode == "onehot" else 0
+    w = bag_ops.onehot_route(v, d, elem=elem) if mode == "onehot" else 0
     got, syncs = count_syncs(torch, lambda: embedding_bag(table, idx))
     ms = cuda_ms(lambda: embedding_bag(table, idx), reps)
     calls_ms = cuda_ms(lambda: [embedding_bag(table, idx)
@@ -2773,14 +2880,14 @@ def time_bag(torch, bag_ops, table, idx, reps: int) -> dict:
     plain_ms = cuda_ms(lambda: embedding_bag_ref(table, idx), reps)
     live = idx < v
     safe = idx.clamp(max=v - 1)
-    weights = live.float()
+    weights = live.to(table.dtype)
     lib_ms = cuda_ms(lambda: F.embedding_bag(
         safe, table, mode="sum", per_sample_weights=weights), reps)
     lib = F.embedding_bag(safe, table, mode="sum", per_sample_weights=weights)
     lib_err = float((got - lib).abs().max())
     lookups = int(live.sum())
     rows = int(torch.unique(idx[live]).numel())
-    n_bytes = 4 * rows * d + idx.element_size() * idx.numel() \
+    n_bytes = elem * rows * d + idx.element_size() * idx.numel() \
         + 4 * got.numel()
     n_ops = float(lookups * d)
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -2790,12 +2897,14 @@ def time_bag(torch, bag_ops, table, idx, reps: int) -> dict:
             "kernel_ms": kernel_ms,
             "syncs_per_call": syncs, "plain_ms": plain_ms,
             "library_ms": lib_ms, "library_max_abs_err": lib_err,
+            "library_dtype": str(lib.dtype),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "shape": {"table": [v, d], "idx": list(idx.shape),
                       "idx_dtype": str(idx.dtype)},
             "bytes": n_bytes, "ops": n_ops, "lookups": lookups,
-            "row_gather_l2_bytes": 4 * lookups * d}
+            "table_dtype": str(table.dtype),
+            "row_gather_l2_bytes": elem * lookups * d}
 
 
 def phase_embedding_bag(torch, np, ops, shared, bag_ops) -> dict:
@@ -2859,6 +2968,285 @@ def phase_embedding_bag(torch, np, ops, shared, bag_ops) -> dict:
     out["launches"] = {k: sum(r[k] for r in runs) for k in ops}
     out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     shared["bag_timing"] = timing
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the dlrm and dryrun phases
+# ---------------------------------------------------------------------------
+
+def dlrm_expected_launches(bag_ops, cfg, n_devices: int) -> dict:
+    """The embedding_bag launches one forward makes, by mode and "onehot"
+    variant, from the wrapper's rules: per field (per block of a
+    row-sharded field) "auto" by bytes, then the "onehot" route."""
+    from repro_torch.parallel.sharding import table_row_block
+    out = Counter()
+    for v in cfg.table_sizes:
+        blk = table_row_block(v, n_devices)
+        rows, copies = (blk, n_devices) if blk else (v, 1)
+        nbytes = rows * cfg.embed_dim * 2
+        mode = "onehot" if nbytes <= bag_ops.ONEHOT_MAX_BYTES else "dma"
+        out[f"embedding_bag_{mode}"] += copies
+        if mode == "onehot":
+            w = bag_ops.onehot_route(rows, cfg.embed_dim, elem=2)
+            out[f"embedding_bag_onehot_{'slices' if w else 'rows'}"] += \
+                copies
+    return dict(out)
+
+
+def lookups_equal(torch, a, b) -> bool:
+    return len(a) == len(b) and all(x.dtype == y.dtype == torch.float32
+                                    and torch.equal(x, y)
+                                    for x, y in zip(a, b))
+
+
+def host_step_ms(torch, fn, calls: int) -> float:
+    """Host milliseconds a call of ``fn`` takes to enqueue its work."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e3
+
+
+def phase_dlrm(torch, np, ops, shared, bag_ops) -> dict:
+    """DLRM serving at the full dlrm-mlperf width: ``init_params`` on the
+    card (26 bfloat16 tables), ``serve_step`` at serve_p99 and serve_bulk,
+    ``retrieval_score`` at retrieval_cand, and ``serve_step`` at serve_p99
+    with the tables row-sharded (``dlrm_param_sharding``) over the card
+    repeated DLRM_SHARD_DEVICES times [embedding_bag "dma" and "onehot",
+    26 launches a forward unsharded]. Each run is held against the same
+    call with ``use_kernels=False``: the lookups equal bit for bit (at
+    hot = 1 a bag is one widened row), scores within DLRM_SCORE_ATOL, the
+    top-100 indices equal; the sharded run equals the unsharded one. Then
+    timed (median of TIMING_REPS event-timed steps), and the tables
+    freed."""
+    import gc
+
+    from repro_torch.configs import get_arch, input_specs
+    from repro_torch.data.recsys import CriteoLikeGenerator
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    from repro_torch.models import dlrm
+    from repro_torch.parallel.sharding import dlrm_param_sharding
+
+    bundle = get_arch(DLRM_ARCH)
+    cfg = bundle.config
+    assert sum(cfg.table_sizes) == DLRM_TABLE_ROWS, sum(cfg.table_sizes)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"phase": "dlrm", "arch": DLRM_ARCH, "config": cfg.name,
+           "params": cfg.params_count(), "table_rows": DLRM_TABLE_ROWS,
+           "embed_dim": cfg.embed_dim, "hot": cfg.hot,
+           "allocated_at_start": torch.cuda.memory_allocated(),
+           "tf32": torch.backends.cuda.matmul.allow_tf32}
+    gen = torch.Generator(device="cuda").manual_seed(DLRM_SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = dlrm.init_params(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    tables = [params[f"table{t}"] for t in range(cfg.n_sparse)]
+    assert all(t.dtype == torch.bfloat16 for t in tables)
+    out["table_bytes"] = sum(t.numel() * t.element_size() for t in tables)
+    data = CriteoLikeGenerator(cfg.table_sizes, n_dense=cfg.n_dense,
+                               hot=cfg.hot, seed=DLRM_SEED)
+    want = dlrm_expected_launches(bag_ops, cfg, 1)
+    assert want["embedding_bag_dma"] == 11 and \
+        want["embedding_bag_onehot"] == 15, want
+    out["expected_launches"] = want
+    launches = Counter()
+    runs = {}
+
+    def batch_of(shape):
+        step, specs = input_specs(DLRM_ARCH, shape)
+        b = specs["dense"].shape[0]
+        host = data.batch(b, with_labels=False)
+        batch = {k: torch.from_numpy(v).to("cuda") for k, v in host.items()}
+        for k, spec in specs.items():
+            if k == "candidates":
+                batch[k] = torch.randn(tuple(spec.shape), generator=gen,
+                                       device="cuda", dtype=spec.dtype)
+            assert batch[k].shape == spec.shape and \
+                batch[k].dtype == spec.dtype, (k, batch[k].shape, spec)
+        return step, batch
+
+    def check_launches(got, expect):
+        seen = {k: n for k, n in got.items() if n}
+        assert seen == {k: n for k, n in expect.items() if n}, (got, expect)
+        launches.update(got)
+        return seen
+
+    # serve_p99 and serve_bulk
+    for shape in ("serve_p99", "serve_bulk"):
+        step, batch = batch_of(shape)
+        assert step == "serve"
+        b = batch["dense"].shape[0]
+        scores, wall, got = drive(
+            torch, ops, lambda: dlrm.serve_step(cfg, params, batch))
+        run = {"B": b, "call_s": wall, "launches": check_launches(got, want)}
+        plain = dlrm.serve_step(cfg, params, batch, use_kernels=False)
+        assert scores.shape == (b,) and scores.dtype == torch.float32
+        assert bool(torch.isfinite(scores).all())
+        assert bool(((scores >= 0) & (scores <= 1)).all())
+        run["max_abs_err"] = float((scores - plain).abs().max())
+        assert run["max_abs_err"] <= DLRM_SCORE_ATOL, (shape, run)
+        sparse = batch["sparse"]
+        run["lookups_equal"] = lookups_equal(
+            torch, dlrm.embedding_lookups(cfg, params, sparse),
+            dlrm.embedding_lookups(cfg, params, sparse, use_kernels=False))
+        assert run["lookups_equal"], shape
+        run["ms"] = cuda_ms(lambda: dlrm.serve_step(cfg, params, batch),
+                            TIMING_REPS)
+        run["plain_ms"] = cuda_ms(lambda: dlrm.serve_step(
+            cfg, params, batch, use_kernels=False), TIMING_REPS)
+        run["samples_per_s"] = b / (run["ms"] / 1e3)
+        run["lookups_ms"] = cuda_ms(
+            lambda: dlrm.embedding_lookups(cfg, params, sparse),
+            TIMING_REPS)
+        run["lookups_share"] = run["lookups_ms"] / run["ms"]
+        run["host_ms"] = host_step_ms(
+            torch, lambda: dlrm.serve_step(cfg, params, batch), TIMING_REPS)
+        run["profile"] = profile_call(
+            torch, lambda: dlrm.serve_step(cfg, params, batch), shape,
+            DLRM_PROFILE_TOP)
+        if shape == "serve_p99":
+            run["device_ms"] = graph_ms(
+                torch, lambda: dlrm.serve_step(cfg, params, batch),
+                TIMING_REPS)
+            p99 = (batch, scores)
+        runs[shape] = run
+        del plain, sparse
+        if shape == "serve_bulk":
+            del batch, scores
+
+    # retrieval_cand
+    step, batch = batch_of("retrieval_cand")
+    assert step == "retrieval"
+    (top_s, top_i), wall, got = drive(
+        torch, ops, lambda: dlrm.retrieval_score(cfg, params, batch))
+    run = {"C": batch["candidates"].shape[0], "call_s": wall,
+           "launches": check_launches(got, want)}
+    plain_s, plain_i = dlrm.retrieval_score(cfg, params, batch,
+                                            use_kernels=False)
+    assert top_i.shape == (1, 100) and bool(torch.isfinite(top_s).all())
+    assert bool((top_s[0, 1:] <= top_s[0, :-1]).all())
+    run["indices_equal"] = torch.equal(top_i, plain_i)
+    run["max_abs_err"] = float((top_s - plain_s).abs().max())
+    assert run["indices_equal"] and run["max_abs_err"] <= DLRM_SCORE_ATOL, \
+        run
+    run["lookups_equal"] = lookups_equal(
+        torch, dlrm.embedding_lookups(cfg, params, batch["sparse"]),
+        dlrm.embedding_lookups(cfg, params, batch["sparse"],
+                               use_kernels=False))
+    assert run["lookups_equal"]
+    run["ms"] = cuda_ms(lambda: dlrm.retrieval_score(cfg, params, batch),
+                        TIMING_REPS)
+    run["plain_ms"] = cuda_ms(lambda: dlrm.retrieval_score(
+        cfg, params, batch, use_kernels=False), TIMING_REPS)
+    runs["retrieval_cand"] = run
+    del batch
+
+    # serve_p99 with the tables row-sharded over the card repeated
+    devices = ["cuda:0"] * DLRM_SHARD_DEVICES
+    sharded = dlrm_param_sharding(params, devices)
+    for t in range(cfg.n_sparse):
+        base = params[f"table{t}"].untyped_storage().data_ptr()
+        assert all(s.untyped_storage().data_ptr() == base
+                   for s in sharded[f"table{t}"]), t     # views, no copies
+    want_sh = dlrm_expected_launches(bag_ops, cfg, DLRM_SHARD_DEVICES)
+    batch, scores = p99
+    got_s, wall, got = drive(
+        torch, ops, lambda: dlrm.serve_step(cfg, sharded, batch,
+                                            devices=devices))
+    run = {"devices": devices, "B": batch["dense"].shape[0], "call_s": wall,
+           "launches": check_launches(got, want_sh),
+           "row_sharded_tables": sum(
+               len(sharded[f"table{t}"]) > 1
+               and sharded[f"table{t}"][0].shape[0] < cfg.table_sizes[t]
+               for t in range(cfg.n_sparse))}
+    run["max_abs_err"] = float((got_s - scores).abs().max())
+    assert run["max_abs_err"] <= DLRM_SCORE_ATOL, run
+    run["lookups_equal"] = lookups_equal(
+        torch, dlrm.embedding_lookups(cfg, sharded, batch["sparse"],
+                                      devices=devices),
+        dlrm.embedding_lookups(cfg, params, batch["sparse"]))
+    assert run["lookups_equal"]
+    run["ms"] = cuda_ms(lambda: dlrm.serve_step(cfg, sharded, batch,
+                                                devices=devices),
+                        TIMING_REPS)
+    runs["serve_p99_sharded"] = run
+    del sharded, batch, scores, p99, got_s
+
+    # the kernels line's bfloat16 rows: the lookup alone at L = 1 on the
+    # dlrm tables, as the embedding_bag phase times its float32 fields
+    timing = {}
+    for field, t in DLRM_BF16_FIELDS:
+        table = params[f"table{t}"]
+        idx = bag_inputs(torch, gen, table.shape[0], 1)
+        got_b = bag_ops.embedding_bag(table, idx)
+        err = float((got_b - embedding_bag_ref(table, idx)).abs().max())
+        assert err <= BAG_ATOL, (field, err)
+        timing[field] = {"L1": dict(time_bag(torch, bag_ops, table, idx,
+                                             TIMING_REPS),
+                                    max_abs_err=err, table=t)}
+        del idx, got_b
+    shared["bag_timing_bf16"] = timing
+    out["runs"] = runs
+    out["launches"] = {k: launches.get(k, 0) for k in ops}
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    assert out["max_memory_allocated"] < DLRM_PEAK_LIMIT, out
+    del params, tables
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["allocated_at_end"] = torch.cuda.memory_allocated()
+    return out
+
+
+def phase_dryrun(torch, ops, shared) -> dict:
+    """The fabric dry run (``repro_torch.launch.dryrun``): ``fabric_dryrun``
+    in this process at the reference test's size (3 shards, 64 vertices,
+    200 edges) and at the CLI's defaults, then ``python -m
+    repro_torch.launch.dryrun --fabric`` in a child process that sees no
+    card. Each record is consistent (boxes and mass summed over the
+    shards) and equal to its JSON file; no kernel is launched."""
+    import os
+    import tempfile
+
+    from repro_torch.launch.dryrun import fabric_dryrun
+    out = {"phase": "dryrun", "records": {}}
+    reset_launches(ops)
+    with tempfile.TemporaryDirectory() as tmp:
+        for n in DRYRUN_SHARDS:
+            kw = {"nv": 64, "ne": 200} if n == 3 else {}
+            rec = fabric_dryrun(Path(tmp), n_shards=n, **kw)
+            on_disk = json.loads((Path(tmp) / f"fabric__triangle__s{n}.json")
+                                 .read_text())
+            assert on_disk == rec and rec["ok"] and rec["n_shards"] == n
+            assert len(rec["shards"]) == n
+            assert sum(x["boxes"] for x in rec["shards"]) == rec["n_boxes"]
+            assert sum(x["mass"] for x in rec["shards"]) == rec["total_mass"]
+            out["records"][f"s{n}"] = {k: rec[k] for k in (
+                "n_boxes", "rank", "total_mass", "shards", "wall_s")}
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                   PYTHONPATH=str(ROOT / "src"))
+        cli = Path(tmp) / "cli"
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--fabric",
+             "--fabric-shards", "2", "--out", str(cli)], env=env, cwd=ROOT,
+            capture_output=True, text=True, timeout=300)
+        assert res.returncode == 0, res.stderr[-2000:]
+        rec = json.loads((cli / "fabric__triangle__s2.json").read_text())
+        assert rec["ok"] and rec["n_shards"] == 2
+        out["cli"] = {"s": time.perf_counter() - t0,
+                      "n_boxes": rec["n_boxes"],
+                      "stdout": res.stdout.strip()[-200:]}
+    out["launches"] = read_launches(ops)
+    assert not any(out["launches"].values()), out["launches"]
     return out
 
 
@@ -3244,11 +3632,13 @@ def time_fused_list(torch, rec, launches: int, reps: int) -> dict:
             "bytes": n_bytes, "ops": n_ops}
 
 
-def bag_kernel_rows(timing: dict, launches: dict) -> list:
-    """The embedding_bag kernels' lines: "dma" (the row gather, on the
-    largest field) and "onehot" (the column-sliced kernel, on the
+def bag_kernel_rows(timing: dict, by_phase: dict) -> list:
+    """The embedding_bag kernels' float32 lines: "dma" (the row gather, on
+    the largest field) and "onehot" (the column-sliced kernel, on the
     eighteenth field), each at L = 8 with both L under ``by_L``; the
-    seventh field's "onehot" calls (the row gather) under ``by_field``."""
+    seventh field's "onehot" calls (the row gather) under ``by_field``;
+    the launches are the embedding_bag phase's (``by_phase``: by counter,
+    by phase)."""
     rows = []
     for mode, line, field in (("dma", 35, "largest"),
                               ("onehot", 83, "eighteenth")):
@@ -3260,7 +3650,8 @@ def bag_kernel_rows(timing: dict, launches: dict) -> list:
                "source": "src/repro_torch/csrc/embedding_bag.cu",
                "replaces": f"src/repro/kernels/embedding_bag/kernel.py:"
                            f"{line}",
-               "launches": launches[f"embedding_bag_{mode}"],
+               "launches": by_phase[f"embedding_bag_{mode}"].get(
+                   "embedding_bag", 0),
                "max_abs_err": max(t["max_abs_err"] for t in runs),
                "ms": top["ms"], "kernel_ms": top["kernel_ms"],
                "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
@@ -3269,15 +3660,49 @@ def bag_kernel_rows(timing: dict, launches: dict) -> list:
                "field": field, "by_L": timing[field], "by_field": fields}
         if mode == "onehot":
             row["launches_by_variant"] = {
-                k: launches[f"embedding_bag_onehot_{k}"]
-                for k in ("slices", "rows")}
+                k: by_phase[f"embedding_bag_onehot_{k}"].get(
+                    "embedding_bag", 0) for k in ("slices", "rows")}
         row["exact"] = row["max_abs_err"] <= BAG_ATOL
         rows.append(row)
     return rows
 
 
-PHASES = ("rmat", "clustered", "listing", "skew", "fused", "query",
-          "outofcore", "query_listing", "api", "shard", "serve",
+def bag_bf16_kernel_rows(timing: dict, by_phase: dict) -> list:
+    """The embedding_bag kernels' bfloat16 lines, from the dlrm phase's
+    tables at L = 1 (``timing``): "dma" (the row gather) on the largest
+    field, "onehot" on the eighteenth (the variant its route takes), each
+    with the dlrm phase's launches of its mode. The library time is
+    ``F.embedding_bag`` on the same bfloat16 table, whose output is
+    bfloat16 (the kernels' is float32)."""
+    rows = []
+    for mode, line, field in (("dma", 35, "largest"),
+                              ("onehot", 83, "eighteenth")):
+        top = timing[field]["L1"]
+        assert top["mode"] == mode, (field, top["mode"])
+        row = {"name": f"embedding_bag_{mode}_bf16", "route": "cuda",
+               "source": "src/repro_torch/csrc/embedding_bag.cu",
+               "replaces": f"src/repro/kernels/embedding_bag/kernel.py:"
+                           f"{line}",
+               "launches": by_phase[f"embedding_bag_{mode}"].get("dlrm", 0),
+               "max_abs_err": top["max_abs_err"], "ms": top["ms"],
+               "kernel_ms": top["kernel_ms"], "plain_ms": top["plain_ms"],
+               "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+               "library_ms": top["library_ms"],
+               "library_dtype": top["library_dtype"],
+               "host_syncs_per_call": top["syncs_per_call"],
+               "field": field, "table": top["table"], "variant":
+               top["variant"], "slice_w": top["slice_w"],
+               "shape": top["shape"], "bytes": top["bytes"],
+               "launches_by_phase": {
+                   k: by_phase[k] for k in by_phase
+                   if k.startswith(f"embedding_bag_{mode}")}}
+        row["exact"] = row["max_abs_err"] <= BAG_ATOL
+        rows.append(row)
+    return rows
+
+
+PHASES = ("dryrun", "dlrm", "rmat", "clustered", "listing", "skew", "fused",
+          "query", "outofcore", "query_listing", "api", "shard", "serve",
           "embedding_bag")
 # the phases whose graphs and results a phase reuses
 NEEDS = {"skew": ("rmat",), "fused": ("clustered", "listing"),
@@ -3305,7 +3730,8 @@ def main() -> int:
     ap.add_argument("--quick", action="store_true",
                     help="device, build and kernel checks only")
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="main-path phases to run (default: all twelve), "
+                    help="main-path phases to run (default: all "
+                         "fourteen), "
                          "with the phases they reuse (NEEDS)")
     ap.add_argument("--profile", action="store_true",
                     help="repeat each main-path count under "
@@ -3425,6 +3851,8 @@ def main() -> int:
                                           rec_l]),
             "embedding_bag": lambda: phase_embedding_bag(
                 torch, np, ops, shared, bag_ops),
+            "dryrun": lambda: phase_dryrun(torch, ops, shared),
+            "dlrm": lambda: phase_dlrm(torch, np, ops, shared, bag_ops),
         }
         runs = []
         for name in with_needs(args.phases.split(",")):
@@ -3459,7 +3887,10 @@ def main() -> int:
                                            launches["lftj_fused_list"],
                                            TIMING_REPS))
         if "bag_timing" in shared:
-            kernels.extend(bag_kernel_rows(shared["bag_timing"], launches))
+            kernels.extend(bag_kernel_rows(shared["bag_timing"], by_phase))
+        if "bag_timing_bf16" in shared:
+            kernels.extend(bag_bf16_kernel_rows(shared["bag_timing_bf16"],
+                                                by_phase))
         for k in kernels:
             assert k["exact"], k
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start,
@@ -3472,7 +3903,8 @@ def main() -> int:
     # none per embedding_bag call
     for k in kernels:
         limit = {"lftj_fused": 2, "embedding_bag_dma": 0,
-                 "embedding_bag_onehot": 0}.get(k["name"], 1)
+                 "embedding_bag_onehot": 0, "embedding_bag_dma_bf16": 0,
+                 "embedding_bag_onehot_bf16": 0}.get(k["name"], 1)
         assert k.get("host_syncs_per_call") in (None, *range(limit + 1)), k
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

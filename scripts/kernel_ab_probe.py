@@ -47,9 +47,11 @@ Runs, each on a graph made from a fixed seed:
   synchronisations of a public call; whether "onehot" equals "dma" bit
   for bit;
 * ``bag_sweep``: at each padded row count of the dlrm-mlperf "onehot"
-  fields (BAG_SWEEP_V), L = 1 and 8, the column-sliced kernel (forced) and
-  the row gather, launch alone, in turns: the data of the routing rule
-  (``ops.onehot_route``).
+  fields (BAG_SWEEP_V; with ``--dtype bfloat16`` the fields "auto" sends
+  to "onehot" at bfloat16, BAG_SWEEP_V_BF16), L = 1 and 8, the
+  column-sliced kernel (forced) and the row gather, launch alone, in
+  turns, each checked equal to the other bit for bit: the data of the
+  routing rule (``ops.onehot_route``) for the table's type.
 
 With ``--intersect-variant NAME`` the tree's intersect kernel is built a
 second time with ``-DNAME`` (``INTERSECT_WARP_CHUNKS``: the fused count's
@@ -322,26 +324,34 @@ def bag_run(torch, bag_ops, tag: dict) -> None:
         torch.cuda.empty_cache()
 
 
-# the bag_sweep run: the dlrm-mlperf "onehot" fields' padded row counts
+# the bag_sweep run: the dlrm-mlperf "onehot" fields' padded row counts,
+# float32 (at most 2^22 bytes: 8,192 rows of 128) and bfloat16 (16,384)
 BAG_SWEEP_V = (512, 1024, 2048, 2560, 7168, 7680)
+BAG_SWEEP_V_BF16 = BAG_SWEEP_V + (12_288, 13_312)
 
 
-def bag_sweep(torch, bag_ops, tag: dict) -> None:
-    """The ``bag_sweep`` run: at each of BAG_SWEEP_V rows, L = 1 and 8,
-    the launch alone of the column-sliced kernel (forced, whatever the
-    routing rule says) and of the row gather, in the order slices, rows,
-    rows, slices."""
+def bag_sweep(torch, bag_ops, tag: dict, dtype: str) -> None:
+    """The ``bag_sweep`` run: at each of BAG_SWEEP_V (bfloat16:
+    BAG_SWEEP_V_BF16) rows, L = 1 and 8, the launch alone of the
+    column-sliced kernel (forced, whatever the routing rule says) and of
+    the row gather, in the order slices, rows, rows, slices; the two
+    outputs must be equal bit for bit."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     route = bag_ops.onehot_route
-    for v in BAG_SWEEP_V:
-        table = torch.rand((v, BAG_D), generator=gen, device="cuda")
-        w = bag_ops.onehot_slice_width(v, BAG_D)
+    table_dtype = getattr(torch, dtype)
+    for v in BAG_SWEEP_V_BF16 if dtype == "bfloat16" else BAG_SWEEP_V:
+        table = torch.rand((v, BAG_D), generator=gen, device="cuda") \
+            .to(table_dtype)
+        w = bag_ops.onehot_slice_width(v, BAG_D, elem=table.element_size())
         for ll in (1, 8):
             idx = bag_indices(torch, gen, v, ll)
             out = {"slices": [], "rows": []}
             try:
                 bag_ops.onehot_route = lambda *a: w
                 bag_ops._onehot_plan.cache_clear()
+                equal = torch.equal(bag_ops._launch(table, idx, "onehot"),
+                                    bag_ops._launch(table, idx, "dma"))
+                assert equal, (v, w, ll, dtype)
                 for which in ("slices", "rows", "rows", "slices"):
                     mode = "onehot" if which == "slices" else "dma"
                     out[which].append(per_launch_ms(
@@ -349,7 +359,8 @@ def bag_sweep(torch, bag_ops, tag: dict) -> None:
             finally:
                 bag_ops.onehot_route = route
                 bag_ops._onehot_plan.cache_clear()
-            emit(dict(tag, run="bag_sweep", V=v, w=w, L=ll, ms=out))
+            emit(dict(tag, run="bag_sweep", dtype=dtype, V=v, w=w, L=ll,
+                      equal=equal, ms=out))
         del table
         torch.cuda.empty_cache()
 
@@ -377,6 +388,9 @@ def main() -> int:
                     help="a macro to build the intersect kernel a second "
                     "time with (INTERSECT_WARP_CHUNKS), timed beside the "
                     "tree's at the rmat_box and engine_intersect boxes")
+    ap.add_argument("--dtype", default="float32",
+                    choices=["float32", "bfloat16"],
+                    help="bag_sweep: the tables' type")
     ap.add_argument("--workers8", action="store_true",
                     help="query_fused: the four-clique once more on eight "
                     "workers")
@@ -552,7 +566,7 @@ def main() -> int:
                       workers=8, count=count, count_s=wall))
 
     if "bag_sweep" in runs:
-        bag_sweep(torch, bag_ops, tag)
+        bag_sweep(torch, bag_ops, tag, args.dtype)
 
     if "bag" in runs:
         bag_run(torch, bag_ops, tag)

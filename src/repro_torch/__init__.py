@@ -17,7 +17,10 @@ repeated), and ``Fabric`` runs a ``QueryEngine`` plan as shards, each on
 only the byte ranges its boxes touch, in one process or across several
 (``python -m repro_torch.parallel.fabric``). ``Server`` / ``Session``
 (``serve``) keep relations warm and serve concurrent pattern queries, each
-within its admitted share of one memory budget. It imports ``torch`` and
+within its admitted share of one memory budget. Off the paper's path, ``models.dlrm``
+serves DLRM at the full dlrm-mlperf width (``configs``), its bfloat16
+tables looked up by ``embedding_bag``, and ``launch.dryrun`` plans a fabric
+without running it. It imports ``torch`` and
 numpy only. Entry points run on the card unless the caller passes
 ``torch_device="cpu"`` (or CPU tensors, for ``embedding_bag``).
 """

@@ -22,13 +22,18 @@ plan, so the carried-across plan routes box for box as it does there).
 and ``single_box`` (optional: the planner's per-dimension budget split)
 and ``mem_words`` (the budget the plan was cut for; ``kw`` may not
 override it, or the port would plan anew).
+
+A DLRM's state is its params: ``dlrm_params_from_reference`` takes the
+reference's materialized params as numpy arrays (``np.asarray`` of each)
+and returns the port's tensors with the same bits, bfloat16 included.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Dict, Mapping
 
 import numpy as np
+import torch
 
 from repro_torch.core.engine import TriangleEngine
 from repro_torch.core.leapfrog import Atom
@@ -101,3 +106,21 @@ def query_engine_from_state(state: Mapping, **kw) -> QueryEngine:
     return QueryEngine(query, relations=relations, order=order,
                        mem_words=state["mem_words"],
                        skew=plan.skew, plan=plan, **kw)
+
+
+def dlrm_params_from_reference(params: Mapping, device="cpu"
+                               ) -> Dict[str, torch.Tensor]:
+    """The reference DLRM's params (name -> array: numpy, or anything
+    ``np.asarray`` takes) as port tensors on ``device``, bit for bit.
+    A bfloat16 array (numpy's ``ml_dtypes.bfloat16``, which torch cannot
+    read) goes across as its bits: viewed as uint16, then
+    ``torch.from_numpy``, then viewed as ``torch.bfloat16``."""
+    out = {}
+    for name, value in params.items():
+        arr = np.array(value)    # a writable, contiguous copy
+        if arr.dtype.name == "bfloat16":
+            t = torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(arr)
+        out[name] = t.to(device)
+    return out

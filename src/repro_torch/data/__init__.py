@@ -1,1 +1,2 @@
-"""Graph generators, edge sources and the host prefetch pipeline."""
+"""Graph generators, edge sources, the host prefetch pipeline and the
+Criteo-like recsys batches (``recsys``)."""

@@ -12,12 +12,13 @@ On this card (``csrc/embedding_bag.cu``):
 * ``"onehot"`` launches the column-sliced kernel (``slices_kernel``),
   which holds a column slice of the table in each block's shared memory,
   where :func:`onehot_route` takes it: the slice that
-  :func:`onehot_slice_width` finds (the widest power of two from 4 to 128
-  floats that fits, on a 16-byte aligned table) is at least 32 floats
-  wide; elsewhere (narrower slices, which the row gather beats or ties on
-  the card, a table too tall for any slice, a width no slice divides, an
-  unaligned view) it launches the row gather too. The rule is by shape and
-  alignment, not a fallback.
+  :func:`onehot_slice_width` finds (the widest power of two from one
+  16-byte vector, 4 float32 or 8 bfloat16 values, to 128 that fits, on a
+  16-byte aligned table) is at least ``SLICE_ROUTE_MIN_W`` of the table's
+  type wide; elsewhere (narrower slices, which the row gather beats or
+  ties on the card, a table too tall for any slice, a width no slice
+  divides, an unaligned view) it launches the row gather too. The rule is
+  by shape, type and alignment, not a fallback.
 
 Each mode keeps its own launch count (``LAUNCHES``), and each "onehot"
 variant its own (``ONEHOT_LAUNCHES``), so a run shows what it launched.
@@ -25,9 +26,13 @@ Both kernels add a bag's slots in order from 0 in float32, so "onehot"
 and "dma" give the same bits. For CPU tensors the wrapper runs the plain
 version in ``ref.py``.
 
-The wrapper takes float32 tables (the type every caller of the reference
-uses) and int32 or int64 indices, which the kernels read in place: no
-copy, no cast and no host synchronisation on the card. Any index >= V is
+The wrapper takes float32 or bfloat16 tables and int32 or int64 indices,
+which the kernels read in place: no copy, no cast and no host
+synchronisation on the card. The output is float32 for both table types:
+a bfloat16 row is widened to float32 and then added, which is what the
+reference DLRM computes (``vec.astype(float32)`` then the bag sum). The
+TPU's dma kernel adds in the table's type instead; the port's kernels do
+not (``PERF.md`` §6 records the departure). Any index >= V is
 an empty slot, as the reference's PAD (== V) is. A negative index raises
 ``ValueError`` on the CPU; on the card it traps in either kernel (a
 device-side fault), which surfaces at the next synchronisation and leaves
@@ -53,13 +58,15 @@ MODES = ("auto", "dma", "onehot")
 # the reference's "auto" rule: the one-hot formulation for tables of at
 # most this many bytes
 ONEHOT_MAX_BYTES = 1 << 22
+TABLE_DTYPES = (torch.float32, torch.bfloat16)
 # the column slices: the shared memory one block of an H100 may take
 # (227 KB, opt-in), all of it for the slice: the index stage takes none
 # (each thread holds its bag's indices, or 8 bags' at L = 1, in registers);
-# slices of 4 to 128 floats, so a row's slice is at least one 16-byte copy
-# and a bag's w / 4 threads sit in one warp
+# slices of one 16-byte vector (4 float32, 8 bfloat16 values) to 128
+# values, so a row's slice is at least one 16-byte copy and a bag's w / 4
+# threads (4 values each) sit in one warp
 SLICE_SMEM_BYTES = 232_448
-SLICE_MIN_W, SLICE_MAX_W = 4, 128
+SLICE_VECTOR_BYTES, SLICE_MAX_W = 16, 128
 # the H100's SMs: the grid's default when no card is asked
 H100_SMS = 132
 # where "onehot" takes the column-sliced kernel (onehot_route): slices of
@@ -77,7 +84,21 @@ H100_SMS = 132
 #   V = 2,560 (w = 16):  L = 1 0.0145 / 0.0145, L = 8 0.0280 / 0.0282
 #   V = 7,168 (w = 8):   L = 1 0.0218 / 0.0152, L = 8 0.0408 / 0.0314
 #   V = 7,680 (w = 4):   L = 1 0.0507 / 0.0158, L = 8 0.0582 / 0.0315
-SLICE_ROUTE_MIN_W = 32
+# bfloat16 tables, measured on their own (a bfloat16 slice of w values is
+# half the bytes of a float32 one; its output piece is the same w floats):
+# the slices win from w = 32 on at both bag lengths, as at float32; at
+# w = 16 they lose at L = 1 and tie at L = 8, at w = 8 they lose. The
+# same measure, bfloat16 tables (scripts/kernel_ab_probe.py --runs
+# bag_sweep --dtype bfloat16, one H100 80GB HBM3 at 700 W):
+#   V = 512 (w = 128):   L = 1 0.0122 / 0.0147, L = 8 0.0249 / 0.0322
+#   V = 1,024 (w = 64):  L = 1 0.0126 / 0.0150, L = 8 0.0267 / 0.0330
+#   V = 2,048 (w = 32):  L = 1 0.0137 / 0.0149, L = 8 0.0280 / 0.0334
+#   V = 2,560 (w = 32):  L = 1 0.0138 / 0.0147, L = 8 0.0282 / 0.0333
+#   V = 7,168 (w = 16):  L = 1 0.0190 / 0.0154, L = 8 0.0337 / 0.0340
+#   V = 7,680 (w = 8):   L = 1 0.0226 / 0.0154, L = 8 0.0356 / 0.0342
+#   V = 13,312 (w = 8):  L = 1 0.0278 / 0.0159, L = 8 0.0421 / 0.0343
+# The threshold in values, by the table's element size in bytes.
+SLICE_ROUTE_MIN_W = {4: 32, 2: 32}
 
 LAUNCHES = {"dma": _build.LaunchCounter(), "onehot": _build.LaunchCounter()}
 ONEHOT_LAUNCHES = {"slices": _build.LaunchCounter(),
@@ -87,10 +108,10 @@ _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _SIGNATURES = {
-    "embedding_bag_rows_launch": ((_P, _LL, _LL, _P, _I, _LL, _LL, _P, _P),
-                                  ctypes.c_int),
-    "embedding_bag_slices_launch": ((_P, _LL, _LL, _I, _I, _P, _I, _LL, _LL,
-                                     _P, _P), ctypes.c_int),
+    "embedding_bag_rows_launch": ((_P, _I, _LL, _LL, _P, _I, _LL, _LL, _P,
+                                   _P), ctypes.c_int),
+    "embedding_bag_slices_launch": ((_P, _I, _LL, _LL, _I, _I, _P, _I, _LL,
+                                     _LL, _P, _P), ctypes.c_int),
 }
 _SMS = {}
 
@@ -107,31 +128,36 @@ def resolve_mode(table: torch.Tensor, mode: str) -> str:
         else "dma"
 
 
-def onehot_slice_width(v: int, d: int, aligned: bool = True) -> int:
-    """The "onehot" route's slice width for a (v, d) float32 table: the
-    widest power of two w in [SLICE_MIN_W, SLICE_MAX_W] with ``d % w ==
-    0`` and ``v * w * 4 <= SLICE_SMEM_BYTES``, or 0 (the row gather) when
-    there is none or the table is not ``aligned`` to 16 bytes. At d = 128:
-    w = 128 up to v = 454, 64 up to 908, 32 up to 1,816, 16 up to 3,632,
-    8 up to 7,264, 4 up to 14,528, then 0."""
+def onehot_slice_width(v: int, d: int, aligned: bool = True,
+                       elem: int = 4) -> int:
+    """The "onehot" route's slice width for a (v, d) table of ``elem``-byte
+    values (4: float32, 2: bfloat16): the widest power of two w from
+    ``SLICE_VECTOR_BYTES / elem`` to SLICE_MAX_W with ``d % w == 0`` and
+    ``v * w * elem <= SLICE_SMEM_BYTES``, or 0 (the row gather) when there
+    is none or the table is not ``aligned`` to 16 bytes. At d = 128,
+    float32: w = 128 up to v = 454, 64 up to 908, 32 up to 1,816, 16 up to
+    3,632, 8 up to 7,264, 4 up to 14,528, then 0; bfloat16: 128 up to 908,
+    64 up to 1,816, 32 up to 3,632, 16 up to 7,264, 8 up to 14,528."""
     if not aligned:
         return 0
     w = SLICE_MAX_W
-    while w >= SLICE_MIN_W:
-        if d % w == 0 and v * w * 4 <= SLICE_SMEM_BYTES:
+    while w >= SLICE_VECTOR_BYTES // elem:
+        if d % w == 0 and v * w * elem <= SLICE_SMEM_BYTES:
             return w
         w //= 2
     return 0
 
 
-def onehot_route(v: int, d: int, aligned: bool = True) -> int:
-    """The "onehot" variant for a (v, d) table: the slice width of the
-    column-sliced kernel where :func:`onehot_slice_width` finds one of at
-    least SLICE_ROUTE_MIN_W floats (at d = 128: up to v = 1,816), else 0
-    for the row gather. The same at every bag length measured (L = 1 and
-    8)."""
-    w = onehot_slice_width(v, d, aligned)
-    return w if w >= SLICE_ROUTE_MIN_W else 0
+def onehot_route(v: int, d: int, aligned: bool = True,
+                 elem: int = 4) -> int:
+    """The "onehot" variant for a (v, d) table of ``elem``-byte values: the
+    slice width of the column-sliced kernel where
+    :func:`onehot_slice_width` finds one of at least
+    ``SLICE_ROUTE_MIN_W[elem]`` values (at d = 128, float32: up to v =
+    1,816), else 0 for the row gather. The same at every bag length
+    measured (L = 1 and 8)."""
+    w = onehot_slice_width(v, d, aligned, elem)
+    return w if w >= SLICE_ROUTE_MIN_W[elem] else 0
 
 
 def onehot_grid(b: int, d: int, w: int, n_sm: int = H100_SMS):
@@ -144,17 +170,19 @@ def onehot_grid(b: int, d: int, w: int, n_sm: int = H100_SMS):
 
 
 @functools.lru_cache(maxsize=1024)
-def _onehot_plan(v: int, d: int, b: int, aligned: bool, n_sm: int):
+def _onehot_plan(v: int, d: int, b: int, aligned: bool, n_sm: int,
+                 elem: int):
     """(slice width, bag ranges) of one "onehot" call; (0, 0) for the row
     gather."""
-    w = onehot_route(v, d, aligned)
+    w = onehot_route(v, d, aligned, elem)
     return (w, onehot_grid(b, d, w, n_sm)[1]) if w else (0, 0)
 
 
 def _check(table: torch.Tensor, idx: torch.Tensor) -> None:
-    if table.dim() != 2 or table.dtype != torch.float32:
-        raise TypeError("embedding_bag: table must be a 2-D float32 tensor, "
-                        f"got {table.dtype} {tuple(table.shape)}")
+    if table.dim() != 2 or table.dtype not in TABLE_DTYPES:
+        raise TypeError("embedding_bag: table must be a 2-D float32 or "
+                        f"bfloat16 tensor, got {table.dtype} "
+                        f"{tuple(table.shape)}")
     if not 1 <= table.shape[0] < 2 ** 31:
         raise ValueError("embedding_bag: the table needs 1 to 2^31 - 1 "
                          f"rows, got {table.shape[0]}")
@@ -185,23 +213,24 @@ def _launch(table: torch.Tensor, idx: torch.Tensor,
     idx = idx.contiguous()
     b, ll = idx.shape
     v, d = table.shape
-    out = torch.empty((b, d), dtype=table.dtype, device=table.device)
+    out = torch.empty((b, d), dtype=torch.float32, device=table.device)
     if b == 0 or d == 0:
         return out
     lib = _build.load("embedding_bag", _SIGNATURES)
+    elem = table.element_size()
     w, n_ranges = _onehot_plan(v, d, b, table.data_ptr() % 16 == 0,
-                               _sm_count(table.device)) \
+                               _sm_count(table.device), elem) \
         if mode == "onehot" else (0, 0)
     with _build.on_device(table.device):
         stream = _build.stream_ptr(table.device)
         if w:
             rc = lib.embedding_bag_slices_launch(
-                table.data_ptr(), v, d, w, n_ranges, idx.data_ptr(),
+                table.data_ptr(), elem, v, d, w, n_ranges, idx.data_ptr(),
                 idx.element_size(), b, ll, out.data_ptr(), stream)
         else:
             rc = lib.embedding_bag_rows_launch(
-                table.data_ptr(), v, d, idx.data_ptr(), idx.element_size(),
-                b, ll, out.data_ptr(), stream)
+                table.data_ptr(), elem, v, d, idx.data_ptr(),
+                idx.element_size(), b, ll, out.data_ptr(), stream)
     _build.check_launch("embedding_bag", rc)
     LAUNCHES[mode].add()
     if mode == "onehot":
@@ -214,8 +243,9 @@ def embedding_bag(table: torch.Tensor, idx: torch.Tensor, *,
     """Bag-sum embedding lookup: ``out[b] = Σ_l table[idx[b, l]]`` over the
     slots with ``idx[b, l] < V``, summed in float32 in slot order.
 
-    ``table`` (V, D) float32, ``idx`` (B, L) int32/int64 on the same
-    device; returns (B, D) float32. ``mode`` is 'dma', 'onehot' or 'auto'
+    ``table`` (V, D) float32 or bfloat16, ``idx`` (B, L) int32/int64 on
+    the same device; returns (B, D) float32 (a bfloat16 row widened, then
+    added). ``mode`` is 'dma', 'onehot' or 'auto'
     (by table size, as in the reference)."""
     _check(table, idx)
     mode = resolve_mode(table, mode)

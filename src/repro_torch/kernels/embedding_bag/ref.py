@@ -9,7 +9,9 @@ Inputs:
   weights (B, L) opt  per-slot weights
 Output:
   (B, D) bag sums, accumulated in float32 and returned in the table's
-  dtype.
+  dtype, or in float32 for a bfloat16 table (each row widened, then
+  added: the reference DLRM's ``vec.astype(float32)`` and bag sum, and
+  what the kernels return).
 """
 
 from __future__ import annotations
@@ -28,4 +30,5 @@ def embedding_bag_ref(table: torch.Tensor, idx: torch.Tensor,
     mask = (idx < v).float()
     if weights is not None:
         mask = mask * weights.float()
-    return (gathered * mask[..., None]).sum(dim=1).to(table.dtype)
+    out = (gathered * mask[..., None]).sum(dim=1)
+    return out.to(torch.promote_types(table.dtype, torch.float32))

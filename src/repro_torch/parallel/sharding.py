@@ -15,6 +15,9 @@ The rank-r helpers (``box_mass_costs_nd``, ``shard_shipped_ranges`` and
 the §5 interval algebra ``merge_interval`` / ``interval_gaps``) price the
 ``QueryEngine``'s n-dimensional boxes and plan the byte ranges each
 ``parallel.fabric`` shard must hold. All of it is numpy in, numpy out.
+
+``dlrm_param_sharding`` places DLRM's tables over a device list as row
+blocks (``models.dlrm`` sums the per-block bags).
 """
 
 from __future__ import annotations
@@ -354,3 +357,37 @@ def shard_local_slices(edge_lists: Sequence[Tuple[np.ndarray, np.ndarray]],
             ev_s[s, :len(slc.ev)] = slc.ev
             ok_s[s, :len(slc.eu)] = 1
     return eu_s, ev_s, ok_s, npad_s, rows_s
+
+
+# ---------------------------------------------------------------------------
+# DLRM tables over a device list (the reference's dlrm_param_sharding:
+# tables vocab-sharded over the model axis, everything else replicated)
+# ---------------------------------------------------------------------------
+
+def table_row_block(v: int, n_devices: int) -> int:
+    """Rows of each device's block of a ``v``-row table sharded over
+    ``n_devices``, or 0 when the table stays whole (one device, or ``v``
+    not a multiple of ``n_devices``)."""
+    return v // n_devices if n_devices > 1 and v % n_devices == 0 else 0
+
+
+def dlrm_param_sharding(params: Dict[str, torch.Tensor],
+                        devices: Sequence) -> Dict[str, List[torch.Tensor]]:
+    """DLRM params placed over ``devices`` (repeats allowed), per name one
+    tensor per device: a ``table*`` whose row count divides by
+    ``len(devices)`` cut into equal contiguous row blocks, block i on
+    ``devices[i]``; every other param replicated. A block or replica on
+    the device its param already lies on is a view of it, not a copy.
+    ``models.dlrm``'s ``forward(..., devices=devices)`` reads this layout:
+    batch and candidate sharding are not ported."""
+    devs = box_mesh(devices)
+    out: Dict[str, List[torch.Tensor]] = {}
+    for name, p in params.items():
+        blk = table_row_block(p.shape[0], len(devs)) \
+            if name.startswith("table") else 0
+        if blk:
+            out[name] = [p[i * blk:(i + 1) * blk].to(dev)
+                         for i, dev in enumerate(devs)]
+        else:
+            out[name] = [p.to(dev) for dev in devs]
+    return out

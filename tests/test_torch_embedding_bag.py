@@ -228,3 +228,132 @@ def test_wrapper_makes_no_clamped_copy(monkeypatch):
     assert len(seen) == 3
     assert all(s is idx for s in seen)
     assert int(idx[0, 0]) == 2 ** 40
+
+
+# ---------------------------------------------------------------------------
+# bfloat16 tables: the reference DLRM's table type (layers.PDTYPE)
+# ---------------------------------------------------------------------------
+
+def _bf16_inputs(v, d, b, ll, seed):
+    """A bfloat16 table (as torch bfloat16 and as its float32 widening)
+    and int64 indices with ~10 % PAD (== V)."""
+    rng = np.random.default_rng(seed)
+    tab = torch.from_numpy(rng.standard_normal((v, d)).astype(np.float32)) \
+        .to(torch.bfloat16)
+    idx = rng.integers(0, v, (b, ll))
+    idx[rng.random((b, ll)) < 0.1] = v
+    return tab, tab.float().numpy(), idx
+
+
+def _slot_order_sum(wide, idx):
+    """The float32 sum of each bag's widened rows, slot 0 first (the
+    kernels' order), PAD slots skipped."""
+    v = wide.shape[0]
+    out = np.zeros((idx.shape[0], wide.shape[1]), np.float32)
+    for s in range(idx.shape[1]):
+        live = idx[:, s] < v
+        out[live] = out[live] + wide[idx[live, s]]
+    return out
+
+
+@pytest.mark.parametrize("v,d,b", [(100, 16, 64), (1024, 128, 300),
+                                   (7, 130, 50)])
+def test_bf16_plain_version_is_the_float32_sum(v, d, b):
+    """``embedding_bag_ref`` on a bfloat16 table returns float32: the
+    float32 sum of the widened rows, exactly at L = 1 (a bag is one row)
+    and within 1 float32 ulp at L = 3."""
+    for ll, maxulp in ((1, 0), (3, 1)):
+        tab, wide, idx = _bf16_inputs(v, d, b, ll, v + ll)
+        got = embedding_bag_ref(tab, torch.from_numpy(idx))
+        assert got.dtype == torch.float32
+        want = _slot_order_sum(wide, idx)
+        if maxulp == 0:
+            np.testing.assert_array_equal(got.numpy(), want)
+        else:
+            np.testing.assert_array_max_ulp(got.numpy(), want, maxulp=maxulp)
+
+
+def test_float32_plain_version_keeps_its_dtype():
+    tab, idx = _inputs(50, 8, 6, 3, 2)
+    assert embedding_bag_ref(torch.from_numpy(tab),
+                             torch.from_numpy(idx)).dtype == torch.float32
+    assert embedding_bag_ref(torch.from_numpy(tab).double(),
+                             torch.from_numpy(idx)).dtype == torch.float64
+
+
+@pytest.mark.parametrize("mode", ["onehot", "dma", "auto"])
+@pytest.mark.parametrize("v,d,b,ll", SHAPES)
+def test_bf16_modes_match_reference_float32_sum(mode, v, d, b, ll):
+    """Every mode on a bfloat16 table gives float32 bags equal to the
+    reference's plain version on the widened (float32) table within ATOL:
+    the reference DLRM's lookup (``vec.astype(float32)``, then the sum).
+    The reference's TPU dma kernel adds in the table's type instead; the
+    port does not (PERF.md §6)."""
+    tab, wide, idx = _bf16_inputs(v, d, b, ll, v + b)
+    got = embedding_bag(tab, torch.from_numpy(idx), mode=mode)
+    assert got.dtype == torch.float32 and got.shape == (b, d)
+    want = np.asarray(ref_plain(jnp.asarray(wide),
+                                jnp.asarray(idx.astype(np.int32))))
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+    ref_bf16 = np.asarray(ref_bag(jnp.asarray(wide).astype(jnp.bfloat16),
+                                  idx.astype(np.int32), mode="dma",
+                                  interpret=True)).astype(np.float32)
+    if ll == 1:                 # one row a bag: no sum to round
+        np.testing.assert_array_equal(got.numpy(), ref_bf16)
+
+
+def test_bf16_checks_and_no_launch_on_the_cpu():
+    tab, _, idx = _bf16_inputs(64, 16, 8, 3, 0)
+    before = _counts()
+    out = embedding_bag(tab, torch.from_numpy(idx))
+    assert out.dtype == torch.float32 and _counts() == before
+    with pytest.raises(TypeError, match="bfloat16"):
+        embedding_bag(tab.half(), torch.from_numpy(idx))
+    # the "auto" rule is by bytes: a bfloat16 table of 16,384 x 128 is 4 MiB
+    assert bag_ops.resolve_mode(torch.zeros((16_384, 128),
+                                            dtype=torch.bfloat16),
+                                "auto") == "onehot"
+    assert bag_ops.resolve_mode(torch.zeros((16_385, 128),
+                                            dtype=torch.bfloat16),
+                                "auto") == "dma"
+
+
+# the dlrm-mlperf tables "auto" sends to "onehot" at bfloat16: 15 of 26
+BF16_ONEHOT_FIELDS = [v for v in DLRM_MLPERF.table_sizes
+                      if v * DLRM_MLPERF.embed_dim * 2
+                      <= bag_ops.ONEHOT_MAX_BYTES]
+
+
+def test_dlrm_mlperf_has_fifteen_bf16_onehot_fields():
+    assert len(BF16_ONEHOT_FIELDS) == 15
+    assert max(BF16_ONEHOT_FIELDS) == 13_312
+    assert sorted(set(BF16_ONEHOT_FIELDS)) == [
+        512, 1024, 2048, 2560, 7168, 7680, 12_288, 13_312]
+
+
+@pytest.mark.parametrize("v,w", [(512, 128), (1024, 64), (2048, 32),
+                                 (2560, 32), (7168, 16), (7680, 8),
+                                 (12_288, 8), (13_312, 8)])
+def test_bf16_slice_rule_on_dlrm_mlperf_onehot_fields(v, w):
+    """At bfloat16 a slice row is w * 2 bytes: every "onehot" field has a
+    slice of at least 8 values (one 16-byte copy), the widest that fits;
+    the route takes the column-sliced kernel from w = 32 on (measured at
+    bfloat16: up to V = 3,632 at D = 128), the row gather below."""
+    d = DLRM_MLPERF.embed_dim
+    assert bag_ops.onehot_slice_width(v, d, elem=2) == w
+    assert v * w * 2 <= bag_ops.SLICE_SMEM_BYTES
+    assert bag_ops.SLICE_ROUTE_MIN_W[2] == 32
+    assert bag_ops.onehot_route(v, d, elem=2) == (w if v <= 3632 else 0)
+
+
+@pytest.mark.parametrize("v,d,w", [(908, 128, 128), (1816, 128, 64),
+                                   (3632, 128, 32), (7264, 128, 16),
+                                   (14_528, 128, 8), (7264, 16, 16),
+                                   (14_528, 8, 8)])
+def test_bf16_slice_width_edges(v, d, w):
+    """The tallest bfloat16 table of each width (V * w * 2 = 232,448
+    bytes); one row more takes half the width, or none below 8 values."""
+    assert bag_ops.onehot_slice_width(v, d, elem=2) == w
+    assert bag_ops.onehot_slice_width(v + 1, d, elem=2) in (w // 2, 0)
+    assert bag_ops.onehot_slice_width(v, d, aligned=False, elem=2) == 0
+    assert bag_ops.onehot_slice_width(100, 4, elem=2) == 0   # D < 8

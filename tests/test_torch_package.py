@@ -60,13 +60,19 @@ def test_importing_every_module_pulls_in_no_jax_and_no_reference():
                                     "repro_torch.core.adversarial",
                                     "repro_torch.obs",
                                     "repro_torch.obs.trace",
-                                    "repro_torch.obs.metrics"])
+                                    "repro_torch.obs.metrics",
+                                    "repro_torch.configs",
+                                    "repro_torch.models.dlrm",
+                                    "repro_torch.models.layers",
+                                    "repro_torch.data.recsys",
+                                    "repro_torch.launch.dryrun"])
 def test_fused_lane_modules_import_no_jax_and_no_reference(module):
     """The fused lane's and the QueryEngine's modules, the embedding_bag
     entry point, the executor and converter that reach them, the public
-    triangle API with MGT and the adversarial instance, and ``obs``, load
-    on a host without JAX: importing each alone pulls in neither ``jax``
-    nor ``repro``."""
+    triangle API with MGT and the adversarial instance, ``obs``, DLRM
+    serving (configs, model, layers, the Criteo-like generator) and the
+    fabric dry run, load on a host without JAX: importing each alone pulls
+    in neither ``jax`` nor ``repro``."""
     code = (
         "import importlib, sys\n"
         f"importlib.import_module({module!r})\n"
