@@ -36,7 +36,12 @@ Phases (the kernels each main-path phase must launch in brackets):
                   a child process per kernel must fail); embedding_bag on
                   bfloat16 tables (both kernels, both "onehot" variants,
                   float32 output, equal to the plain version bit for bit
-                  at L = 1).
+                  at L = 1); embedding_bag_backward against its plain
+                  version on the CPU copy of the same inputs, equal bit
+                  for bit at float32 and bfloat16 output (int32 and int64
+                  indices, L = 1 and 8, V from 3 to 2^20, 65,536 bags into
+                  3 rows, every bag on one row, PAD, a strided gradient,
+                  untouched rows zero).
  2a. dryrun     — the fabric dry run (``repro_torch.launch.dryrun``) at
                   the reference test's size and the CLI's defaults, and
                   its CLI in a child process that sees no card; no launch.
@@ -50,8 +55,22 @@ Phases (the kernels each main-path phase must launch in brackets):
                   a forward]; each against ``use_kernels=False``: lookups
                   equal bit for bit, scores within 1e-6, top-100 indices
                   equal, the sharded scores equal the unsharded; the peak
-                  below 80 GB; timed; the tables freed. dryrun and dlrm
-                  run first, on an empty card.
+                  below 80 GB; timed; the tables freed.
+ 2c. train      — DLRM training: ``make_sparse_train_step`` at the full
+                  dlrm-mlperf width, B = 65,536, each table capped at 2^23
+                  rows (46,013,952 rows: 11.78 GB of bfloat16 tables, 47.12
+                  GB of float32 moments), TRAIN_STEPS steps [embedding_bag
+                  26 and embedding_bag_backward 26 a step], timed, finite
+                  losses, host syncs a step, the peak below 80 GB; at 2^20
+                  rows and lr 1e-2 a step with the kernels against
+                  use_kernels=False with its backward's plain version on
+                  the CPU copy (equal in the loss and every param and
+                  moment) and row-sharded over the card twice (equal); the
+                  train CLI in child processes (30 steps with checkpoints,
+                  --resume to 40, --compress int8): the plain and int8
+                  runs' final loss below their first, each run's
+                  held-out loss below its initial params'. dryrun, dlrm
+                  and train run first, on an empty card.
   3. rmat       — Graph500-style RMAT, ``backend="auto"`` [intersect]; the
                   count must equal the plain torch ``binary`` lane.
   4. clustered  — triangle-rich planted-partition graph [triangle_dense];
@@ -162,6 +181,7 @@ name/power-limit line and the final ``{"ok": true, ...}`` line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import statistics
@@ -233,6 +253,35 @@ DLRM_SCORE_ATOL = 1e-6
 DLRM_BF16_FIELDS = (("largest", 19), ("eighteenth", 17))
 # kernels by device time in the profile of one serve step
 DLRM_PROFILE_TOP = 12
+# the train phase (PERF.md §4): make_sparse_train_step at the full
+# dlrm-mlperf width (D = 128, bottom 13-512-256-128, top 479-1024-1024-512-
+# 256-1, hot = 1, bfloat16 tables, float32 AdamW moments) at train_batch
+# (B = 65,536), the reference's OPT_CFG (AdamWConfig()); each table's rows
+# capped at TRAIN_CAP_ROWS, which cuts the five largest fields (tables and
+# two moments at the full 187,775,488 rows would take 240 GB): 46,013,952
+# rows, 11.78 GB of tables and 47.12 GB of moments; TRAIN_STEPS steps, the
+# first a warm-up; then one step with the kernels, one with
+# use_kernels=False and one row-sharded over the card twice, from copies of
+# one state at TRAIN_CHECK_CAP rows a table; then the train CLI on the
+# smoke config in child processes (30 steps with checkpoints, --resume to
+# 40, and --compress int8), each judged on a held-out batch
+TRAIN_CAP_ROWS, TRAIN_ROWS = 1 << 23, 46_013_952
+TRAIN_STEPS = 5
+TRAIN_CHECK_CAP = 1 << 20
+# the CPU tests' optimizer: lr 1e-2 from the first step, so a table
+# element moves by about lr, far above a bfloat16 step of its value
+TRAIN_CHECK_OPT = {"lr": 1e-2, "warmup_steps": 1}
+TRAIN_CHECK_MOVED = 0.5  # least share of touched table elements moved
+TRAIN_SHARD_DEVICES = 2
+TRAIN_FIELDS = (("largest", 19), ("smallest", 5))
+TRAIN_CLI_STEPS, TRAIN_CLI_RESUME_STEPS, TRAIN_CLI_BATCH = 30, 40, 64
+TRAIN_HELD_OUT_BATCH, TRAIN_HELD_OUT_SEED = 4096, 7
+TRAIN_CLI_TIMEOUT_S = 300
+# the backward kernel's cases in the kernels phase: (V, B, L, D)
+BAG_BWD_CASES = ((3, 65_536, 1, 128), (3, 4096, 8, 128),
+                 (1000, 4096, 8, 128), (7168, 65_536, 1, 128),
+                 (1 << 20, 65_536, 1, 128), (1 << 20, 8192, 8, 128),
+                 (5000, 777, 3, 130), (37, 300, 2, 16), (1, 100, 2, 128))
 # the dryrun phase: the fabric dry run at the reference test's sizes and at
 # its CLI's defaults
 DRYRUN_SHARDS = (3, 4)
@@ -1190,6 +1239,60 @@ def bag_bf16_cases(torch, np, bag_ops, gen, rng) -> dict:
     return {"cases": n_cases, "onehot_variants": dict(variants),
             "slice_widths": {str(w): n for w, n in sorted(widths.items())},
             "max_abs_err": worst, "onehot_equals_dma": True}
+
+
+def phase_bag_backward_cases(torch, np, grad_ops) -> dict:
+    """embedding_bag_backward on the card against its plain version on the
+    CPU copy of the same inputs: both add each row's slots in (b, s) order
+    from 0 in float32, so they are equal bit for bit at float32 output and
+    after the one cast at bfloat16. BAG_BWD_CASES with int64 and int32
+    indices (about 10 % PAD, bag 0 all PAD: bag_indices), V from 3 to 2^20,
+    65,536 bags into 3 rows, L = 1 and 8, D = 128, 130 (one value a load)
+    and 16; every bag on one row; a strided grad_out; untouched rows zero;
+    one launch a call."""
+    from repro_torch.kernels.embedding_bag.ref import \
+        embedding_bag_backward_ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rng = np.random.default_rng(2)
+    n_cases = 0
+
+    def check(g, idx, v):
+        nonlocal n_cases
+        g_cpu, idx_cpu = g.cpu(), idx.cpu()
+        for ix, ix_cpu in ((idx, idx_cpu),
+                           (idx.to(torch.int32), idx_cpu.to(torch.int32))):
+            for dtype in (torch.float32, torch.bfloat16):
+                before = grad_ops.BACKWARD_LAUNCHES.n
+                got = grad_ops.embedding_bag_backward(g, ix, v, dtype)
+                assert grad_ops.BACKWARD_LAUNCHES.n == before + 1
+                want = embedding_bag_backward_ref(g_cpu, ix_cpu, v, dtype)
+                assert got.dtype == dtype and torch.equal(got.cpu(), want), \
+                    (v, tuple(ix.shape), ix.dtype, dtype)
+                n_cases += 1
+        return got
+
+    untouched = 0
+    for v, b, ll, d in BAG_BWD_CASES:
+        idx = torch.from_numpy(bag_indices(np, rng, v, b, ll)).to(dev)
+        g = torch.randn((b, d), generator=gen, device=dev)
+        got = check(g, idx, v)
+        live = idx[idx < v]
+        mask = torch.ones(v, dtype=torch.bool, device=dev)
+        mask[live] = False
+        assert not got[mask].any()
+        untouched += int(mask.sum())
+    # every bag on one row, L = 1 and 8; a strided grad_out (a column slice
+    # of a wider matrix, read in place)
+    for ll in (1, 8):
+        idx = torch.full((BAG_B, ll), 5, dtype=torch.int64, device=dev)
+        check(torch.randn((BAG_B, 128), generator=gen, device=dev), idx, 11)
+    wide = torch.randn((4096, 3 * 128), generator=gen, device=dev)
+    idx = torch.from_numpy(bag_indices(np, rng, 999, 4096, 4)).to(dev)
+    check(wide[:, 128:256], idx, 999)
+    torch.cuda.synchronize()
+    return {"phase": "kernels", "of": ["embedding_bag_backward"],
+            "cases": n_cases, "exact": True, "untouched_rows_zero": untouched}
 
 
 # ---------------------------------------------------------------------------
@@ -3206,6 +3309,384 @@ def phase_dlrm(torch, np, ops, shared, bag_ops) -> dict:
     return out
 
 
+def capped_config(cfg, cap: int):
+    """``cfg`` with each table's rows capped at ``cap``."""
+    import dataclasses
+    return dataclasses.replace(
+        cfg, table_sizes=tuple(min(v, cap) for v in cfg.table_sizes))
+
+
+def train_batches(torch, cfg, n: int, b: int, seed: int) -> list:
+    from repro_torch.data.recsys import CriteoLikeGenerator
+    data = CriteoLikeGenerator(cfg.table_sizes, n_dense=cfg.n_dense,
+                               hot=cfg.hot, seed=seed)
+    return [{k: torch.from_numpy(v).to("cuda")
+             for k, v in data.batch(b).items()} for _ in range(n)]
+
+
+def time_bag_backward(torch, grad_ops, sparse, t: int) -> dict:
+    """The backward kernel at the sparse step's shape for field ``t`` of a
+    train batch: the gathered-row table of its unique rows (bfloat16) and
+    the batch's inverse indices (int32, L = hot, as the step passes them),
+    a float32 grad_out.
+    ``ms``: the wrapper call (stable sort, zeros, launch) between CUDA
+    events; the plain version (``index_add_`` into float32 zeros, then the
+    cast) and one ``index_add_`` call on the same inputs (the library
+    yardstick); the host synchronisations of one call; the bytes bound
+    (each slot's index and gradient row read once, the V x D output
+    written once)."""
+    from repro_torch.kernels.embedding_bag.ref import \
+        embedding_bag_backward_ref
+    b, hot = sparse.shape[0], sparse.shape[2]
+    uniq, inv = torch.unique(sparse[:, t, :].reshape(-1), sorted=True,
+                             return_inverse=True)
+    idx = inv.to(torch.int32).view(b, hot)
+    v, d = uniq.numel(), 128
+    gen = torch.Generator(device="cuda").manual_seed(t)
+    g = torch.randn((b, d), generator=gen, device="cuda")
+    dtype = torch.bfloat16
+    got, syncs = count_syncs(
+        torch, lambda: grad_ops.embedding_bag_backward(g, idx, v, dtype))
+    want = embedding_bag_backward_ref(g.cpu(), idx.cpu(), v, dtype)
+    exact = torch.equal(got.cpu(), want)
+    err = float((got.float().cpu() - want.float()).abs().max())
+    on_card = embedding_bag_backward_ref(g, idx, v, dtype)
+    err_card = float((got.float() - on_card.float()).abs().max())
+    ms = cuda_ms(lambda: grad_ops.embedding_bag_backward(g, idx, v, dtype),
+                 TIMING_REPS)
+    plain_ms = cuda_ms(lambda: embedding_bag_backward_ref(g, idx, v, dtype),
+                       TIMING_REPS)
+    acc = torch.zeros((v, d), dtype=torch.float32, device="cuda")
+    flat, rows = idx.reshape(-1), g.repeat_interleave(hot, dim=0)
+    lib_ms = cuda_ms(lambda: acc.index_add_(0, flat, rows), TIMING_REPS)
+    n_bytes = idx.numel() * (idx.element_size() + 4 * d) \
+        + v * d * got.element_size()
+    counts = torch.bincount(flat.long(), minlength=v)
+    return {"field": t, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": n_bytes, "syncs_per_call": syncs,
+            "exact_vs_plain_on_cpu": exact, "max_abs_err": err,
+            "max_abs_err_vs_plain_on_card": err_card,
+            "shape": {"rows": v, "idx": list(idx.shape), "d": d,
+                      "out_dtype": "bfloat16"},
+            "longest_run": int(counts.max())}
+
+
+def clone_state(torch, params, opt_state):
+    from repro_torch.optim.adamw import OptState
+    return ({k: v.clone() for k, v in params.items()},
+            OptState(opt_state.step.clone(),
+                     {k: v.clone() for k, v in opt_state.m.items()},
+                     {k: v.clone() for k, v in opt_state.v.items()}))
+
+
+@contextlib.contextmanager
+def plain_backward_on_cpu(grad_ops):
+    """Within it, the plain version of the lookup's backward (the one a
+    ``use_kernels=False`` step calls) runs on the CPU copy of its inputs,
+    where ``index_add_`` adds in index order, and returns to their device:
+    on the card it adds with atomics, in no fixed order."""
+    ref = grad_ops.embedding_bag_backward_ref
+
+    def on_cpu(grad_out, idx, v, dtype):
+        return ref(grad_out.cpu(), idx.cpu(), v, dtype).to(grad_out.device)
+
+    grad_ops.embedding_bag_backward_ref = on_cpu
+    try:
+        yield
+    finally:
+        grad_ops.embedding_bag_backward_ref = ref
+
+
+def start_train_cli(tmp, name: str, *extra) -> tuple:
+    """``python -m repro_torch.launch.train`` on the smoke config, on the
+    card, in a child process writing its checkpoints under tmp/name."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           DLRM_ARCH, "--smoke", "--batch", str(TRAIN_CLI_BATCH),
+           "--ckpt-dir", str(Path(tmp) / name), *extra]
+    return cmd, subprocess.Popen(cmd, env=env, cwd=ROOT,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+
+
+def finish_train_cli(run) -> dict:
+    cmd, proc = run
+    t0 = time.perf_counter()
+    out, err = proc.communicate(timeout=TRAIN_CLI_TIMEOUT_S)
+    assert proc.returncode == 0, (cmd, err[-2000:])
+    final = [line for line in out.splitlines() if line.startswith("final")]
+    first = float(final[-1].split("(first ")[1].rstrip(")"))
+    last = float(final[-1].split()[2])
+    return {"argv": cmd[3:], "wait_s": time.perf_counter() - t0,
+            "first_loss": first, "final_loss": last,
+            "final_below_first": last < first, "stdout": out[-600:]}
+
+
+def held_out_losses(torch, tmp, name: str, step: int) -> dict:
+    """The smoke config's loss on a held-out batch (TRAIN_HELD_OUT_BATCH
+    rows, seed TRAIN_HELD_OUT_SEED) under the CLI's initial params (its
+    generator: the card's, seeded 0, float32 params as ``--smoke`` sets)
+    and under its checkpoint at ``step``."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.models import dlrm, layers
+    from repro_torch.optim import adamw
+    cfg = get_arch(DLRM_ARCH).smoke_config
+    saved = layers.PDTYPE, layers.ADTYPE
+    layers.set_dtypes(torch.float32, torch.float32)
+    try:
+        init = dlrm.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    finally:
+        layers.set_dtypes(*saved)
+    mgr = CheckpointManager(Path(tmp) / name)
+    (trained, _), at = mgr.restore((init, adamw.init(init)), step)
+    held = train_batches(torch, cfg, 1, TRAIN_HELD_OUT_BATCH,
+                         TRAIN_HELD_OUT_SEED)[0]
+    with torch.no_grad():
+        before = float(dlrm.loss_fn(cfg, init, held)[0])
+        after = float(dlrm.loss_fn(cfg, trained, held)[0])
+    assert after < before, (name, before, after)
+    return {"checkpoint_step": at, "held_out_before": before,
+            "held_out_after": after}
+
+
+def phase_train(torch, np, ops, shared, grad_ops) -> dict:
+    """DLRM training on the card. (a) ``make_sparse_train_step`` at the
+    full dlrm-mlperf width with each table capped at TRAIN_CAP_ROWS rows
+    (init on the card, B = 65,536, OPT_CFG): TRAIN_STEPS steps [per step
+    embedding_bag 26 (forward, on each field's gathered rows) and
+    embedding_bag_backward 26], each timed with the card synchronised on
+    both sides (the first is a warm-up), losses finite, host
+    synchronisations of a step, one more step under the profiler, the
+    peak below 80 GB; the backward kernel timed at two fields' shapes.
+    (b) At TRAIN_CHECK_CAP rows and TRAIN_CHECK_OPT (an update far above
+    a bfloat16 step of the tables), one step from copies of one state with
+    the kernels, with ``use_kernels=False`` and row-sharded over the card
+    twice. The plain step's backward runs its plain version on the CPU
+    copy of its inputs (``plain_backward_on_cpu``: ordered float32 sums,
+    which the kernel equals bit for bit), so the kernel step equals the
+    plain step bit for bit in the loss and every param and moment; the
+    step moved most of the touched table elements (``moved_fraction``).
+    Sharded equals unsharded in every param and moment. (c) The train
+    CLI in child processes on the card: 30 steps with checkpoints,
+    ``--resume`` to 40, and ``--compress int8``; the plain and int8 runs'
+    final loss below their first (the reference's
+    ``test_dlrm_loss_decreases``), and each run's held-out loss below its
+    initial params'. Everything allocated is freed."""
+    import gc
+    import tempfile
+
+    from repro_torch.configs import get_arch, input_specs
+    from repro_torch.models import dlrm
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.sharding import (dlrm_opt_state_sharding,
+                                               dlrm_param_sharding)
+    t_phase = time.perf_counter()
+    full = get_arch(DLRM_ARCH).config
+    cfg = capped_config(full, TRAIN_CAP_ROWS)
+    assert sum(cfg.table_sizes) == TRAIN_ROWS, sum(cfg.table_sizes)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step_kind, specs = input_specs(DLRM_ARCH, "train_batch")
+    assert step_kind == "train"
+    b = specs["dense"].shape[0]
+    out = {"phase": "train", "arch": DLRM_ARCH, "B": b,
+           "embed_dim": cfg.embed_dim, "bot_mlp": list(cfg.bot_mlp),
+           "top_mlp": list(cfg.top_mlp), "hot": cfg.hot,
+           "reduced": {"table_cap_rows": TRAIN_CAP_ROWS,
+                       "fields_cut": [t for t, v in
+                                      enumerate(full.table_sizes)
+                                      if v > TRAIN_CAP_ROWS],
+                       "rows": TRAIN_ROWS,
+                       "full_rows": sum(full.table_sizes)},
+           "allocated_at_start": torch.cuda.memory_allocated(),
+           "tf32": torch.backends.cuda.matmul.allow_tf32}
+    opt_cfg = adamw.AdamWConfig()
+    gen = torch.Generator(device="cuda").manual_seed(DLRM_SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = dlrm.init_params(cfg, gen, device="cuda")
+    opt_state = adamw.init(params)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    tables = [params[f"table{t}"] for t in range(cfg.n_sparse)]
+    assert all(t.dtype == torch.bfloat16 for t in tables)
+    out["table_bytes"] = sum(t.numel() * t.element_size() for t in tables)
+    out["moment_bytes"] = sum(m.numel() * 4 for k, m in opt_state.m.items()
+                              if k.startswith("table")) * 2
+    batches = train_batches(torch, cfg, TRAIN_STEPS + 1, b, DLRM_SEED)
+    step = dlrm.make_sparse_train_step(cfg, opt_cfg)
+    steps = []
+    for i in range(TRAIN_STEPS):
+        batch = batches[i]
+        if i == 0:
+            (res, syncs), wall, got = drive(torch, ops, lambda: count_syncs(
+                torch, lambda: step(params, opt_state, batch)))
+            out["host_syncs_per_step"] = syncs
+        else:
+            res, wall, got = drive(torch, ops,
+                                   lambda: step(params, opt_state, batch))
+        fwd = got["embedding_bag_dma"] + got["embedding_bag_onehot"]
+        assert fwd == cfg.n_sparse and \
+            got["embedding_bag_backward"] == cfg.n_sparse, got
+        loss = float(res[2]["loss"])
+        assert np.isfinite(loss), (i, loss)
+        steps.append({"s": wall, "loss": loss,
+                      "grad_norm": float(res[2]["grad_norm"]),
+                      "launches": {k: n for k, n in got.items() if n}})
+    assert int(opt_state.step) == TRAIN_STEPS
+    out["steps"] = steps
+    out["losses"] = [x["loss"] for x in steps]
+    out["ms_per_step"] = statistics.median(x["s"] for x in steps[1:]) * 1e3
+    out["samples_per_s"] = b / (out["ms_per_step"] / 1e3)
+    out["profile"] = profile_call(
+        torch, lambda: step(params, opt_state, batches[-1]), "train_step",
+        DLRM_PROFILE_TOP)
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    assert out["max_memory_allocated"] < DLRM_PEAK_LIMIT, out
+    shared["bag_backward_timing"] = {
+        name: time_bag_backward(torch, grad_ops, batches[-1]["sparse"], t)
+        for name, t in TRAIN_FIELDS}
+    del params, opt_state, tables, batches, step, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["full_width_s"] = time.perf_counter() - t_phase
+
+    # (c) started now, beside (b): the CLI's plain run and its int8 run
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    plain = start_train_cli(tmp, "plain", "--steps", str(TRAIN_CLI_STEPS))
+    int8 = start_train_cli(tmp, "int8", "--steps", str(TRAIN_CLI_STEPS),
+                           "--compress", "int8")
+    try:
+        # (b) kernels against plain, sharded against unsharded
+        t0 = time.perf_counter()
+        cfg_b = capped_config(full, TRAIN_CHECK_CAP)
+        check_cfg = adamw.AdamWConfig(**TRAIN_CHECK_OPT)
+        gen = torch.Generator(device="cuda").manual_seed(DLRM_SEED + 1)
+        params = dlrm.init_params(cfg_b, gen, device="cuda")
+        opt_state = adamw.init(params)
+        bb = train_batches(torch, cfg_b, 2, b, DLRM_SEED + 1)
+        dlrm.make_sparse_train_step(cfg_b, check_cfg)(params, opt_state,
+                                                      bb[0])
+        plain_state = clone_state(torch, params, opt_state)
+        sh_params, sh_opt = clone_state(torch, params, opt_state)
+        before = {k: t.clone() for k, t in params.items()
+                  if k.startswith("table")}
+        devices = ["cuda:0"] * TRAIN_SHARD_DEVICES
+        sharded = (dlrm_param_sharding(sh_params, devices),
+                   dlrm_opt_state_sharding(sh_opt, devices))
+        _, _, mk = dlrm.make_sparse_train_step(cfg_b, check_cfg)(
+            params, opt_state, bb[1])
+        with plain_backward_on_cpu(grad_ops):
+            _, _, mp = dlrm.make_sparse_train_step(
+                cfg_b, check_cfg, use_kernels=False)(*plain_state, bb[1])
+        reset_launches(ops)
+        _, _, ms = dlrm.make_sparse_train_step(
+            cfg_b, check_cfg, devices=devices)(*sharded, bb[1])
+        torch.cuda.synchronize()
+        sh_launches = read_launches(ops)
+        check = {"rows": sum(cfg_b.table_sizes), "opt": TRAIN_CHECK_OPT,
+                 "lr": float(mk["lr"]),
+                 "sharded_launches": {k: n for k, n in sh_launches.items()
+                                      if n}}
+        assert torch.equal(mk["loss"], mp["loss"]), (mk, mp)
+        for k, p in params.items():
+            for got_t, want_t in ((p, plain_state[0][k]),
+                                  (opt_state.m[k], plain_state[1].m[k]),
+                                  (opt_state.v[k], plain_state[1].v[k])):
+                assert torch.equal(got_t, want_t), k
+        touched, moved, steps_abs = 0, 0, []
+        for t in range(cfg_b.n_sparse):
+            k, v = f"table{t}", cfg_b.table_sizes[t]
+            uniq = torch.unique(bb[1]["sparse"][:, t, :])
+            touched += int((uniq < v).sum()) * cfg_b.embed_dim
+            diff = (params[k].float() - before[k].float()).abs()
+            moved += int((diff > 0).sum())
+            steps_abs.append(diff[diff > 0])
+        steps_abs = torch.cat(steps_abs)
+        check["kernels_vs_plain"] = {
+            "equal": True, "touched_elements": touched,
+            "moved_elements": moved, "moved_fraction": moved / touched,
+            "update_abs_median": float(steps_abs.median()),
+            "update_abs_min": float(steps_abs.min())}
+        assert moved / touched >= TRAIN_CHECK_MOVED, check
+        del before, steps_abs
+        for k in params:
+            for got_t, want_t in ((sh_params[k], params[k]),
+                                  (sh_opt.m[k], opt_state.m[k]),
+                                  (sh_opt.v[k], opt_state.v[k])):
+                assert torch.equal(got_t, want_t), k
+        assert torch.equal(sh_opt.step, opt_state.step)
+        assert torch.equal(ms["loss"], mk["loss"])
+        check["sharded_equals_unsharded"] = True
+        check["row_sharded_tables"] = sum(
+            len(sharded[0][f"table{t}"]) == TRAIN_SHARD_DEVICES and
+            sharded[0][f"table{t}"][0].shape[0] < cfg_b.table_sizes[t]
+            for t in range(cfg_b.n_sparse))
+        check["s"] = time.perf_counter() - t0
+        out["check"] = check
+        del params, opt_state, plain_state, sh_params, sh_opt, sharded, bb
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) the CLI: the plain run, then --resume from its checkpoint,
+        # then the int8 run
+        t0 = time.perf_counter()
+        cli = {"plain": finish_train_cli(plain)}
+        assert cli["plain"]["final_below_first"], cli["plain"]
+        cli["plain"].update(held_out_losses(torch, tmp, "plain",
+                                            TRAIN_CLI_STEPS))
+        resume = start_train_cli(tmp, "plain", "--steps",
+                                 str(TRAIN_CLI_RESUME_STEPS), "--resume")
+        cli["resume"] = finish_train_cli(resume)
+        assert f"resumed from step {TRAIN_CLI_STEPS}" in \
+            cli["resume"]["stdout"], cli["resume"]
+        cli["resume"].update(held_out_losses(torch, tmp, "plain",
+                                             TRAIN_CLI_RESUME_STEPS))
+        cli["int8"] = finish_train_cli(int8)
+        assert cli["int8"]["final_below_first"], cli["int8"]
+        cli["int8"].update(held_out_losses(torch, tmp, "int8",
+                                           TRAIN_CLI_STEPS))
+        cli["s"] = time.perf_counter() - t0
+        out["cli"] = cli
+    finally:
+        for _, proc in (plain, int8):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["launches"] = {k: sum(x["launches"].get(k, 0) for x in steps)
+                       for k in ops}
+    out["allocated_at_end"] = torch.cuda.memory_allocated()
+    return out
+
+
+def bag_backward_kernel_row(timing: dict, by_phase: dict) -> dict:
+    """The backward kernel's line: the train phase's launches, and its
+    times at the largest field's shape (both fields under ``by_field``)."""
+    top = timing["largest"]
+    return {"name": "embedding_bag_backward", "route": "cuda",
+            "source": "src/repro_torch/csrc/embedding_bag_backward.cu",
+            "replaces": "none: the XLA scatter-add of jnp.take's gradient "
+                        "(src/repro/models/dlrm.py:211)",
+            "launches": by_phase["embedding_bag_backward"].get("train", 0),
+            "max_abs_err": max(t["max_abs_err"] for t in timing.values()),
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": top["library_ms"],
+            "host_syncs_per_call": max(t["syncs_per_call"]
+                                       for t in timing.values()),
+            "exact": all(t["exact_vs_plain_on_cpu"] for t in timing.values()),
+            "shape": top["shape"], "by_field": timing}
+
+
 def phase_dryrun(torch, ops, shared) -> dict:
     """The fabric dry run (``repro_torch.launch.dryrun``): ``fabric_dryrun``
     in this process at the reference test's size (3 shards, 64 vertices,
@@ -3701,7 +4182,7 @@ def bag_bf16_kernel_rows(timing: dict, by_phase: dict) -> list:
     return rows
 
 
-PHASES = ("dryrun", "dlrm", "rmat", "clustered", "listing", "skew", "fused",
+PHASES = ("dryrun", "dlrm", "train", "rmat", "clustered", "listing", "skew", "fused",
           "query", "outofcore", "query_listing", "api", "shard", "serve",
           "embedding_bag")
 # the phases whose graphs and results a phase reuses
@@ -3731,7 +4212,7 @@ def main() -> int:
                     help="device, build and kernel checks only")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="main-path phases to run (default: all "
-                         "fourteen), "
+                         "fifteen), "
                          "with the phases they reuse (NEEDS)")
     ap.add_argument("--profile", action="store_true",
                     help="repeat each main-path count under "
@@ -3745,6 +4226,7 @@ def main() -> int:
         return 2
     import numpy as np
     from repro_torch.kernels import _build
+    from repro_torch.kernels.embedding_bag import grad as grad_ops
     from repro_torch.kernels.embedding_bag import ops as bag_ops
     from repro_torch.kernels.intersect import ops as intersect_ops
     from repro_torch.kernels.lftj_fused import ops as fused_ops
@@ -3758,7 +4240,8 @@ def main() -> int:
            "embedding_bag_dma": bag_ops.LAUNCHES["dma"],
            "embedding_bag_onehot": bag_ops.LAUNCHES["onehot"],
            "embedding_bag_onehot_slices": bag_ops.ONEHOT_LAUNCHES["slices"],
-           "embedding_bag_onehot_rows": bag_ops.ONEHOT_LAUNCHES["rows"]}
+           "embedding_bag_onehot_rows": bag_ops.ONEHOT_LAUNCHES["rows"],
+           "embedding_bag_backward": grad_ops.BACKWARD_LAUNCHES}
 
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
@@ -3790,6 +4273,9 @@ def main() -> int:
                   phase_s=time.perf_counter() - t0))
         t0 = time.perf_counter()
         emit(dict(phase_bag_cases(torch, np, bag_ops, children),
+                  phase_s=time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        emit(dict(phase_bag_backward_cases(torch, np, grad_ops),
                   phase_s=time.perf_counter() - t0))
     finally:
         for proc in children.values():
@@ -3853,6 +4339,7 @@ def main() -> int:
                 torch, np, ops, shared, bag_ops),
             "dryrun": lambda: phase_dryrun(torch, ops, shared),
             "dlrm": lambda: phase_dlrm(torch, np, ops, shared, bag_ops),
+            "train": lambda: phase_train(torch, np, ops, shared, grad_ops),
         }
         runs = []
         for name in with_needs(args.phases.split(",")):
@@ -3891,6 +4378,9 @@ def main() -> int:
         if "bag_timing_bf16" in shared:
             kernels.extend(bag_bf16_kernel_rows(shared["bag_timing_bf16"],
                                                 by_phase))
+        if "bag_backward_timing" in shared:
+            kernels.append(bag_backward_kernel_row(
+                shared["bag_backward_timing"], by_phase))
         for k in kernels:
             assert k["exact"], k
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start,
@@ -3904,7 +4394,8 @@ def main() -> int:
     for k in kernels:
         limit = {"lftj_fused": 2, "embedding_bag_dma": 0,
                  "embedding_bag_onehot": 0, "embedding_bag_dma_bf16": 0,
-                 "embedding_bag_onehot_bf16": 0}.get(k["name"], 1)
+                 "embedding_bag_onehot_bf16": 0,
+                 "embedding_bag_backward": 0}.get(k["name"], 1)
         assert k.get("host_syncs_per_call") in (None, *range(limit + 1)), k
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -25,7 +25,10 @@ override it, or the port would plan anew).
 
 A DLRM's state is its params: ``dlrm_params_from_reference`` takes the
 reference's materialized params as numpy arrays (``np.asarray`` of each)
-and returns the port's tensors with the same bits, bfloat16 included.
+and returns the port's tensors with the same bits, bfloat16 included. A
+training run's state adds the optimizer's: ``opt_state_from_reference``
+carries the reference's ``OptState`` (step, and the float32 moments m and
+v by param name) across the same way.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from repro_torch.core.engine import TriangleEngine
 from repro_torch.core.leapfrog import Atom
 from repro_torch.core.queries import Query
 from repro_torch.data.edgestore import InMemoryEdgeSource
+from repro_torch.optim.adamw import OptState
 from repro_torch.query.executor import QueryEngine
 from repro_torch.query.planner import QueryPlan
 
@@ -124,3 +128,15 @@ def dlrm_params_from_reference(params: Mapping, device="cpu"
             t = torch.from_numpy(arr)
         out[name] = t.to(device)
     return out
+
+
+def opt_state_from_reference(state, device="cpu") -> OptState:
+    """The reference's ``adamw.OptState`` (``step``, and ``m`` and ``v``
+    as name -> array; numpy, or anything ``np.asarray`` takes) as the
+    port's ``OptState`` on ``device``, bit for bit: step an int32 0-d
+    tensor, the moments float32."""
+    return OptState(
+        step=torch.from_numpy(np.array(state.step, dtype=np.int32))
+        .to(device),
+        m=dlrm_params_from_reference(state.m, device),
+        v=dlrm_params_from_reference(state.v, device))

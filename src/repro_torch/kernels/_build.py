@@ -30,7 +30,8 @@ import torch
 
 SRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("intersect", "triangle_dense", "lftj_fused", "embedding_bag")
+KERNELS = ("intersect", "triangle_dense", "lftj_fused", "embedding_bag",
+           "embedding_bag_backward")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 CUDA_HOME_DEFAULT = "/usr/local/cuda"

@@ -1,15 +1,25 @@
 """DLRM (MLPerf config): sparse embedding tables + dot interaction + MLPs.
 
-The port of ``src/repro/models/dlrm.py`` (serving: ``forward``, the value
-of ``loss_fn``, ``serve_step``, ``retrieval_score``). The embedding lookup
-is the hot path. The reference takes ``jnp.take(tab, jnp.minimum(idx,
-V - 1))`` and a float32 sum over the bag; here each index is clamped to
-V - 1 the same way and the bag summed by ``embedding_bag(table, idx,
-mode="auto")``: on the card one of the two hand-written kernels
-(``csrc/embedding_bag.cu``, bfloat16 rows widened to float32 and added in
-slot order), on CPU tensors its plain version. ``use_kernels=False`` takes
-the plain version on any device (the smoke test's yardstick). Without the
-clamp an index >= V would be an empty slot there, not the last row.
+The port of ``src/repro/models/dlrm.py``: serving (``forward``,
+``serve_step``, ``retrieval_score``), ``loss_fn`` and training
+(``make_sparse_train_step``, and ``loss_fn``'s gradient for the dense
+step). The embedding lookup is the hot path. The reference takes
+``jnp.take(tab, jnp.minimum(idx, V - 1))`` and a float32 sum over the bag;
+here each index is clamped to V - 1 the same way and the bag summed by
+``embedding_bag(table, idx, mode="auto")``: on the card one of the two
+hand-written kernels (``csrc/embedding_bag.cu``, bfloat16 rows widened to
+float32 and added in slot order), on CPU tensors its plain version.
+``use_kernels=False`` takes the plain version on any device (the smoke
+test's yardstick). Without the clamp an index >= V would be an empty slot
+there, not the last row; with it, the gradient of an index >= V goes to
+row V - 1, as the reference's clamped ``jnp.take`` sends it.
+
+A table that requires a gradient is looked up through
+``kernels.embedding_bag.grad.embedding_bag_grad``, whose backward is the
+hand-written ``csrc/embedding_bag_backward.cu`` on the card: each row's
+gradient summed in float32 in slot order and cast once to the table's
+type (the reference's XLA scatter-add sums a bfloat16 table's gradient in
+bfloat16).
 
 Tables may be row-sharded over a device list (``devices=[...]`` with the
 params of ``parallel.sharding.dlrm_param_sharding``): a bag-sum over a
@@ -34,8 +44,10 @@ import torch
 from torch import nn
 
 from repro_torch.core.engine import resolve_torch_device
+from repro_torch.kernels.embedding_bag.grad import embedding_bag_grad
 from repro_torch.kernels.embedding_bag.ops import embedding_bag
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+from repro_torch.optim import adamw
 from repro_torch.parallel.sharding import table_row_block
 
 from . import layers as L
@@ -125,12 +137,34 @@ def _clamp_bounds(sizes: Tuple[int, ...], device: torch.device,
                         device=device).view(1, -1, 1)
 
 
+@functools.lru_cache(maxsize=16)
+def _tril_flat(n: int, device: torch.device) -> torch.Tensor:
+    """Flat positions i * n + j of the strict lower triangle of an (n, n)
+    matrix, in ``torch.tril_indices`` order (the reference's
+    ``np.tril_indices(n, k=-1)``)."""
+    iu, ju = torch.tril_indices(n, n, offset=-1, device=device)
+    return iu * n + ju
+
+
 def _dense_params(params, devices) -> Dict[str, torch.Tensor]:
     """The MLP params: as they are, or (sharded params) their copies on
     ``devices[0]``."""
     if devices is None:
         return params
     return {k: v[0] for k, v in params.items() if not k.startswith("table")}
+
+
+def _bag_of(use_kernels: bool):
+    """The bag-sum ``embedding_lookups`` runs: through the autograd
+    Function for a table that requires a gradient (with grad mode on),
+    else the wrapper or its plain version directly."""
+    plain = embedding_bag if use_kernels else embedding_bag_ref
+
+    def bag(table, idx):
+        if table.requires_grad and torch.is_grad_enabled():
+            return embedding_bag_grad(table, idx, use_kernels=use_kernels)
+        return plain(table, idx)
+    return bag
 
 
 def _sharded_bag(bag, shards: Sequence[torch.Tensor], idx: torch.Tensor,
@@ -158,7 +192,7 @@ def embedding_lookups(cfg: DLRMConfig, params, sparse: torch.Tensor, *,
     ``embedding_bag`` (the kernels on the card) or its plain version.
     With ``devices``, ``params`` are ``dlrm_param_sharding``'s per-device
     lists and every result lies on ``devices[0]``."""
-    bag = embedding_bag if use_kernels else embedding_bag_ref
+    bag = _bag_of(use_kernels)
     if devices is not None:
         devices = [torch.device(d) for d in devices]
     bounds = _clamp_bounds(tuple(cfg.table_sizes), sparse.device,
@@ -196,24 +230,37 @@ def forward(cfg: DLRMConfig, params, batch: Dict[str, Any], *,
     x_dense = _mlp(p, dense, "bot", len(cfg.bot_mlp))            # (B, D)
     embs = embedding_lookups(cfg, params, sparse, use_kernels=use_kernels,
                              devices=devices)
+    return _interact_top(cfg, p, x_dense, embs)
+
+
+def _interact_top(cfg: DLRMConfig, p, x_dense: torch.Tensor,
+                  embs: List[torch.Tensor]) -> torch.Tensor:
+    """The logits (B,) from the bottom tower's output and the bags."""
     z = torch.stack([x_dense] + embs, dim=1)                     # (B, 27, D)
-    # dot interaction: lower-triangular pairwise dots
+    # dot interaction: lower-triangular pairwise dots, gathered from the
+    # flattened (B, 27 * 27) products by one index_select (whose backward
+    # is one index_add; advanced indexing's took 5.5 ms of a train step on
+    # the card)
     zz = torch.bmm(z, z.transpose(1, 2))                         # (B, 27, 27)
-    n_int = cfg.n_sparse + 1
-    iu, ju = torch.tril_indices(n_int, n_int, offset=-1, device=dev)
-    pairs = zz[:, iu, ju]                                        # (B, 351)
+    pairs = zz.flatten(1).index_select(
+        1, _tril_flat(cfg.n_sparse + 1, z.device))               # (B, 351)
     top_in = torch.cat([x_dense, pairs], dim=-1)
     return _mlp(p, top_in, "top", len(cfg.top_mlp))[:, 0]
 
 
-def loss_fn(cfg: DLRMConfig, params, batch, **kw):
-    """(loss, {"bce": loss}): the mean BCE-with-logits of ``forward``, in
-    the reference's numerically stable form. The value only: the tables'
-    gradient (the lookup's backward) is not ported."""
-    logits = forward(cfg, params, batch, **kw)
-    y = _on(batch, "labels", logits.device, FDTYPE)
-    loss = torch.mean(torch.clamp_min(logits, 0) - logits * y +
+def _bce(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The mean BCE-with-logits, in the reference's numerically stable
+    form."""
+    return torch.mean(torch.clamp_min(logits, 0) - logits * y +
                       torch.log1p(torch.exp(-torch.abs(logits))))
+
+
+def loss_fn(cfg: DLRMConfig, params, batch, **kw):
+    """(loss, {"bce": loss}): the mean BCE-with-logits of ``forward``,
+    differentiable in every param that requires a gradient, the tables
+    included."""
+    logits = forward(cfg, params, batch, **kw)
+    loss = _bce(logits, _on(batch, "labels", logits.device, FDTYPE))
     return loss, {"bce": loss}
 
 
@@ -245,9 +292,182 @@ def retrieval_score(cfg: DLRMConfig, params, batch, *,
     return top_s, top_i
 
 
+# ---------------------------------------------------------------------------
+# row-sparse embedding training
+# ---------------------------------------------------------------------------
+
+def _gather_rows(shards: Sequence[torch.Tensor], safe: torch.Tensor,
+                 blk: int, devices: Sequence) -> torch.Tensor:
+    """Rows ``safe`` (on ``devices[0]``) of a table row-sharded in blocks
+    of ``blk`` rows, each gathered from the shard that holds it and
+    selected (not added) into one tensor on ``devices[0]``."""
+    out = None
+    for i, (shard, dev) in enumerate(zip(shards, devices)):
+        local = safe.to(dev) - i * blk
+        part = shard.index_select(0, local.clamp(0, blk - 1)).to(devices[0])
+        if out is None:
+            out = part
+        else:
+            inb = ((local >= 0) & (local < blk)).to(devices[0])
+            out = torch.where(inb[:, None], part, out)
+    return out
+
+
+def _scatter_add(shards: Sequence[torch.Tensor], safe: torch.Tensor,
+                 delta: torch.Tensor, blk: int, devices: Sequence) -> None:
+    """``shard[safe - i * blk] += delta`` in place on the shard that holds
+    each row; the other shards add -0.0, which changes no value."""
+    for i, (shard, dev) in enumerate(zip(shards, devices)):
+        local = safe.to(dev) - i * blk
+        inb = (local >= 0) & (local < blk)
+        d = torch.where(inb[:, None], delta.to(dev),
+                        torch.full((), -0.0, dtype=delta.dtype, device=dev))
+        shard.index_add_(0, local.clamp(0, blk - 1), d)
+
+
+def _sync_replicas(replicas: Sequence[torch.Tensor]) -> None:
+    """Copy replica 0 into every other replica that is not the same memory
+    (on a repeated device list the replicas are views of one tensor, and
+    updating each would apply a step twice)."""
+    first = replicas[0]
+    for r in replicas[1:]:
+        if r.device != first.device or r.data_ptr() != first.data_ptr():
+            r.copy_(first)
+
+
+def make_sparse_train_step(cfg: DLRMConfig, opt_cfg: adamw.AdamWConfig, *,
+                           use_kernels: bool = True,
+                           devices: Optional[Sequence] = None):
+    """Train step whose table updates touch only the rows in the batch: the
+    port of the reference's ``make_sparse_train_step``.
+
+    ``step(params, opt_state, batch) -> (params, opt_state, {"loss",
+    "grad_norm", "lr"})``. Per step:
+
+      1. per table the unique rows of the batch (``torch.unique``, one host
+         synchronisation a table; the reference pads to B·hot with V, and
+         its pad rows add 0, so the port does not pad) and the gathered
+         rows ``table[min(uniq, V - 1)]``;
+      2. the loss from the MLP params and the gathered rows, each field's
+         bags ``embedding_bag_grad(rows, inverse)`` (on the card the
+         forward kernels and the backward kernel, one launch each a
+         field), and ``torch.autograd.grad`` of it: the MLP grads and each
+         field's rows' grad. The tables never enter the autograd graph;
+      3. ``adamw.apply`` over the MLP params alone, clipped over those
+         alone;
+      4. row-wise lazy AdamW on the live rows (``uniq < V``), no weight
+         decay, no clip, in the reference's delta form:
+         ``table[safe] += bf16(-lr * delta * live)``, ``m[safe] += (m2 -
+         m_rows) * live``, ``v`` likewise (plain PyTorch ops, as the
+         reference leaves them to XLA). Untouched rows' moments do not
+         decay that step.
+
+    Everything is updated in place (``index_add_`` for the tables and
+    their moments: two copies of the dlrm-mlperf state would not fit one
+    card), and the returned params and state are the ones passed in.
+
+    ``devices``: params from ``parallel.sharding.dlrm_param_sharding`` and
+    the state from ``dlrm_opt_state_sharding`` over the same list. The
+    ``table*`` moments are cut into the tables' row blocks: a device list
+    has one axis, so the reference's ``shard_moments_2d`` (moments over
+    (model, dp)) has nothing more to cut and the moments follow the
+    tables. Rows are gathered from the shard that holds each and
+    combined on ``devices[0]``, where the step is computed; each shard
+    then updates the live rows of its block in place. The replicated
+    params and their moments are updated once, on ``devices[0]``'s
+    replica, and copied to the other replicas (not to a replica that is
+    the same memory: on a repeated device list they are views of one
+    tensor)."""
+    tables = [f"table{t}" for t in range(cfg.n_sparse)]
+    devs = None if devices is None else [torch.device(d) for d in devices]
+
+    def rows_of(tree, name, safe, v):
+        """(the blocks or replicas of ``tree[name]``, their row block) and
+        the rows ``safe`` gathered from them."""
+        if devs is None:
+            return [tree[name]], 0, tree[name].index_select(0, safe)
+        blk = table_row_block(v, len(devs))
+        if not blk:
+            return tree[name], 0, tree[name][0].index_select(0, safe)
+        return tree[name], blk, _gather_rows(tree[name], safe, blk, devs)
+
+    def scatter(parts, blk, safe, delta):
+        if blk:
+            _scatter_add(parts, safe, delta, blk, devs)
+        else:
+            parts[0].index_add_(0, safe, delta)
+            _sync_replicas(parts)
+
+    def step(params, opt_state, batch):
+        p = _dense_params(params, devs)
+        dev = p["bot_w0"].device
+        dense = _on(batch, "dense", dev, FDTYPE)
+        sparse = _on(batch, "sparse", dev)
+        y = _on(batch, "labels", dev, FDTYPE)
+        b = sparse.shape[0]
+        fields = []
+        for t, name in enumerate(tables):
+            v = cfg.table_sizes[t]
+            uniq, inv = torch.unique(sparse[:, t, :].reshape(-1),
+                                     sorted=True, return_inverse=True)
+            safe = uniq.clamp(max=v - 1).long()
+            parts, blk, rows = rows_of(params, name, safe, v)
+            fields.append((name, v, uniq, safe, parts, blk,
+                           rows.detach().requires_grad_(),
+                           inv.to(torch.int32).view(b, -1)))
+
+        dense_p = {k: t for k, t in p.items() if not k.startswith("table")}
+        leaves = {k: t.detach().requires_grad_() for k, t in dense_p.items()}
+        x_dense = _mlp(leaves, dense, "bot", len(cfg.bot_mlp))
+        embs = [embedding_bag_grad(rows, inv, use_kernels=use_kernels)
+                for _, _, _, _, _, _, rows, inv in fields]
+        loss = _bce(_interact_top(cfg, leaves, x_dense, embs), y)
+        grads = torch.autograd.grad(
+            loss, list(leaves.values()) + [f[6] for f in fields])
+        g_dense = dict(zip(leaves, grads[:len(leaves)]))
+        g_rows = grads[len(leaves):]
+        del embs, x_dense, leaves
+
+        # dense side: plain AdamW over the MLP params alone, in place on
+        # devices[0]'s replica
+        first = (lambda x: x) if devs is None else (lambda x: x[0])
+        sub = adamw.OptState(opt_state.step,
+                             {k: first(opt_state.m[k]) for k in dense_p},
+                             {k: first(opt_state.v[k]) for k in dense_p})
+        _, _, om = adamw.apply(opt_cfg, dense_p, g_dense, sub)
+        if devs is not None:
+            with torch.no_grad():
+                for k in dense_p:
+                    for tree in (params, opt_state.m, opt_state.v):
+                        _sync_replicas(tree[k])
+
+        # table side: row-wise lazy AdamW (delta scatters; pads add 0)
+        b1, b2, eps = opt_cfg.beta1, opt_cfg.beta2, opt_cfg.eps
+        lr = om["lr"]
+        bc1, bc2 = adamw.bias_corrections(opt_cfg, opt_state.step)
+        with torch.no_grad():
+            for (name, v, uniq, safe, parts, blk, _, _), g_r in zip(fields,
+                                                                  g_rows):
+                live = (uniq < v).to(torch.float32)[:, None]
+                g = g_r.to(torch.float32) * live
+                m_parts, _, m_rows = rows_of(opt_state.m, name, safe, v)
+                v_parts, _, v_rows = rows_of(opt_state.v, name, safe, v)
+                m2 = b1 * m_rows + (1 - b1) * g
+                v2 = b2 * v_rows + (1 - b2) * g * g
+                delta = (m2 / bc1) / (torch.sqrt(v2 / bc2) + eps)
+                scatter(parts, blk, safe,
+                        (-lr * delta * live).to(parts[0].dtype))
+                scatter(m_parts, blk, safe, (m2 - m_rows) * live)
+                scatter(v_parts, blk, safe, (v2 - v_rows) * live)
+        return params, opt_state, {"loss": loss.detach(), **om}
+
+    return step
+
+
 class DLRM(nn.Module):
     """The module idiom over the functions above: the params (random from
-    ``generator`` on ``device``, or given) held as frozen parameters."""
+    ``generator`` on ``device``, or given) held as frozen parameters, which
+    ``train_step`` updates in place."""
 
     def __init__(self, cfg: DLRMConfig,
                  params: Optional[Dict[str, torch.Tensor]] = None, *,
@@ -272,3 +492,14 @@ class DLRM(nn.Module):
     def retrieval_score(self, batch, *, use_kernels: bool = True):
         return retrieval_score(self.cfg, dict(self.params), batch,
                                use_kernels=use_kernels)
+
+    def train_step(self, opt_cfg: adamw.AdamWConfig,
+                   opt_state: adamw.OptState, batch, *,
+                   use_kernels: bool = True):
+        """One ``make_sparse_train_step`` step on the module's params, in
+        place; returns (opt_state, metrics). ``opt_state`` is
+        ``adamw.init`` of the params, on their device."""
+        step = make_sparse_train_step(self.cfg, opt_cfg,
+                                      use_kernels=use_kernels)
+        _, opt_state, metrics = step(dict(self.params), opt_state, batch)
+        return opt_state, metrics

@@ -17,7 +17,8 @@ the §5 interval algebra ``merge_interval`` / ``interval_gaps``) price the
 ``parallel.fabric`` shard must hold. All of it is numpy in, numpy out.
 
 ``dlrm_param_sharding`` places DLRM's tables over a device list as row
-blocks (``models.dlrm`` sums the per-block bags).
+blocks (``models.dlrm`` sums the per-block bags), and
+``dlrm_opt_state_sharding`` their AdamW moments in the same blocks.
 """
 
 from __future__ import annotations
@@ -391,3 +392,17 @@ def dlrm_param_sharding(params: Dict[str, torch.Tensor],
         else:
             out[name] = [p.to(dev) for dev in devs]
     return out
+
+
+def dlrm_opt_state_sharding(state, devices: Sequence):
+    """An ``optim.adamw.OptState`` of DLRM params placed as
+    ``dlrm_param_sharding`` places the params: each ``table*`` moment cut
+    into the same row blocks, every other moment replicated, the step on
+    ``devices[0]``. ``models.dlrm.make_sparse_train_step(...,
+    devices=devices)`` reads this layout. (The reference's
+    ``shard_moments_2d`` shards the moments over (model, dp); a device list
+    has one axis, so the moments follow the tables.)"""
+    devs = box_mesh(devices)
+    return type(state)(state.step.to(devs[0]),
+                       dlrm_param_sharding(state.m, devs),
+                       dlrm_param_sharding(state.v, devs))
