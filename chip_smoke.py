@@ -41,7 +41,12 @@ Phases (the kernels each main-path phase must launch in brackets):
                   for bit at float32 and bfloat16 output (int32 and int64
                   indices, L = 1 and 8, V from 3 to 2^20, 65,536 bags into
                   3 rows, every bag on one row, PAD, a strided gradient,
-                  untouched rows zero).
+                  untouched rows zero over NaN-filled memory; runs at the
+                  column-split threshold and one past it, runs starting at
+                  a tile's last position and crossing many tiles, D = 130,
+                  16 and 8, a skewed 512-row field with a run of >= 7,000
+                  slots with and without a caller-given sort, the train
+                  step's case with every row touched).
  2a. dryrun     — the fabric dry run (``repro_torch.launch.dryrun``) at
                   the reference test's size and the CLI's defaults, and
                   its CLI in a child process that sees no card; no launch.
@@ -281,7 +286,8 @@ TRAIN_CLI_TIMEOUT_S = 300
 BAG_BWD_CASES = ((3, 65_536, 1, 128), (3, 4096, 8, 128),
                  (1000, 4096, 8, 128), (7168, 65_536, 1, 128),
                  (1 << 20, 65_536, 1, 128), (1 << 20, 8192, 8, 128),
-                 (5000, 777, 3, 130), (37, 300, 2, 16), (1, 100, 2, 128))
+                 (5000, 777, 3, 130), (37, 300, 2, 16), (1, 100, 2, 128),
+                 (300, 4096, 1, 8), (2048, 65_536, 1, 16))
 # the dryrun phase: the fabric dry run at the reference test's sizes and at
 # its CLI's defaults
 DRYRUN_SHARDS = (3, 4)
@@ -482,10 +488,12 @@ def profile_count(torch, eng, label: str, top: int = 10) -> dict:
     return profile_call(torch, eng.count, label, top)
 
 
-def profile_call(torch, fn, label: str, top: int = 10) -> dict:
+def profile_call(torch, fn, label: str, top: int = 10,
+                 sums: "dict | None" = None) -> dict:
     """Device time by kernel name over one ``fn()`` under
     ``torch.profiler``; ``idle_share`` is the share of the wall time in
-    which no kernel or copy ran."""
+    which no kernel or copy ran; ``sums``: {label: substring} gives the
+    device ms and calls of the kernels whose names hold each substring."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -502,11 +510,17 @@ def profile_call(torch, fn, label: str, top: int = 10) -> dict:
             and ev.self_device_time_total > 0]
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows)
-    return {"phase": "profile", "of": label, "wall_ms": wall_ms,
-            "device_ms": device_ms,
-            "idle_share": 1.0 - device_ms / wall_ms if wall_ms else None,
-            "top": [{"name": k[:80], "calls": c, "ms": ms}
-                    for ms, k, c in rows[:top]]}
+    out = {"phase": "profile", "of": label, "wall_ms": wall_ms,
+           "device_ms": device_ms,
+           "idle_share": 1.0 - device_ms / wall_ms if wall_ms else None,
+           "top": [{"name": k[:80], "calls": c, "ms": ms}
+                   for ms, k, c in rows[:top]]}
+    if sums:
+        out["sums"] = {
+            name: {"ms": sum(r[0] for r in rows if part in r[1]),
+                   "calls": sum(r[2] for r in rows if part in r[1])}
+            for name, part in sums.items()}
+    return out
 
 
 def demangle(name: str) -> str:
@@ -528,8 +542,9 @@ def demangle(name: str) -> str:
 
 
 def ptxas_report(log: str) -> dict:
-    """{function: registers, stack bytes, spill stores and loads} of every
-    function ptxas reports in an ``nvcc -Xptxas=-v`` log."""
+    """{function: registers, static shared memory bytes, stack bytes,
+    spill stores and loads} of every function ptxas reports in an ``nvcc
+    -Xptxas=-v`` log."""
     import re
     out, cur = {}, None
     for line in log.splitlines():
@@ -554,6 +569,9 @@ def ptxas_report(log: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             out[cur]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            out[cur]["smem"] = int(m.group(1))
     return out
 
 
@@ -1241,35 +1259,89 @@ def bag_bf16_cases(torch, np, bag_ops, gen, rng) -> dict:
             "max_abs_err": worst, "onehot_equals_dma": True}
 
 
+def zipf_indices(np, rng, v: int, size) -> "np.ndarray":
+    """The train data's power-law draw (``CriteoLikeGenerator``): row
+    ``floor(v^u - 1)`` for u uniform, so row 0 takes ln 2 / ln v of the
+    slots (11 % at v = 512)."""
+    u = rng.random(size)
+    return np.clip(np.floor(v ** u - 1).astype(np.int64), 0, v - 1)
+
+
+def run_indices(np, rng, lengths) -> "np.ndarray":
+    """(sum(lengths), 1) indices whose sorted runs have these lengths
+    (keys 0, 1, ...), in shuffled bag order."""
+    x = np.repeat(np.arange(len(lengths)), lengths)
+    rng.shuffle(x)
+    return x.reshape(-1, 1)
+
+
+def bag_backward_run_cases(grad_ops) -> dict:
+    """The run lengths that reach the kernel's edges, by name: around
+    LONG_RUN (a run of more slots is split by columns over blocks), runs
+    starting at the last position of a SPAN-position tile (one of them
+    long), and runs crossing many tiles."""
+    t, w = grad_ops.LONG_RUN, grad_ops.SPAN
+    return {
+        "threshold": [t - 1, t, t + 1, 1, 2, t, t + 1, w - 1, w, w + 1],
+        # runs start at positions w - 1 (short) and 4 w - 1 (long)
+        "span_end": [w - 1, w + 8, 2 * w - 8, 3 * t, 1, w - 2, t + 1],
+        "many_spans": [5, 30 * w, 3, t, 7 * w, 7],
+    }
+
+
 def phase_bag_backward_cases(torch, np, grad_ops) -> dict:
     """embedding_bag_backward on the card against its plain version on the
     CPU copy of the same inputs: both add each row's slots in (b, s) order
     from 0 in float32, so they are equal bit for bit at float32 output and
-    after the one cast at bfloat16. BAG_BWD_CASES with int64 and int32
-    indices (about 10 % PAD, bag 0 all PAD: bag_indices), V from 3 to 2^20,
-    65,536 bags into 3 rows, L = 1 and 8, D = 128, 130 (one value a load)
-    and 16; every bag on one row; a strided grad_out; untouched rows zero;
-    one launch a call."""
+    after the one cast at bfloat16. Each case with int64 and int32 indices
+    and both outputs, through the wrapper and once more through the C
+    entry into an output filled with NaN (the kernel writes every row,
+    zeros where no slot names one):
+    BAG_BWD_CASES (about 10 % PAD, bag 0 all PAD: bag_indices; V from 3
+    to 2^20, 65,536 bags into 3 rows, L = 1 and 8, D = 128, 130, 16);
+    every bag on one row; a strided grad_out; the run lengths of
+    bag_backward_run_cases at D = 128, 130, 16 and 8; a skewed 512-row
+    field (a Zipf draw, B = 65,536, L = 1, one run of >= 7,000 slots)
+    with and without a caller-given ``order``, and at D = 130, 16 and 8
+    (B = 8,192); the
+    train step's case (``dlrm.unique_with_order`` of a Zipf draw over 2^23
+    rows: every row touched, the step's ``order``). Two launches a
+    case."""
     from repro_torch.kernels.embedding_bag.ref import \
         embedding_bag_backward_ref
+    from repro_torch.models.dlrm import unique_with_order
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
     rng = np.random.default_rng(2)
     n_cases = 0
+    names = []
 
-    def check(g, idx, v):
+    def check(g, idx, v, name=None, order=None):
         nonlocal n_cases
         g_cpu, idx_cpu = g.cpu(), idx.cpu()
         for ix, ix_cpu in ((idx, idx_cpu),
                            (idx.to(torch.int32), idx_cpu.to(torch.int32))):
+            sort = None if order is None else (order[0].to(ix.dtype),
+                                               order[1])
+            keys, perm = sort or torch.sort(ix.reshape(-1), stable=True)
             for dtype in (torch.float32, torch.bfloat16):
-                before = grad_ops.BACKWARD_LAUNCHES.n
-                got = grad_ops.embedding_bag_backward(g, ix, v, dtype)
-                assert grad_ops.BACKWARD_LAUNCHES.n == before + 1
                 want = embedding_bag_backward_ref(g_cpu, ix_cpu, v, dtype)
+                before = grad_ops.BACKWARD_LAUNCHES.n
+                got = grad_ops.embedding_bag_backward(g, ix, v, dtype,
+                                                      order=sort)
                 assert got.dtype == dtype and torch.equal(got.cpu(), want), \
-                    (v, tuple(ix.shape), ix.dtype, dtype)
+                    (name, v, tuple(ix.shape), ix.dtype, dtype)
+                # the C entry once more, into memory that holds NaN
+                nan_out = torch.full((v, g.shape[1]), float("nan"),
+                                     dtype=dtype, device=dev)
+                grad_ops._launch_sorted(g, keys, perm, ix.shape[1], v, dtype,
+                                        out=nan_out)
+                assert grad_ops.BACKWARD_LAUNCHES.n == before + 2
+                assert torch.equal(nan_out.cpu(), want), \
+                    (name, v, tuple(ix.shape), ix.dtype, dtype, "nan_out")
                 n_cases += 1
+        if name:
+            names.append(name)
         return got
 
     untouched = 0
@@ -1290,9 +1362,35 @@ def phase_bag_backward_cases(torch, np, grad_ops) -> dict:
     wide = torch.randn((4096, 3 * 128), generator=gen, device=dev)
     idx = torch.from_numpy(bag_indices(np, rng, 999, 4096, 4)).to(dev)
     check(wide[:, 128:256], idx, 999)
+    # the run lengths at the kernel's edges
+    for name, lengths in bag_backward_run_cases(grad_ops).items():
+        idx = torch.from_numpy(run_indices(np, rng, lengths)).to(dev)
+        v = len(lengths) + 2  # two rows no slot names
+        for d in (128, 130, 16, 8):
+            g = torch.randn((idx.shape[0], d), generator=gen, device=dev)
+            check(g, idx, v, f"{name}/D{d}")
+    # a skewed 512-row field: one run of >= 7,000 of 65,536 slots
+    idx = torch.from_numpy(zipf_indices(np, rng, 512, (BAG_B, 1))).to(dev)
+    longest = int(torch.bincount(idx.reshape(-1)).max())
+    assert longest >= 7000, longest
+    g = torch.randn((BAG_B, 128), generator=gen, device=dev)
+    check(g, idx, 512, "skewed512")
+    check(g, idx, 512, "skewed512/order",
+          order=torch.sort(idx.reshape(-1), stable=True))
+    for d in (130, 16, 8):
+        idx = torch.from_numpy(zipf_indices(np, rng, 512, (8192, 1))).to(dev)
+        check(torch.randn((8192, d), generator=gen, device=dev), idx, 512,
+              f"skewed512/B8192/D{d}")
+    # the train step's case: every row touched, the step's sort
+    x = torch.from_numpy(zipf_indices(np, rng, 1 << 23, BAG_B)).to(dev)
+    uniq, inv, order = unique_with_order(x)
+    g = torch.randn((BAG_B, 128), generator=gen, device=dev)
+    check(g, inv.view(BAG_B, 1), uniq.numel(), "step", order=order)
     torch.cuda.synchronize()
     return {"phase": "kernels", "of": ["embedding_bag_backward"],
-            "cases": n_cases, "exact": True, "untouched_rows_zero": untouched}
+            "cases": n_cases, "exact": True, "untouched_rows_zero": untouched,
+            "run_cases": names, "long_run": grad_ops.LONG_RUN,
+            "skewed512_longest_run": longest}
 
 
 # ---------------------------------------------------------------------------
@@ -3324,22 +3422,40 @@ def train_batches(torch, cfg, n: int, b: int, seed: int) -> list:
              for k, v in data.batch(b).items()} for _ in range(n)]
 
 
+def sm_clocks_mhz() -> dict:
+    """The card's SM clock now and its maximum, MHz, by nvidia-smi."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    now, top = out.stdout.strip().splitlines()[0].split(",")
+    return {"sm": float(now), "max_sm": float(top)}
+
+
 def time_bag_backward(torch, grad_ops, sparse, t: int) -> dict:
     """The backward kernel at the sparse step's shape for field ``t`` of a
     train batch: the gathered-row table of its unique rows (bfloat16) and
-    the batch's inverse indices (int32, L = hot, as the step passes them),
-    a float32 grad_out.
-    ``ms``: the wrapper call (stable sort, zeros, launch) between CUDA
-    events; the plain version (``index_add_`` into float32 zeros, then the
-    cast) and one ``index_add_`` call on the same inputs (the library
-    yardstick); the host synchronisations of one call; the bytes bound
-    (each slot's index and gradient row read once, the V x D output
-    written once)."""
+    the batch's inverse indices (int32, L = hot), as the step makes them
+    (``dlrm.unique_with_order``, whose sort the step hands on as
+    ``order``), a float32 grad_out.
+    ``ms``: the wrapper call with its own stable sort (one memset and two
+    kernels after it) between CUDA events; ``ms_with_order``: the wrapper
+    given the step's sort; ``kernel_ms``: the C entry alone on that sort
+    (BAG_GRAPH_LAUNCHES calls in one CUDA graph, per call); the plain
+    version (``index_add_`` into float32 zeros, then the cast) and one
+    ``index_add_`` call on the same inputs (the library yardstick:
+    ``library_ms`` eager, between events, to set beside ``ms`` and
+    ``ms_with_order``; ``library_graph_ms`` in a CUDA graph as
+    ``kernel_ms`` is); the host synchronisations of one call; the bytes
+    bound (each slot's index and gradient row read once, the V x D
+    output written once) and, beside it, the floor that exactness sets:
+    the longest run's chain of float32 adds, 4 cycles each at the card's
+    maximum SM clock."""
     from repro_torch.kernels.embedding_bag.ref import \
         embedding_bag_backward_ref
+    from repro_torch.models.dlrm import unique_with_order
     b, hot = sparse.shape[0], sparse.shape[2]
-    uniq, inv = torch.unique(sparse[:, t, :].reshape(-1), sorted=True,
-                             return_inverse=True)
+    uniq, inv, order = unique_with_order(sparse[:, t, :].reshape(-1))
     idx = inv.to(torch.int32).view(b, hot)
     v, d = uniq.numel(), 128
     gen = torch.Generator(device="cuda").manual_seed(t)
@@ -3349,27 +3465,51 @@ def time_bag_backward(torch, grad_ops, sparse, t: int) -> dict:
         torch, lambda: grad_ops.embedding_bag_backward(g, idx, v, dtype))
     want = embedding_bag_backward_ref(g.cpu(), idx.cpu(), v, dtype)
     exact = torch.equal(got.cpu(), want)
+    with_order, syncs_order = count_syncs(
+        torch, lambda: grad_ops.embedding_bag_backward(g, idx, v, dtype,
+                                                       order=order))
+    exact = exact and torch.equal(with_order.cpu(), want)
     err = float((got.float().cpu() - want.float()).abs().max())
     on_card = embedding_bag_backward_ref(g, idx, v, dtype)
     err_card = float((got.float() - on_card.float()).abs().max())
     ms = cuda_ms(lambda: grad_ops.embedding_bag_backward(g, idx, v, dtype),
                  TIMING_REPS)
+    ms_with_order = cuda_ms(lambda: grad_ops.embedding_bag_backward(
+        g, idx, v, dtype, order=order), TIMING_REPS)
+    out = torch.empty((v, d), dtype=dtype, device="cuda")
+    work = torch.empty(grad_ops._workspace_bytes(idx.numel(), v, d),
+                       dtype=torch.uint8, device="cuda")
+    kernel_ms = graph_ms(torch, lambda: [
+        grad_ops._launch_sorted(g, *order, hot, v, dtype, out=out, work=work)
+        for _ in range(BAG_GRAPH_LAUNCHES)], TIMING_REPS) / BAG_GRAPH_LAUNCHES
+    exact = exact and torch.equal(out.cpu(), want)
     plain_ms = cuda_ms(lambda: embedding_bag_backward_ref(g, idx, v, dtype),
                        TIMING_REPS)
     acc = torch.zeros((v, d), dtype=torch.float32, device="cuda")
     flat, rows = idx.reshape(-1), g.repeat_interleave(hot, dim=0)
     lib_ms = cuda_ms(lambda: acc.index_add_(0, flat, rows), TIMING_REPS)
+    lib_graph_ms = graph_ms(torch, lambda: [
+        acc.index_add_(0, flat, rows) for _ in range(BAG_GRAPH_LAUNCHES)],
+        TIMING_REPS) / BAG_GRAPH_LAUNCHES
     n_bytes = idx.numel() * (idx.element_size() + 4 * d) \
         + v * d * got.element_size()
-    counts = torch.bincount(flat.long(), minlength=v)
-    return {"field": t, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+    longest = int(torch.bincount(flat.long(), minlength=v).max())
+    clocks = sm_clocks_mhz()
+    return {"field": t, "ms": ms, "ms_with_order": ms_with_order,
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "library_graph_ms": lib_graph_ms,
             "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "bytes": n_bytes, "syncs_per_call": syncs,
+            "bytes": n_bytes, "longest_run": longest,
+            "longest_run_floor_ms": longest * 4 / (clocks["max_sm"] * 1e3),
+            "sm_clock_mhz": clocks, "syncs_per_call": syncs,
+            "syncs_per_call_with_order": syncs_order,
             "exact_vs_plain_on_cpu": exact, "max_abs_err": err,
             "max_abs_err_vs_plain_on_card": err_card,
+            "device_ops_per_call": "memset + bag_backward_plan + "
+                                   "bag_backward_runs (+ the sort "
+                                   "without order)",
             "shape": {"rows": v, "idx": list(idx.shape), "d": d,
-                      "out_dtype": "bfloat16"},
-            "longest_run": int(counts.max())}
+                      "out_dtype": "bfloat16"}}
 
 
 def clone_state(torch, params, opt_state):
@@ -3545,7 +3685,8 @@ def phase_train(torch, np, ops, shared, grad_ops) -> dict:
     out["samples_per_s"] = b / (out["ms_per_step"] / 1e3)
     out["profile"] = profile_call(
         torch, lambda: step(params, opt_state, batches[-1]), "train_step",
-        DLRM_PROFILE_TOP)
+        DLRM_PROFILE_TOP, sums={"embedding_bag_backward": "bag_backward_",
+                                "radix_sort": "RadixSort"})
     out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     assert out["max_memory_allocated"] < DLRM_PEAK_LIMIT, out
     shared["bag_backward_timing"] = {
@@ -3678,11 +3819,15 @@ def bag_backward_kernel_row(timing: dict, by_phase: dict) -> dict:
                         "(src/repro/models/dlrm.py:211)",
             "launches": by_phase["embedding_bag_backward"].get("train", 0),
             "max_abs_err": max(t["max_abs_err"] for t in timing.values()),
-            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "ms": top["ms"], "ms_with_order": top["ms_with_order"],
+            "kernel_ms": top["kernel_ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "longest_run_floor_ms": top["longest_run_floor_ms"],
             "library_ms": top["library_ms"],
-            "host_syncs_per_call": max(t["syncs_per_call"]
-                                       for t in timing.values()),
+            "library_graph_ms": top["library_graph_ms"],
+            "host_syncs_per_call": max(
+                max(t["syncs_per_call"], t["syncs_per_call_with_order"])
+                for t in timing.values()),
             "exact": all(t["exact_vs_plain_on_cpu"] for t in timing.values()),
             "shape": top["shape"], "by_field": timing}
 

@@ -46,6 +46,22 @@ Runs, each on a graph made from a fixed seed:
   BAG_GRAPH_LAUNCHES launches replayed, per launch; the host
   synchronisations of a public call; whether "onehot" equals "dma" bit
   for bit;
+* ``bag_backward``: ``embedding_bag_backward`` at chip_smoke.py's two
+  train shapes (the step's inverse indices of a power-law draw of B =
+  65,536 slots, L = 1, int32, over 2^23 rows and over 512 rows) and with
+  every slot on one row (``chain``: the ordered adds alone); D = 128,
+  bfloat16 out: ``ms``, the wrapper with its own sort; where the tree's
+  wrapper takes the step's sort, ``ms_with_order`` and its
+  ``host_us_with_order``; ``kernel_ms``, the C entry alone on the
+  prepared sort (a CUDA graph of BAG_GRAPH_LAUNCHES calls, per call; an
+  older tree's kernel into zeros made once); one ``index_add_`` on the
+  same inputs, eager between events (``index_add_ms``) and in a CUDA
+  graph (``index_add_graph_ms``); the output equal to the plain version
+  on the CPU bit for bit. With ``--bag-variant NAME=CONST:VALUE,...``
+  (repeatable) the kernel is built once more per variant with those
+  ``constexpr`` constants (``kStage:256``, ``kLongRun:32``, ...) and its
+  ``kernel_ms`` timed beside the tree's, in the order own, variants,
+  variants reversed, own, each into NaN and checked bit for bit;
 * ``bag_sweep``: at each padded row count of the dlrm-mlperf "onehot"
   fields (BAG_SWEEP_V; with ``--dtype bfloat16`` the fields "auto" sends
   to "onehot" at bfloat16, BAG_SWEEP_V_BF16), L = 1 and 8, the
@@ -80,8 +96,11 @@ engine_intersect). Every kernel is built before the first run.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
+import re
 import statistics
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -365,6 +384,141 @@ def bag_sweep(torch, bag_ops, tag: dict, dtype: str) -> None:
         torch.cuda.empty_cache()
 
 
+# the bag_backward run: the train phase's two fields (TRAIN_FIELDS) as
+# power-law draws (CriteoLikeGenerator's) over their capped row counts,
+# and every slot on one row (the chain of ordered adds alone)
+BAG_BWD_SHAPES = (("largest", 1 << 23), ("smallest", 512), ("chain", 1))
+
+
+def bag_variants(build, specs) -> dict:
+    """{name: library}: the tree's backward kernel built once more per
+    ``NAME=CONST:VALUE,...`` spec, with those constexpr constants set to
+    other values (one ``nvcc`` each, all started together)."""
+    if not specs:
+        return {}
+    from repro_torch.kernels.embedding_bag import grad as grad_ops
+    source = (build.SRC_DIR / "embedding_bag_backward.cu").read_text()
+    out = build.BUILD_DIR / "variants"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for spec in specs:
+        name, _, consts = spec.partition("=")
+        text = source
+        for const, value in (c.split(":") for c in consts.split(",") if c):
+            text, n = re.subn(rf"(constexpr \w+(?: \w+)? {const} = )[^;]+;",
+                              rf"\g<1>{value};", text)
+            if n != 1:
+                raise SystemExit(f"no constexpr {const} in "
+                                 "embedding_bag_backward.cu")
+        cu = out / f"embedding_bag_backward_{name}.cu"
+        cu.write_text(text)
+        procs[name] = subprocess.Popen(
+            [build.find_nvcc(), *build.NVCC_FLAGS, "-o",
+             str(cu.with_suffix(".so")), str(cu)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for (name, proc), spec in zip(procs.items(), specs):
+        log, _ = proc.communicate()
+        emit({"run": "bag_variant", "variant": spec, "nvcc_rc":
+              proc.returncode, "ptxas": [line.strip() for line in
+                                         log.splitlines() if "Used" in line
+                                         or "stack frame" in line]})
+        if proc.returncode:
+            raise SystemExit(log[-2000:])
+        lib = ctypes.CDLL(str(out / f"embedding_bag_backward_{name}.so"))
+        for sym, (argtypes, restype) in grad_ops._SIGNATURES.items():
+            getattr(lib, sym).argtypes = list(argtypes)
+            getattr(lib, sym).restype = restype
+        libs[name] = lib
+    return libs
+
+
+def bag_backward_run(torch, np, tag: dict, variants: dict) -> None:
+    """The ``bag_backward`` run: one JSON line per shape."""
+    import inspect
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.embedding_bag import grad as grad_ops
+    from repro_torch.kernels.embedding_bag.ref import \
+        embedding_bag_backward_ref
+    from repro_torch.models import dlrm
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    takes_order = "order" in inspect.signature(
+        grad_ops.embedding_bag_backward).parameters
+    dtype, d = torch.bfloat16, 128
+    for name, rows in BAG_BWD_SHAPES:
+        u = rng.random(BAG_B)
+        x = torch.from_numpy(np.clip(np.floor(rows ** u - 1), 0, rows - 1)
+                             .astype(np.int32)).cuda()
+        if hasattr(dlrm, "unique_with_order"):
+            uniq, inv, (keys, perm) = dlrm.unique_with_order(x)
+        else:  # a tree whose step does not hand its sort on
+            uniq, inv = torch.unique(x, sorted=True, return_inverse=True)
+            keys, perm = torch.sort(inv.to(torch.int32), stable=True)
+        idx, v = inv.to(torch.int32).view(-1, 1), uniq.numel()
+        g = torch.randn((BAG_B, d), generator=gen, device="cuda")
+        want = embedding_bag_backward_ref(g.cpu(), idx.cpu(), v, dtype)
+        got = grad_ops.embedding_bag_backward(g, idx, v, dtype)
+        line = dict(tag, run="bag_backward", field=name, rows=v,
+                    longest_run=int(torch.bincount(inv).max()),
+                    exact=bool(torch.equal(got.cpu(), want)),
+                    ms=cuda_ms(torch, lambda: grad_ops.embedding_bag_backward(
+                        g, idx, v, dtype)))
+        if takes_order:
+            def with_order():
+                return grad_ops.embedding_bag_backward(g, idx, v, dtype,
+                                                       order=(keys, perm))
+            line["ms_with_order"] = cuda_ms(torch, with_order)
+            line["host_us_with_order"] = host_us(torch, with_order)
+            out = torch.empty((v, d), dtype=dtype, device="cuda")
+            own = _build.load("embedding_bag_backward", grad_ops._SIGNATURES)
+            work = torch.empty(max(
+                lib.embedding_bag_backward_workspace(BAG_B, v, d)
+                for lib in (own, *variants.values())), dtype=torch.uint8,
+                device="cuda")
+
+            def launch():
+                grad_ops._launch_sorted(g, keys, perm, 1, v, dtype, out=out,
+                                        work=work)
+        else:
+            lib = _build.load("embedding_bag_backward", grad_ops._SIGNATURES)
+            out = torch.zeros((v, d), dtype=dtype, device="cuda")
+
+            def launch():
+                rc = lib.embedding_bag_backward_launch(
+                    g.data_ptr(), d, keys.data_ptr(), 4, perm.data_ptr(),
+                    BAG_B, 1, v, d, out.data_ptr(), 2,
+                    torch.cuda.current_stream().cuda_stream)
+                assert rc == 0, rc
+
+        line["kernel_ms"] = per_launch_ms(torch, launch)
+        line["exact"] &= bool(torch.equal(out.cpu(), want))
+        if variants:
+            # the tree's kernel and each variant in the order own,
+            # variant, variant, own, each checked against the plain version
+            ab = {}
+            try:
+                for which in ("own", *variants, *reversed(variants), "own"):
+                    _build._libs["embedding_bag_backward"] = \
+                        variants.get(which, own)
+                    out.fill_(float("nan"))
+                    ab.setdefault(which, []).append(
+                        per_launch_ms(torch, launch))
+                    if not torch.equal(out.cpu(), want):
+                        raise AssertionError(f"{which} differs from the "
+                                             f"plain version at {name}")
+            finally:
+                _build._libs["embedding_bag_backward"] = own
+            line["variant_kernel_ms"] = ab
+        acc = torch.zeros((v, d), device="cuda")
+        line["index_add_ms"] = cuda_ms(
+            torch, lambda: acc.index_add_(0, inv, g))
+        line["index_add_graph_ms"] = per_launch_ms(
+            torch, lambda: acc.index_add_(0, inv, g))
+        emit(line)
+
+
 def walled(torch, fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -383,7 +537,8 @@ def main() -> int:
                     "engine_intersect",
                     help="comma list of listing, query_triangle, "
                     "engine_intersect, rmat_box, engine_fused, "
-                    "query_fused, dense, dense_listing, bag, bag_sweep")
+                    "query_fused, dense, dense_listing, bag, bag_sweep, "
+                    "bag_backward")
     ap.add_argument("--intersect-variant", default=None,
                     help="a macro to build the intersect kernel a second "
                     "time with (INTERSECT_WARP_CHUNKS), timed beside the "
@@ -391,6 +546,10 @@ def main() -> int:
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16"],
                     help="bag_sweep: the tables' type")
+    ap.add_argument("--bag-variant", action="append", default=[],
+                    help="bag_backward: NAME=CONST:VALUE,... (repeatable), "
+                    "the backward kernel built once more with those "
+                    "constexpr constants, timed beside the tree's")
     ap.add_argument("--workers8", action="store_true",
                     help="query_fused: the four-clique once more on eight "
                     "workers")
@@ -570,6 +729,11 @@ def main() -> int:
 
     if "bag" in runs:
         bag_run(torch, bag_ops, tag)
+
+    if "bag_backward" in runs:
+        import numpy as np
+        bag_backward_run(torch, np, tag,
+                         bag_variants(_build, args.bag_variant))
 
     if "rmat_box" in runs:
         src, dst = rmat_graph(1 << 20, 16 << 20, seed=0)

@@ -335,6 +335,20 @@ def _sync_replicas(replicas: Sequence[torch.Tensor]) -> None:
             r.copy_(first)
 
 
+def unique_with_order(x: torch.Tensor):
+    """``torch.unique(x, sorted=True, return_inverse=True)`` of a 1-D
+    ``x`` from one stable sort, and that sort of the inverse: ``(uniq,
+    inv, (keys, perm))`` with ``keys = inv[perm]`` ascending (int32) and
+    ``perm`` ascending within equal keys, the ``order`` that
+    ``embedding_bag_backward`` takes. ``torch.unique`` sorts as well, so
+    this spares the backward a sort of its own. One host synchronisation
+    (the count of unique values)."""
+    vals, perm = torch.sort(x, stable=True)
+    uniq, inv_sorted = torch.unique_consecutive(vals, return_inverse=True)
+    inv = torch.empty_like(inv_sorted).scatter_(0, perm, inv_sorted)
+    return uniq, inv, (inv_sorted.to(torch.int32), perm)
+
+
 def make_sparse_train_step(cfg: DLRMConfig, opt_cfg: adamw.AdamWConfig, *,
                            use_kernels: bool = True,
                            devices: Optional[Sequence] = None):
@@ -344,15 +358,18 @@ def make_sparse_train_step(cfg: DLRMConfig, opt_cfg: adamw.AdamWConfig, *,
     ``step(params, opt_state, batch) -> (params, opt_state, {"loss",
     "grad_norm", "lr"})``. Per step:
 
-      1. per table the unique rows of the batch (``torch.unique``, one host
+      1. per table the unique rows of the batch (``unique_with_order``:
+         ``torch.unique``'s values from one stable sort, one host
          synchronisation a table; the reference pads to B·hot with V, and
          its pad rows add 0, so the port does not pad) and the gathered
          rows ``table[min(uniq, V - 1)]``;
       2. the loss from the MLP params and the gathered rows, each field's
-         bags ``embedding_bag_grad(rows, inverse)`` (on the card the
-         forward kernels and the backward kernel, one launch each a
-         field), and ``torch.autograd.grad`` of it: the MLP grads and each
-         field's rows' grad. The tables never enter the autograd graph;
+         bags ``embedding_bag_grad(rows, inverse, order=...)`` (on the
+         card the forward kernels and the backward kernel, one launch each
+         a field; the backward reads the sort of step 1, so a field is
+         sorted once), and ``torch.autograd.grad`` of it: the MLP grads
+         and each field's rows' grad. The tables never enter the autograd
+         graph;
       3. ``adamw.apply`` over the MLP params alone, clipped over those
          alone;
       4. row-wise lazy AdamW on the live rows (``uniq < V``), no weight
@@ -408,19 +425,20 @@ def make_sparse_train_step(cfg: DLRMConfig, opt_cfg: adamw.AdamWConfig, *,
         fields = []
         for t, name in enumerate(tables):
             v = cfg.table_sizes[t]
-            uniq, inv = torch.unique(sparse[:, t, :].reshape(-1),
-                                     sorted=True, return_inverse=True)
+            uniq, inv, order = unique_with_order(
+                sparse[:, t, :].reshape(-1))
             safe = uniq.clamp(max=v - 1).long()
             parts, blk, rows = rows_of(params, name, safe, v)
             fields.append((name, v, uniq, safe, parts, blk,
                            rows.detach().requires_grad_(),
-                           inv.to(torch.int32).view(b, -1)))
+                           inv.to(torch.int32).view(b, -1), order))
 
         dense_p = {k: t for k, t in p.items() if not k.startswith("table")}
         leaves = {k: t.detach().requires_grad_() for k, t in dense_p.items()}
         x_dense = _mlp(leaves, dense, "bot", len(cfg.bot_mlp))
-        embs = [embedding_bag_grad(rows, inv, use_kernels=use_kernels)
-                for _, _, _, _, _, _, rows, inv in fields]
+        embs = [embedding_bag_grad(rows, inv, use_kernels=use_kernels,
+                                   order=order)
+                for _, _, _, _, _, _, rows, inv, order in fields]
         loss = _bce(_interact_top(cfg, leaves, x_dense, embs), y)
         grads = torch.autograd.grad(
             loss, list(leaves.values()) + [f[6] for f in fields])
@@ -446,8 +464,8 @@ def make_sparse_train_step(cfg: DLRMConfig, opt_cfg: adamw.AdamWConfig, *,
         lr = om["lr"]
         bc1, bc2 = adamw.bias_corrections(opt_cfg, opt_state.step)
         with torch.no_grad():
-            for (name, v, uniq, safe, parts, blk, _, _), g_r in zip(fields,
-                                                                  g_rows):
+            for (name, v, uniq, safe, parts, blk, *_), g_r in zip(fields,
+                                                                g_rows):
                 live = (uniq < v).to(torch.float32)[:, None]
                 g = g_r.to(torch.float32) * live
                 m_parts, _, m_rows = rows_of(opt_state.m, name, safe, v)

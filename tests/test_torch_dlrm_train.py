@@ -9,7 +9,11 @@
   sums in float32 and rounds once: the port's gradient is within half a
   bfloat16 ulp of the exact (float64) sum and never farther from it than
   the reference's. The plain version is equal bit for bit to an ordered
-  Python loop; ``gradcheck`` in float64.
+  Python loop, also at the run lengths where the kernel changes path;
+  ``gradcheck`` in float64. A caller's stable sort (``order``) gives the
+  same bits and one that is not the stable sort raises; the train step's
+  one sort a field (``unique_with_order``) gives ``torch.unique``'s values
+  and inverse.
 * The dense step (``loss_fn``'s gradient + ``adamw.apply``) and
   ``make_sparse_train_step`` on ``SMOKE_CONFIG`` (hot = 3) against the
   reference's, from the reference's params and optimizer state carried
@@ -27,6 +31,9 @@
   from the port's own initial params the held-out loss falls; checkpoint
   and ``--resume``.
 """
+
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -232,6 +239,127 @@ def test_function_on_cpu_kernels_route_equals_plain_route():
                                               torch.from_numpy(g))[0]))
     assert torch.equal(outs[0][0], outs[1][0])
     assert torch.equal(outs[0][1], outs[1][1])
+
+
+def _stable_sort(idx):
+    keys, perm = torch.sort(idx.reshape(-1), stable=True)
+    return keys, perm
+
+
+@pytest.mark.parametrize("idx_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("v,b,ll", [(41, 64, 1), (41, 64, 8), (3, 50, 8),
+                                    (1000, 16, 3)])
+def test_backward_with_the_callers_sort_equals_its_own(idx_dtype, v, b, ll):
+    """``order`` (the stable sort of the flattened indices) changes
+    nothing: the same bits at both outputs."""
+    idx, g = _bag_case(v + 7 * b, v, b, ll, dtype=idx_dtype)
+    ti, tg = torch.from_numpy(idx), torch.from_numpy(g)
+    for dtype in (torch.float32, torch.bfloat16):
+        want = bag_grad.embedding_bag_backward(tg, ti, v, dtype)
+        got = bag_grad.embedding_bag_backward(tg, ti, v, dtype,
+                                              order=_stable_sort(ti))
+        assert torch.equal(got, want)
+
+
+def test_backward_rejects_an_order_that_is_not_the_stable_sort():
+    idx, g = _bag_case(3, 20, 32, 2)
+    ti, tg = torch.from_numpy(idx), torch.from_numpy(g)
+    keys, perm = _stable_sort(ti)
+    with pytest.raises(TypeError):                 # keys of another dtype
+        bag_grad.embedding_bag_backward(tg, ti, 20,
+                                        order=(keys.int(), perm))
+    with pytest.raises(TypeError):                 # int32 positions
+        bag_grad.embedding_bag_backward(tg, ti, 20,
+                                        order=(keys, perm.int()))
+    with pytest.raises(ValueError):                # another length
+        bag_grad.embedding_bag_backward(tg, ti, 20,
+                                        order=(keys[1:], perm[1:]))
+    with pytest.raises(ValueError, match="stable sort"):   # ties reversed
+        tie = int(torch.nonzero(keys[1:] == keys[:-1])[0, 0])
+        swapped = perm.clone()
+        swapped[tie], swapped[tie + 1] = perm[tie + 1], perm[tie]
+        bag_grad.embedding_bag_backward(tg, ti, 20, order=(keys, swapped))
+    with pytest.raises(ValueError, match="stable sort"):   # not sorted
+        bag_grad.embedding_bag_backward(tg, ti, 20,
+                                        order=(keys.flip(0), perm.flip(0)))
+    with pytest.raises(ValueError, match="stable sort"):   # keys != idx[perm]
+        bag_grad.embedding_bag_backward(tg, ti, 20, order=(keys + 1, perm))
+    with pytest.raises(ValueError, match="stable sort"):   # not a permutation
+        bag_grad.embedding_bag_backward(
+            tg, ti, 20, order=(keys, torch.zeros_like(perm)))
+
+
+@pytest.mark.parametrize("lengths", [
+    [bag_grad.LONG_RUN - 1, 2, bag_grad.LONG_RUN, 1, bag_grad.LONG_RUN + 1],
+    [bag_grad.SPAN - 1, bag_grad.LONG_RUN + 1, bag_grad.SPAN + 1],
+    [4096]])
+def test_backward_plain_version_at_the_kernels_run_lengths(lengths):
+    """The plain version equals the ordered loop at the run lengths where
+    the kernel changes path: around LONG_RUN (runs of more slots are split
+    by columns), a run starting at a tile's last position, one run taking
+    all 4,096 slots."""
+    rng = np.random.default_rng(len(lengths))
+    idx = np.repeat(np.arange(len(lengths)), lengths)
+    rng.shuffle(idx)
+    idx = idx.reshape(-1, 1)
+    g = rng.standard_normal((idx.shape[0], 16)).astype(np.float32)
+    v = len(lengths) + 1
+    got = bag_grad.embedding_bag_backward(torch.from_numpy(g),
+                                          torch.from_numpy(idx), v,
+                                          order=_stable_sort(
+                                              torch.from_numpy(idx)))
+    np.testing.assert_array_equal(got.numpy(), _loop_oracle(g, idx, v))
+
+
+@pytest.mark.parametrize("const,value", [("kLongRun", bag_grad.LONG_RUN),
+                                         ("kTile", bag_grad.SPAN)])
+def test_backward_run_constants_match_the_kernel(const, value):
+    """The wrapper's LONG_RUN and SPAN, which the run-length cases above
+    and the smoke's build on, are the kernel's constexpr constants."""
+    src = (Path(bag_grad.__file__).resolve().parents[2] / "csrc"
+           / "embedding_bag_backward.cu").read_text()
+    found = re.findall(rf"constexpr (?:int|long long) {const} = (\d+);", src)
+    assert found == [str(value)]
+
+
+@pytest.mark.parametrize("use_kernels", [True, False])
+def test_function_with_the_callers_sort(use_kernels):
+    """``embedding_bag_grad(..., order=...)``: the same lookup and table
+    gradient as without it, on both routes."""
+    idx, g = _bag_case(11, 30, 40, 3)
+    ti = torch.from_numpy(idx)
+    tab = torch.randn(30, 16, generator=torch.Generator().manual_seed(1))
+    outs = []
+    for order in (None, _stable_sort(ti)):
+        t = tab.clone().requires_grad_()
+        out = bag_grad.embedding_bag_grad(t, ti, use_kernels=use_kernels,
+                                          order=order)
+        outs.append((out, torch.autograd.grad(out, [t],
+                                              torch.from_numpy(g))[0]))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+
+
+@pytest.mark.parametrize("past_v", [False, True])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_step_sort_gives_torch_uniques_values(seed, past_v):
+    """The train step's one sort a field (``unique_with_order``): the
+    values and inverse ``torch.unique`` gives, and the stable sort of the
+    inverse that the backward takes, at the test batches (with indices
+    past V when ``past_v``) and at a power-law draw over 2^20 rows."""
+    fields = [b["sparse"][:, t, :].reshape(-1)
+              for b in _batches(2, 64, seed, past_v)
+              for t in range(SMOKE_CONFIG.n_sparse)]
+    fields.append(CriteoLikeGenerator((1 << 20,), seed=seed)
+                  .batch(4096)["sparse"].reshape(-1))
+    for x in fields:
+        tx = torch.from_numpy(x)
+        uniq, inv, (keys, perm) = M.unique_with_order(tx)
+        want_u, want_inv = torch.unique(tx, sorted=True, return_inverse=True)
+        assert torch.equal(uniq, want_u) and torch.equal(inv, want_inv)
+        assert keys.dtype == torch.int32
+        sort_keys, sort_perm = _stable_sort(inv.to(torch.int32))
+        assert torch.equal(keys, sort_keys) and torch.equal(perm, sort_perm)
 
 
 def test_lookup_gradient_of_a_clamped_index_goes_to_the_last_row(
