@@ -74,8 +74,21 @@ Phases (the kernels each main-path phase must launch in brackets):
                   train CLI in child processes (30 steps with checkpoints,
                   --resume to 40, --compress int8): the plain and int8
                   runs' final loss below their first, each run's
-                  held-out loss below its initial params'. dryrun, dlrm
-                  and train run first, on an empty card.
+                  held-out loss below its initial params'.
+ 2d. gnn        — GNN training: graphcast's full CONFIG (16 layers, 512
+                  wide, 227 variables) on the refinement-6 icosahedral
+                  multimesh (40,962 nodes, 163,830 edges) with
+                  examples/weather_sim.py's inputs, 10 ``gnn.train_step``
+                  calls [embedding_bag_backward 48 a step: each layer's
+                  aggregation and its two gathers' backwards], 0 host syncs
+                  a step, the loss falling, the peak below 80 GB, one step
+                  profiled; its largest segment sum (163,830 x 512 -> 40,962
+                  rows) timed against ``index_add_``; at 2 layers, and for
+                  gcn-cora (full_graph_sm, minibatch_lg), gin-tu and schnet
+                  (molecule) at their full CONFIG, a kernel step equal bit
+                  for bit to the plain step (sums on the CPU copy) and to
+                  itself repeated. dryrun, dlrm, train and gnn run first,
+                  on an empty card.
   3. rmat       — Graph500-style RMAT, ``backend="auto"`` [intersect]; the
                   count must equal the plain torch ``binary`` lane.
   4. clustered  — triangle-rich planted-partition graph [triangle_dense];
@@ -288,6 +301,27 @@ BAG_BWD_CASES = ((3, 65_536, 1, 128), (3, 4096, 8, 128),
                  (1 << 20, 65_536, 1, 128), (1 << 20, 8192, 8, 128),
                  (5000, 777, 3, 130), (37, 300, 2, 16), (1, 100, 2, 128),
                  (300, 4096, 1, 8), (2048, 65_536, 1, 16))
+# the backward kernel's segment-sum cases (the gnn phase's sums: L = 1,
+# the segment ids as indices): both sides of the refinement-4 multimesh
+# (2,562 nodes, 10,230 edges: the in-degree runs of GraphCast's mesh) at
+# these widths, and a hub run of HUB_RUN slots at D = 1 and 7
+SEG_MESH_REFINEMENT, SEG_WIDTHS = 4, (1, 7, 16, 64, 512)
+HUB_RUN = 200
+# the gnn phase (PERF.md §4): graphcast's full CONFIG (16 layers, 512
+# wide, 227 variables, d_edge 4) on the refinement-6 icosahedral multimesh
+# (40,962 nodes, 163,830 edges) with examples/weather_sim.py's inputs and
+# optimizer, GNN_STEPS steps; the kernel-vs-plain check at the same mesh and
+# widths with GNN_CHECK_LAYERS layers; the other three archs at their full
+# CONFIG on their cells' graphs: gcn-cora on full_graph_sm (RAND 2,708 x
+# 10,556, seed 0) and on minibatch_lg (a sampled block of GNN_MB_SEEDS seeds
+# over RAND 232,965 x 2^22, seed 2), gin-tu and schnet on molecule (128
+# graphs of RAND 30 x 64, seed i), each at its cell's input_specs shapes
+GNN_ARCH, GNN_REFINEMENT, GNN_SEED = "graphcast", 6, 0
+GNN_STEPS = 10
+GNN_OPT = {"lr": 3e-3, "warmup_steps": 3, "total_steps": 10}
+GNN_CHECK_LAYERS = 2
+GNN_PEAK_LIMIT = 80e9
+GNN_MB_NODES, GNN_MB_EDGES, GNN_MB_SEEDS = 232_965, 1 << 22, 1024
 # the dryrun phase: the fabric dry run at the reference test's sizes and at
 # its CLI's defaults
 DRYRUN_SHARDS = (3, 4)
@@ -1305,8 +1339,11 @@ def phase_bag_backward_cases(torch, np, grad_ops) -> dict:
     with and without a caller-given ``order``, and at D = 130, 16 and 8
     (B = 8,192); the
     train step's case (``dlrm.unique_with_order`` of a Zipf draw over 2^23
-    rows: every row touched, the step's ``order``). Two launches a
-    case."""
+    rows: every row touched, the step's ``order``); the gnn phase's segment
+    sums (L = 1): the in-degree runs of both sides of a refinement-4
+    multimesh at D in SEG_WIDTHS, and a hub run of HUB_RUN slots with a
+    run just past LONG_RUN at D = 1 and 7. Two launches a case."""
+    from repro_torch.data.graphs import icosahedral_mesh
     from repro_torch.kernels.embedding_bag.ref import \
         embedding_bag_backward_ref
     from repro_torch.models.dlrm import unique_with_order
@@ -1386,6 +1423,24 @@ def phase_bag_backward_cases(torch, np, grad_ops) -> dict:
     uniq, inv, order = unique_with_order(x)
     g = torch.randn((BAG_B, 128), generator=gen, device=dev)
     check(g, inv.view(BAG_B, 1), uniq.numel(), "step", order=order)
+    # segment sums: the multimesh's in-degree runs by either side (dst on
+    # the batch's sort, as edge_orders makes it; src on the wrapper's own)
+    # and a hub run
+    _, msrc, mdst = icosahedral_mesh(SEG_MESH_REFINEMENT)
+    nv = int(max(msrc.max(), mdst.max())) + 1
+    for side, seg in (("dst", mdst), ("src", msrc)):
+        idx = torch.from_numpy(seg).to(dev).view(-1, 1)
+        sort = torch.sort(idx.reshape(-1), stable=True) \
+            if side == "dst" else None
+        for d in SEG_WIDTHS:
+            g = torch.randn((idx.shape[0], d), generator=gen, device=dev)
+            check(g, idx, nv, f"mesh_{side}/D{d}", order=sort)
+    idx = torch.from_numpy(run_indices(np, rng, [HUB_RUN, 1, 3,
+                                                  grad_ops.LONG_RUN + 1,
+                                                  2])).to(dev)
+    for d in (1, 7):
+        g = torch.randn((idx.shape[0], d), generator=gen, device=dev)
+        check(g, idx, 7, f"hub{HUB_RUN}/D{d}")
     torch.cuda.synchronize()
     return {"phase": "kernels", "of": ["embedding_bag_backward"],
             "cases": n_cases, "exact": True, "untouched_rows_zero": untouched,
@@ -3809,27 +3864,379 @@ def phase_train(torch, np, ops, shared, grad_ops) -> dict:
     return out
 
 
-def bag_backward_kernel_row(timing: dict, by_phase: dict) -> dict:
-    """The backward kernel's line: the train phase's launches, and its
-    times at the largest field's shape (both fields under ``by_field``)."""
-    top = timing["largest"]
-    return {"name": "embedding_bag_backward", "route": "cuda",
-            "source": "src/repro_torch/csrc/embedding_bag_backward.cu",
-            "replaces": "none: the XLA scatter-add of jnp.take's gradient "
-                        "(src/repro/models/dlrm.py:211)",
-            "launches": by_phase["embedding_bag_backward"].get("train", 0),
-            "max_abs_err": max(t["max_abs_err"] for t in timing.values()),
-            "ms": top["ms"], "ms_with_order": top["ms_with_order"],
-            "kernel_ms": top["kernel_ms"], "plain_ms": top["plain_ms"],
-            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
-            "longest_run_floor_ms": top["longest_run_floor_ms"],
-            "library_ms": top["library_ms"],
-            "library_graph_ms": top["library_graph_ms"],
-            "host_syncs_per_call": max(
-                max(t["syncs_per_call"], t["syncs_per_call_with_order"])
-                for t in timing.values()),
-            "exact": all(t["exact_vs_plain_on_cpu"] for t in timing.values()),
-            "shape": top["shape"], "by_field": timing}
+def bag_backward_kernel_row(timing, gnn_timing, by_phase: dict) -> dict:
+    """The backward kernel's line: its launches by phase (train, gnn), its
+    times at the largest train field's shape (both fields under
+    ``by_field``) or, where the train phase did not run, at the gnn
+    phase's largest segment sum, which ``by_gnn_shape`` holds too."""
+    shapes = dict(timing or {})
+    if gnn_timing:
+        shapes["gnn"] = gnn_timing
+    top = timing["largest"] if timing else gnn_timing
+    launches = by_phase["embedding_bag_backward"]
+    row = {"name": "embedding_bag_backward", "route": "cuda",
+           "source": "src/repro_torch/csrc/embedding_bag_backward.cu",
+           "replaces": "none: the XLA scatter-add of jnp.take's gradient "
+                       "(src/repro/models/dlrm.py:211) and "
+                       "jax.ops.segment_sum (src/repro/models/gnn.py:135)",
+           "launches": sum(launches.values()),
+           "launches_by_phase": launches,
+           "max_abs_err": max(t["max_abs_err"] for t in shapes.values()),
+           "ms": top["ms"], "ms_with_order": top["ms_with_order"],
+           "kernel_ms": top["kernel_ms"], "plain_ms": top["plain_ms"],
+           "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+           "longest_run_floor_ms": top["longest_run_floor_ms"],
+           "library_ms": top["library_ms"],
+           "library_graph_ms": top["library_graph_ms"],
+           "host_syncs_per_call": max(
+               max(t["syncs_per_call"], t["syncs_per_call_with_order"])
+               for t in shapes.values()),
+           "exact": all(t["exact_vs_plain_on_cpu"] for t in shapes.values()),
+           "shape": top["shape"]}
+    if timing:
+        row["by_field"] = timing
+    if gnn_timing:
+        row["by_gnn_shape"] = {"mesh_r6_d512": gnn_timing}
+    return row
+
+
+def time_segment_sum(torch, grad_ops, x, seg, n: int, order) -> dict:
+    """The backward kernel as the gnn phase's largest segment sum calls it:
+    (E, D) float32 values summed by int32 segment ids into n rows (L = 1).
+    ``ms``: the wrapper with its own stable sort, ``ms_with_order``: given
+    the batch's sort (``edge_orders``), between CUDA events; ``kernel_ms``:
+    the C entry alone on that sort (BAG_GRAPH_LAUNCHES calls in one CUDA
+    graph, per call); the plain version on the card and one
+    ``index_add_`` (eager: ``library_ms``; in a graph: ``library_graph_ms``);
+    the host synchronisations of one call; equality with the plain version
+    on the CPU copy; the bytes bound (each value row and id read once, the
+    n x D output written once) and the longest run's add chain, 4 cycles
+    a slot at the card's maximum SM clock."""
+    from repro_torch.kernels.embedding_bag.ref import \
+        embedding_bag_backward_ref
+    idx = seg.view(-1, 1)
+    e, d = x.shape
+    keys, perm = order
+    want = embedding_bag_backward_ref(x.cpu(), idx.cpu(), n)
+    got, syncs = count_syncs(
+        torch, lambda: grad_ops.embedding_bag_backward(x, idx, n))
+    with_order, syncs_order = count_syncs(
+        torch, lambda: grad_ops.embedding_bag_backward(x, idx, n,
+                                                       order=order))
+    exact = torch.equal(got.cpu(), want) and \
+        torch.equal(with_order.cpu(), want)
+    err = float((got.cpu() - want).abs().max())
+    ms = cuda_ms(lambda: grad_ops.embedding_bag_backward(x, idx, n),
+                 TIMING_REPS)
+    ms_with_order = cuda_ms(lambda: grad_ops.embedding_bag_backward(
+        x, idx, n, order=order), TIMING_REPS)
+    out = torch.empty((n, d), dtype=torch.float32, device="cuda")
+    work = torch.empty(grad_ops._workspace_bytes(e, n, d),
+                       dtype=torch.uint8, device="cuda")
+    kernel_ms = graph_ms(torch, lambda: [
+        grad_ops._launch_sorted(x, keys, perm, 1, n, out=out, work=work)
+        for _ in range(BAG_GRAPH_LAUNCHES)], TIMING_REPS) / BAG_GRAPH_LAUNCHES
+    exact = exact and torch.equal(out.cpu(), want)
+    plain_ms = cuda_ms(lambda: embedding_bag_backward_ref(x, idx, n),
+                       TIMING_REPS)
+    acc = torch.zeros((n, d), dtype=torch.float32, device="cuda")
+    lib_ms = cuda_ms(lambda: acc.index_add_(0, seg, x), TIMING_REPS)
+    lib_graph_ms = graph_ms(torch, lambda: [
+        acc.index_add_(0, seg, x) for _ in range(BAG_GRAPH_LAUNCHES)],
+        TIMING_REPS) / BAG_GRAPH_LAUNCHES
+    n_bytes = e * (seg.element_size() + 4 * d) + n * d * 4
+    counts = torch.bincount(seg.long(), minlength=n)
+    longest = int(counts.max())
+    clocks = sm_clocks_mhz()
+    return {"ms": ms, "ms_with_order": ms_with_order,
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "library_graph_ms": lib_graph_ms,
+            "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": n_bytes, "longest_run": longest,
+            "median_run": float(counts.float().median()),
+            "longest_run_floor_ms": longest * 4 / (clocks["max_sm"] * 1e3),
+            "sm_clock_mhz": clocks, "syncs_per_call": syncs,
+            "syncs_per_call_with_order": syncs_order,
+            "exact_vs_plain_on_cpu": exact, "max_abs_err": err,
+            "device_ops_per_call": "memset + bag_backward_plan + "
+                                   "bag_backward_runs (+ the sort "
+                                   "without order)",
+            "shape": {"rows": n, "idx": [e, 1], "d": d,
+                      "out_dtype": "float32"}}
+
+
+def weather_batch(torch, np, verts, src, dst, n_vars: int) -> dict:
+    """examples/weather_sim.py's inputs on the multimesh, as CUDA tensors:
+    a smooth synthetic state of ``n_vars`` variables (numpy seed 0), its
+    target (one diffusion step along the mesh edges: 0.7 state + 0.3 the
+    mean of the neighbours' states; the neighbour sums by a scipy sparse
+    product), the edge features (the vertex difference and its norm) and
+    unit masks."""
+    import scipy.sparse as sp
+    n = len(verts)
+    rng = np.random.default_rng(0)
+    state = np.tanh(verts @ rng.standard_normal((3, n_vars))).astype(
+        np.float32)
+    adj = sp.csr_matrix((np.ones(len(src), np.float32), (dst, src)),
+                        shape=(n, n))
+    agg = adj @ state + adj.T @ state
+    deg = np.bincount(np.concatenate([src, dst]), minlength=n)[:, None]
+    target = 0.7 * state + 0.3 * agg / np.maximum(deg, 1)
+    diff = verts[src] - verts[dst]
+    edge_feat = np.concatenate(
+        [diff, np.linalg.norm(diff, axis=1, keepdims=True)], axis=1)
+    batch = {"node_feat": state, "edge_src": src.astype(np.int32),
+             "edge_dst": dst.astype(np.int32),
+             "edge_feat": edge_feat.astype(np.float32),
+             "edge_mask": np.ones(len(src), np.float32),
+             "node_mask": np.ones(n, np.float32),
+             "targets": target.astype(np.float32)}
+    return {k: torch.from_numpy(v).to("cuda") for k, v in batch.items()}
+
+
+def assert_spec_shapes(torch, arrays: dict, specs: dict) -> None:
+    """``arrays`` hold exactly the keys of the cell's ``input_specs``, each
+    at the spec's shape and dtype (``make_gnn_batch(pad_to=512)`` and
+    ``NeighborSampler.padded_batch`` give them; ``molecule_batch`` pads
+    its edges on to them)."""
+    assert set(arrays) == set(specs), (sorted(arrays), sorted(specs))
+    for k, spec in specs.items():
+        a = torch.from_numpy(arrays[k][:0])
+        assert arrays[k].shape == tuple(spec.shape) and \
+            a.dtype == spec.dtype, (k, arrays[k].shape, a.dtype, spec)
+
+
+def molecule_batch(np, dims: dict) -> dict:
+    """The molecule cell's batch: ``dims["batch"]`` graphs of
+    RAND(n_nodes, n_edges, seed=i) with node ids offset by i * n_nodes and
+    ``graph_id`` i, through ``make_gnn_batch`` (seeded features, positions
+    and per-node targets; padded to 512). The spec counts the edges before
+    simplification (128 x 64), so the edge arrays are padded on to its
+    8,192 with more of ``make_gnn_batch``'s padding edges (node 0 to node
+    0, mask 0)."""
+    from repro_torch.data.graphs import make_gnn_batch, random_graph
+    nn_, n_graphs = dims["n_nodes"], dims["batch"]
+    parts = [random_graph(nn_, dims["n_edges"], seed=i)
+             for i in range(n_graphs)]
+    src = np.concatenate([s + i * nn_ for i, (s, _) in enumerate(parts)])
+    dst = np.concatenate([d + i * nn_ for i, (_, d) in enumerate(parts)])
+    n = nn_ * n_graphs
+    batch = make_gnn_batch(src, dst, n, dims["d_feat"],
+                           d_target=dims["d_target"], pad_to=512, seed=0)
+    batch["graph_id"][:n] = np.repeat(np.arange(n_graphs), nn_)
+    e_pad = -(-dims["n_edges"] * n_graphs // 512) * 512
+    for k in ("edge_src", "edge_dst", "edge_mask"):
+        a = batch[k]
+        batch[k] = np.concatenate([a, np.zeros(e_pad - len(a), a.dtype)])
+    return batch
+
+
+def minibatch_batch(np, dims: dict) -> tuple:
+    """The minibatch_lg cell's batch: ``NeighborSampler`` (fanout (15, 10),
+    seed 2) over RAND(232,965, 2^22, seed=2) made symmetric, GNN_MB_SEEDS
+    seeds, padded to the spec's block; and the sampler's host ms. The
+    symmetric CSR is one sort of the (row, column) keys: the pairs are
+    distinct, so the rows come out as ``csr_from_edges`` sorts them. The
+    features follow ``synthetic_features``' law (uniform labels over 41
+    classes, class centres of scale 2, unit noise; 602 wide), drawn for the
+    block's rows only: the graph's 232,965 x 602 would take seconds of
+    host time for the ~94 k rows a block reads."""
+    from repro_torch.data.graphs import random_graph
+    from repro_torch.data.sampler import NeighborSampler
+    n, d_feat = GNN_MB_NODES, dims["d_feat"]
+    src, dst = random_graph(n, GNN_MB_EDGES, seed=2)
+    key = np.sort(np.concatenate([src * n + dst, dst * n + src]))
+    rows = key // n
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=n))])
+    indices = (key - rows * n).astype(np.int32)
+    rng = np.random.default_rng(2)
+    labels = rng.integers(0, dims["n_classes"], n).astype(np.int32)
+    centers = (rng.standard_normal((dims["n_classes"], d_feat)) * 2.0
+               ).astype(np.float32)
+    sampler = NeighborSampler(indptr, indices, fanout=dims["fanout"], seed=2)
+    seeds = np.random.default_rng(2).choice(n, GNN_MB_SEEDS, replace=False)
+    t0 = time.perf_counter()
+    batch = sampler.padded_batch(seeds, np.empty((n, 0), np.float32), labels,
+                                 dims["blk_nodes"], dims["blk_edges"])
+    sampler_ms = (time.perf_counter() - t0) * 1e3
+    live = int(batch["node_mask"].sum())
+    feat = np.zeros((dims["blk_nodes"], d_feat), np.float32)
+    feat[:live] = centers[batch["labels"][:live]] + rng.standard_normal(
+        (live, d_feat), dtype=np.float32)
+    batch["node_feat"] = feat
+    return batch, sampler_ms
+
+
+def gnn_check_steps(torch, gnn, adamw, grad_ops, cfg, batch, seed) -> dict:
+    """From one state (params from a seeded generator on the card and one
+    step taken, so the moments are not zero): a step with the kernels, the
+    same step once more from a copy of that state, and one with
+    ``use_kernels=False`` whose plain sums run on the CPU copy
+    (``plain_backward_on_cpu``: ordered float32 sums, which the kernel
+    equals bit for bit). All three must be equal bit for bit in the loss
+    and in every param and moment. Returns the launches of the kernel step
+    and the loss."""
+    from repro_torch.pytree import leaves, tree_map
+    opt_cfg = adamw.AdamWConfig(**GNN_OPT)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = gnn.init_params(cfg, gen, device="cuda")
+    opt_state = adamw.init(params)
+    gnn.train_step(cfg, opt_cfg, params, opt_state, batch)
+    again = tree_map(torch.clone, (params, opt_state))
+    plain = tree_map(torch.clone, (params, opt_state))
+    before = grad_ops.BACKWARD_LAUNCHES.n
+    _, _, mk = gnn.train_step(cfg, opt_cfg, params, opt_state, batch)
+    torch.cuda.synchronize()
+    launches = grad_ops.BACKWARD_LAUNCHES.n - before
+    _, _, ma = gnn.train_step(cfg, opt_cfg, *again, batch)
+    with plain_backward_on_cpu(grad_ops):
+        _, _, mp = gnn.train_step(cfg, opt_cfg, *plain, batch,
+                                  use_kernels=False)
+    assert grad_ops.BACKWARD_LAUNCHES.n == before + 2 * launches
+    assert torch.equal(mk["loss"], mp["loss"]), (mk, mp)
+    assert torch.equal(mk["loss"], ma["loss"]), (mk, ma)
+    state = leaves((params, opt_state))
+    for name, other in (("plain", plain), ("again", again)):
+        for a, b in zip(state, leaves(other)):
+            assert torch.equal(a, b), (cfg.name, name)
+    return {"equal_to_plain": True, "equal_when_repeated": True,
+            "leaves": len(state), "loss": float(mk["loss"]),
+            "embedding_bag_backward_launches": launches}
+
+
+def phase_gnn(torch, np, ops, shared, grad_ops) -> dict:
+    """GNN training on the card. (a) graphcast's full CONFIG (16 layers,
+    512 wide, 227 variables) on the refinement-6 multimesh with
+    examples/weather_sim.py's state, diffusion target and edge features,
+    params from a seeded generator on the card, AdamW (lr 3e-3, 3 warmup
+    steps of 10): GNN_STEPS ``gnn.train_step`` calls, each on its two edge
+    sorts [embedding_bag_backward 48 a step: each layer's aggregation and
+    the backwards of its two gathers], each with its host syncs (sync
+    debug mode; 0), finite losses, the last below the first, the peak below
+    80 GB, one step profiled by kernel. (d) that step's largest segment
+    sum alone (``time_segment_sum``). (b) the same mesh and widths at
+    GNN_CHECK_LAYERS layers: kernel step = plain step = repeated kernel
+    step, bit for bit (``gnn_check_steps``). (c) the other three archs at
+    their full CONFIG, each the same check: gcn-cora on full_graph_sm and
+    on minibatch_lg (a sampled block, the sampler's host ms), gin-tu and
+    schnet on molecule; each batch at its cell's ``input_specs`` shapes."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import config_for_shape, get_arch, input_specs
+    from repro_torch.data.graphs import (icosahedral_mesh, make_gnn_batch,
+                                         random_graph)
+    from repro_torch.models import gnn
+    from repro_torch.optim import adamw
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch(GNN_ARCH).config
+    t0 = time.perf_counter()
+    verts, src, dst = icosahedral_mesh(GNN_REFINEMENT)
+    mesh_s = time.perf_counter() - t0
+    batch = weather_batch(torch, np, verts, src, dst, cfg.d_in)
+    n, e = len(verts), len(src)
+    out = {"phase": "gnn", "arch": GNN_ARCH, "n_layers": cfg.n_layers,
+           "d_hidden": cfg.d_hidden, "d_in": cfg.d_in, "d_out": cfg.d_out,
+           "d_edge": cfg.d_edge, "nodes": n, "edges": e,
+           "mesh_s": mesh_s, "data_s": time.perf_counter() - t0,
+           "opt": GNN_OPT, "tf32": torch.backends.cuda.matmul.allow_tf32,
+           "allocated_at_start": torch.cuda.memory_allocated()}
+    gen = torch.Generator(device="cuda").manual_seed(GNN_SEED)
+    params = gnn.init_params(cfg, gen, device="cuda")
+    opt_state = adamw.init(params)
+    opt_cfg = adamw.AdamWConfig(**GNN_OPT)
+
+    def step():
+        return gnn.train_step(cfg, opt_cfg, params, opt_state, batch)
+
+    steps = []
+    per_step = 3 * cfg.n_layers
+    for i in range(GNN_STEPS):
+        (res, syncs), wall, got = drive(torch, ops,
+                                        lambda: count_syncs(torch, step))
+        assert got["embedding_bag_backward"] == per_step and \
+            sum(got.values()) == per_step, got
+        assert syncs == 0, (i, syncs, dict(SYNC_SITES))
+        loss = float(res[2]["loss"])
+        assert np.isfinite(loss), (i, loss)
+        steps.append({"s": wall, "loss": loss,
+                      "grad_norm": float(res[2]["grad_norm"]),
+                      "syncs": syncs,
+                      "launches": {k: c for k, c in got.items() if c}})
+    out["steps"] = steps
+    out["losses"] = [x["loss"] for x in steps]
+    assert out["losses"][-1] < out["losses"][0], out["losses"]
+    out["host_syncs_per_step"] = max(x["syncs"] for x in steps)
+    out["embedding_bag_backward_per_step"] = per_step
+    out["ms_per_step"] = statistics.median(x["s"] for x in steps[1:]) * 1e3
+    out["nodes_per_s"] = n / (out["ms_per_step"] / 1e3)
+    out["edges_per_s"] = e / (out["ms_per_step"] / 1e3)
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    assert out["max_memory_allocated"] < GNN_PEAK_LIMIT, out
+    out["profile"] = profile_call(
+        torch, step, "gnn_train_step", DLRM_PROFILE_TOP,
+        sums={"embedding_bag_backward": "bag_backward_", "gemm": "gemm",
+              "gather": "gather_kernel"})
+    out["launches"] = {k: sum(x["launches"].get(k, 0) for x in steps)
+                       for k in ops}
+    # (d) the largest segment sum alone: a layer's aggregation
+    x = torch.randn((e, cfg.d_hidden), generator=gen, device="cuda")
+    shared["gnn_segment_timing"] = time_segment_sum(
+        torch, grad_ops, x, batch["edge_dst"], n,
+        gnn.edge_orders(batch)["dst"])
+    del params, opt_state, res, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["full_width_s"] = time.perf_counter() - t0
+
+    # (b) the same mesh and widths at GNN_CHECK_LAYERS layers
+    t1 = time.perf_counter()
+    cfg_b = dataclasses.replace(cfg, n_layers=GNN_CHECK_LAYERS)
+    out["check"] = dict(gnn_check_steps(torch, gnn, adamw, grad_ops, cfg_b,
+                                        batch, GNN_SEED + 1),
+                        n_layers=GNN_CHECK_LAYERS,
+                        s=time.perf_counter() - t1)
+    assert out["check"]["embedding_bag_backward_launches"] == \
+        3 * GNN_CHECK_LAYERS, out["check"]
+    del batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the other three archs at their full CONFIG
+    t1 = time.perf_counter()
+    g_src, g_dst = random_graph(2708, 10556, seed=0)
+    cells = [("gcn-cora", "full_graph_sm",
+              make_gnn_batch(g_src, g_dst, 2708, 1433, n_classes=7,
+                             pad_to=512))]
+    mol = molecule_batch(np, get_arch("gin-tu").shapes["molecule"].dims)
+    cells += [("gin-tu", "molecule", mol), ("schnet", "molecule", mol)]
+    mb_dims = get_arch("gcn-cora").shapes["minibatch_lg"].dims
+    mb, sampler_ms = minibatch_batch(np, mb_dims)
+    cells.append(("gcn-cora", "minibatch_lg", mb))
+    others = {"data_s": time.perf_counter() - t1,
+              "minibatch_sampler_ms": sampler_ms}
+    for i, (arch, shape, arrays) in enumerate(cells):
+        c = config_for_shape(arch, shape)
+        assert_spec_shapes(torch, arrays, input_specs(arch, shape)[1])
+        cell_batch = {k: torch.from_numpy(v).to("cuda")
+                      for k, v in arrays.items()}
+        t2 = time.perf_counter()
+        res = gnn_check_steps(torch, gnn, adamw, grad_ops, c, cell_batch,
+                              GNN_SEED + 2 + i)
+        live = arrays["edge_mask"] > 0
+        others[f"{arch}/{shape}"] = dict(
+            res, nodes=int(arrays["node_mask"].sum()),
+            edges=int(live.sum()), padded=list(arrays["node_feat"].shape)
+            + [len(arrays["edge_src"])],
+            longest_dst_run=int(np.bincount(arrays["edge_dst"]).max()),
+            longest_src_run=int(np.bincount(arrays["edge_src"]).max()),
+            s=time.perf_counter() - t2)
+    out["other_archs"] = others
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["allocated_at_end"] = torch.cuda.memory_allocated()
+    return out
 
 
 def phase_dryrun(torch, ops, shared) -> dict:
@@ -4327,8 +4734,8 @@ def bag_bf16_kernel_rows(timing: dict, by_phase: dict) -> list:
     return rows
 
 
-PHASES = ("dryrun", "dlrm", "train", "rmat", "clustered", "listing", "skew", "fused",
-          "query", "outofcore", "query_listing", "api", "shard", "serve",
+PHASES = ("dryrun", "dlrm", "train", "gnn", "rmat", "clustered", "listing",
+          "skew", "fused", "query", "outofcore", "query_listing", "api", "shard", "serve",
           "embedding_bag")
 # the phases whose graphs and results a phase reuses
 NEEDS = {"skew": ("rmat",), "fused": ("clustered", "listing"),
@@ -4357,7 +4764,7 @@ def main() -> int:
                     help="device, build and kernel checks only")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="main-path phases to run (default: all "
-                         "fifteen), "
+                         "sixteen), "
                          "with the phases they reuse (NEEDS)")
     ap.add_argument("--profile", action="store_true",
                     help="repeat each main-path count under "
@@ -4485,6 +4892,7 @@ def main() -> int:
             "dryrun": lambda: phase_dryrun(torch, ops, shared),
             "dlrm": lambda: phase_dlrm(torch, np, ops, shared, bag_ops),
             "train": lambda: phase_train(torch, np, ops, shared, grad_ops),
+            "gnn": lambda: phase_gnn(torch, np, ops, shared, grad_ops),
         }
         runs = []
         for name in with_needs(args.phases.split(",")):
@@ -4523,9 +4931,11 @@ def main() -> int:
         if "bag_timing_bf16" in shared:
             kernels.extend(bag_bf16_kernel_rows(shared["bag_timing_bf16"],
                                                 by_phase))
-        if "bag_backward_timing" in shared:
+        if "bag_backward_timing" in shared or \
+                "gnn_segment_timing" in shared:
             kernels.append(bag_backward_kernel_row(
-                shared["bag_backward_timing"], by_phase))
+                shared.get("bag_backward_timing"),
+                shared.get("gnn_segment_timing"), by_phase))
         for k in kernels:
             assert k["exact"], k
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start,

@@ -19,8 +19,10 @@ only the byte ranges its boxes touch, in one process or across several
 (``serve``) keep relations warm and serve concurrent pattern queries, each
 within its admitted share of one memory budget. Off the paper's path, ``models.dlrm``
 serves DLRM at the full dlrm-mlperf width (``configs``), its bfloat16
-tables looked up by ``embedding_bag``, and ``launch.dryrun`` plans a fabric
-without running it. It imports ``torch`` and
+tables looked up by ``embedding_bag``, ``models.gnn`` trains GCN, GIN,
+SchNet and GraphCast (``GNN``) with every message-passing sum on the
+hand-written sorted-sum kernel (``segment_sum``, ``gather``), and
+``launch.dryrun`` plans a fabric without running it. It imports ``torch`` and
 numpy only. Entry points run on the card unless the caller passes
 ``torch_device="cpu"`` (or CPU tensors, for ``embedding_bag``).
 """
@@ -42,20 +44,22 @@ from repro_torch.data.edgestore import (EdgeStore, EdgeStoreWriter,
 from repro_torch.kernels.embedding_bag.ops import embedding_bag
 from repro_torch.launch.mesh import (fabric_mesh, maybe_init_distributed,
                                      resolve_fabric_shards)
+from repro_torch.models.gnn import GNN, gather, segment_sum
 from repro_torch.obs import MetricsRegistry, Tracer
 from repro_torch.query import QueryEngine, QueryStats, patterns, query_count
 from repro_torch.serve import Server, Session
 
 __all__ = ["EdgeStore", "EdgeStoreWriter", "EngineStats", "Fabric",
-           "FabricShippingError", "MetricsRegistry", "QueryEngine",
+           "FabricShippingError", "GNN", "MetricsRegistry", "QueryEngine",
            "QueryStats", "Server", "Session", "ShippedEdgeSource",
            "SliceCache", "Tracer",
            "TriangleEngine", "adversarial_graph", "brute_force_count",
            "count_triangles", "embedding_bag", "engine_count", "engine_list",
-           "fabric_mesh", "list_triangles", "maybe_init_distributed",
+           "fabric_mesh", "gather", "list_triangles", "maybe_init_distributed",
            "measure_dense_crossover", "measure_fused_crossover",
            "measure_intersect_crossover", "mgt_triangle_count", "patterns",
-           "query_count", "resolve_fabric_shards", "write_edge_store",
+           "query_count", "resolve_fabric_shards", "segment_sum",
+           "write_edge_store",
            "write_edge_store_csr", "write_edge_store_streaming"]
 
 # the fabric loads on first use, so ``python -m repro_torch.parallel.fabric``

@@ -14,7 +14,7 @@ Step kinds per shape (assignment):
 
 The shape tables are the reference's, all three. Only the archs whose
 models are ported register (``configs/__init__.py``); the input specs of
-the ``lm`` and ``gnn`` families come with those models.
+the ``lm`` family come with its models.
 """
 
 from __future__ import annotations
@@ -126,6 +126,40 @@ def _spec(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
+def _pad_to(n: int, m: int = 512) -> int:
+    """Graph sizes are padded to multiples of the full mesh size (512) so
+    node/edge arrays shard evenly; masks zero out the padding."""
+    return ((n + m - 1) // m) * m
+
+
+def gnn_input_specs(cfg, spec: ShapeSpec) -> Dict[str, Any]:
+    d = spec.dims
+    if spec.name == "minibatch_lg":
+        n, e = d["blk_nodes"], d["blk_edges"]
+    elif spec.name == "molecule":
+        n = d["n_nodes"] * d["batch"]
+        e = d["n_edges"] * d["batch"]
+    else:
+        n, e = d["n_nodes"], d["n_edges"]
+    n, e = _pad_to(n), _pad_to(e)
+    out: Dict[str, Any] = {
+        "node_feat": _spec((n, d["d_feat"]), F32),
+        "edge_src": _spec((e,), I32),
+        "edge_dst": _spec((e,), I32),
+        "edge_mask": _spec((e,), F32),
+        "node_mask": _spec((n,), F32),
+    }
+    if spec.name == "molecule":
+        # per-node regression (atomic-energy style); positions for SchNet
+        out["pos"] = _spec((n, 3), F32)
+        out["graph_id"] = _spec((n,), I32)
+        out["targets"] = _spec((n, d["d_target"]), F32)
+    else:
+        out["labels"] = _spec((n,), I32)
+        out["label_mask"] = _spec((n,), F32)
+    return out
+
+
 def config_for_shape(arch_id: str, shape_name: str, smoke: bool = False):
     """Specialize the arch config to a shape (GNN d_in/d_out track the
     graph's feature/label dims; LM/recsys configs are shape-independent)."""
@@ -160,6 +194,8 @@ def input_specs(arch_id: str, shape_name: str, smoke: bool = False,
     if cfg is None:
         cfg = bundle.smoke_config if smoke else bundle.config
     spec = bundle.shapes[shape_name]
+    if bundle.family == "gnn":
+        return spec.step, gnn_input_specs(cfg, spec)
     if bundle.family == "recsys":
         return spec.step, recsys_input_specs(cfg, spec)
     raise ValueError(f"input_specs: family {bundle.family!r} is not ported")

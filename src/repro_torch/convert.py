@@ -23,17 +23,17 @@ and ``single_box`` (optional: the planner's per-dimension budget split)
 and ``mem_words`` (the budget the plan was cut for; ``kw`` may not
 override it, or the port would plan anew).
 
-A DLRM's state is its params: ``dlrm_params_from_reference`` takes the
-reference's materialized params as numpy arrays (``np.asarray`` of each)
-and returns the port's tensors with the same bits, bfloat16 included. A
-training run's state adds the optimizer's: ``opt_state_from_reference``
-carries the reference's ``OptState`` (step, and the float32 moments m and
-v by param name) across the same way.
+A model's state is its params: ``params_from_reference`` takes the
+reference's materialized params (DLRM's or a GNN's) as a tree of numpy
+arrays (``np.asarray`` of each; a GNN's nest dicts) and returns the
+port's tensors in the same tree with the same bits, bfloat16 included. A training run's state adds the optimizer's:
+``opt_state_from_reference`` carries the reference's ``OptState`` (step,
+and the float32 moments m and v in the params' tree) across the same way.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -43,6 +43,7 @@ from repro_torch.core.leapfrog import Atom
 from repro_torch.core.queries import Query
 from repro_torch.data.edgestore import InMemoryEdgeSource
 from repro_torch.optim.adamw import OptState
+from repro_torch.pytree import tree_map
 from repro_torch.query.executor import QueryEngine
 from repro_torch.query.planner import QueryPlan
 
@@ -112,31 +113,42 @@ def query_engine_from_state(state: Mapping, **kw) -> QueryEngine:
                        skew=plan.skew, plan=plan, **kw)
 
 
-def dlrm_params_from_reference(params: Mapping, device="cpu"
-                               ) -> Dict[str, torch.Tensor]:
-    """The reference DLRM's params (name -> array: numpy, or anything
-    ``np.asarray`` takes) as port tensors on ``device``, bit for bit.
-    A bfloat16 array (numpy's ``ml_dtypes.bfloat16``, which torch cannot
-    read) goes across as its bits: viewed as uint16, then
-    ``torch.from_numpy``, then viewed as ``torch.bfloat16``."""
-    out = {}
-    for name, value in params.items():
-        arr = np.array(value)    # a writable, contiguous copy
-        if arr.dtype.name == "bfloat16":
-            t = torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
-        else:
-            t = torch.from_numpy(arr)
-        out[name] = t.to(device)
-    return out
+def _tensor_from_reference(value, device) -> torch.Tensor:
+    """One reference array (numpy, or anything ``np.asarray`` takes) as a
+    port tensor on ``device``, bit for bit. A bfloat16 array (numpy's
+    ``ml_dtypes.bfloat16``, which torch cannot read) goes across as its
+    bits: viewed as uint16, then ``torch.from_numpy``, then viewed as
+    ``torch.bfloat16``."""
+    arr = np.array(value)    # a writable, contiguous copy
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
+    return t.to(device)
+
+
+def _tree_from_reference(tree, device="cpu"):
+    """A tree of reference arrays (nested dicts, lists, tuples) as the same
+    tree of port tensors on ``device``, each leaf bit for bit
+    (``_tensor_from_reference``)."""
+    return tree_map(lambda v: _tensor_from_reference(v, device), tree)
+
+
+def params_from_reference(tree: Mapping, device="cpu") -> Dict[str, Any]:
+    """A reference model's params as port tensors on ``device`` in the same
+    tree, bit for bit: DLRM's flat name -> array dict (bfloat16 tables
+    included) or a GNN's nested dicts of float32 arrays (GIN's
+    ``layer<i>``, SchNet's ``inter<i>``, GraphCast's stacked ``proc``)."""
+    return _tree_from_reference(dict(tree), device)
 
 
 def opt_state_from_reference(state, device="cpu") -> OptState:
     """The reference's ``adamw.OptState`` (``step``, and ``m`` and ``v``
-    as name -> array; numpy, or anything ``np.asarray`` takes) as the
+    in the params' tree; numpy, or anything ``np.asarray`` takes) as the
     port's ``OptState`` on ``device``, bit for bit: step an int32 0-d
-    tensor, the moments float32."""
+    tensor, the moments float32, nested as the params are."""
     return OptState(
         step=torch.from_numpy(np.array(state.step, dtype=np.int32))
         .to(device),
-        m=dlrm_params_from_reference(state.m, device),
-        v=dlrm_params_from_reference(state.v, device))
+        m=_tree_from_reference(state.m, device),
+        v=_tree_from_reference(state.v, device))

@@ -1,2 +1,3 @@
-"""Graph generators, edge sources, the host prefetch pipeline and the
-Criteo-like recsys batches (``recsys``)."""
+"""Graph generators (with the GNN batches and GraphCast's multimesh), edge
+sources, the host prefetch pipeline, the GNN neighbor sampler
+(``sampler``) and the Criteo-like recsys batches (``recsys``)."""

@@ -3,19 +3,24 @@ restart, the straggler watchdog, optional gradient compression.
 
 The port of ``src/repro/launch/train.py``, with the same flags and printed
 lines, plus ``--torch-device`` (default ``cuda``, which raises without a
-card; ``cpu`` runs on the CPU). The ``recsys`` family (``dlrm-mlperf``)
-trains here: its dense step is ``loss_fn``'s gradient through every param,
-the tables' through the lookup's backward kernel on the card, then
-``optim.adamw.apply``. The ``lm`` and ``gnn`` archs are not registered in
-the port yet, and ``get_arch`` raises ``KeyError`` naming them. Under
-``--smoke``, or on the CPU, params and activations are float32 (the
-reference's ``set_dtypes`` rule).
+card; ``cpu`` runs on the CPU). A step is ``loss_fn``'s gradient through
+every param, then ``optim.adamw.apply``. Two families train here:
+``recsys`` (``dlrm-mlperf``: the tables' gradient through the lookup's
+backward kernel on the card) and ``gnn`` (``gcn-cora``, ``gin-tu``,
+``schnet``, ``graphcast`` at ``d_in=32, d_out=5`` on the reference's fixed
+512-node random graph: every message-passing sum on the sorted-sum
+kernel). The
+``lm`` archs are not registered in the port yet, and ``get_arch`` raises
+``KeyError`` naming them. Under ``--smoke``, or on the CPU, params and
+activations are float32 (the reference's ``set_dtypes`` rule).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-mlperf \\
       --smoke --steps 30 --batch 64 --ckpt-dir /tmp/ckpt
   PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-mlperf \\
       --smoke --steps 30 --compress int8 --torch-device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gcn-cora \\
+      --smoke --steps 30 --torch-device cpu
 """
 
 from __future__ import annotations
@@ -57,7 +62,7 @@ def main(argv=None):
         L.set_dtypes(torch.float32, torch.float32)
 
     bundle = get_arch(args.arch)
-    if bundle.family != "recsys":
+    if bundle.family not in ("recsys", "gnn"):
         raise KeyError(f"arch {args.arch!r}: family {bundle.family!r} has "
                        "no model in repro_torch")
     cfg = bundle.smoke_config if args.smoke else bundle.config
@@ -65,11 +70,25 @@ def main(argv=None):
                                 warmup_steps=max(2, args.steps // 10))
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    from repro_torch.data.recsys import CriteoLikeGenerator
-    from repro_torch.models import dlrm as M
-    params = M.init_params(cfg, gen, device=dev)
-    data = CriteoLikeGenerator(cfg.table_sizes, cfg.n_dense, cfg.hot, seed=1)
-    batches = (data.batch(args.batch) for _ in range(10**9))
+    if bundle.family == "gnn":
+        import dataclasses
+
+        from repro_torch.data.graphs import make_gnn_batch, random_graph
+        from repro_torch.models import gnn as M
+        cfg = dataclasses.replace(cfg, d_in=32, d_out=5)
+        params = M.init_params(cfg, gen, device=dev)
+        src, dst = random_graph(512, 2048, seed=1)
+        fixed = {k: torch.as_tensor(v, device=dev) for k, v in
+                 make_gnn_batch(src, dst, 512, 32, n_classes=5,
+                                seed=1).items()}
+        batches = (fixed for _ in range(10**9))
+    else:
+        from repro_torch.data.recsys import CriteoLikeGenerator
+        from repro_torch.models import dlrm as M
+        params = M.init_params(cfg, gen, device=dev)
+        data = CriteoLikeGenerator(cfg.table_sizes, cfg.n_dense, cfg.hot,
+                                   seed=1)
+        batches = (data.batch(args.batch) for _ in range(10**9))
     loss_fn = partial(M.loss_fn, cfg)
 
     opt_state = adamw.init(params)
@@ -87,10 +106,9 @@ def main(argv=None):
             print(f"resumed from step {start_step}")
 
     def grads_of(params, batch):
-        leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
-        loss, _ = loss_fn(leaves, batch)
-        grads = torch.autograd.grad(loss, list(leaves.values()))
-        return loss.detach(), dict(zip(leaves, grads))
+        loss, _, grads = L.value_and_grad(lambda p: loss_fn(p, batch),
+                                          params)
+        return loss, grads
 
     def step_plain(params, opt_state, batch):
         loss, grads = grads_of(params, batch)
@@ -107,7 +125,7 @@ def main(argv=None):
     watchdog = StepTimeWatchdog()
     losses = []
     for i in range(start_step, args.steps):
-        batch = {k: torch.from_numpy(v).to(dev)
+        batch = {k: torch.as_tensor(v, device=dev)
                  for k, v in next(batches).items()}
         t0 = time.time()
         if args.compress == "int8":

@@ -51,7 +51,7 @@ from repro_torch.optim import adamw
 from repro_torch.parallel.sharding import table_row_block
 
 from . import layers as L
-from .layers import abstractify, materialize
+from .layers import abstractify, batch_tensor, materialize
 
 FDTYPE = torch.float32
 
@@ -213,10 +213,6 @@ def embedding_lookups(cfg: DLRMConfig, params, sparse: torch.Tensor, *,
     return out
 
 
-def _on(batch, key: str, device, dtype=None) -> torch.Tensor:
-    return torch.as_tensor(batch[key], dtype=dtype, device=device)
-
-
 def forward(cfg: DLRMConfig, params, batch: Dict[str, Any], *,
             use_kernels: bool = True,
             devices: Optional[Sequence] = None) -> torch.Tensor:
@@ -225,8 +221,8 @@ def forward(cfg: DLRMConfig, params, batch: Dict[str, Any], *,
     the tables are sharded)."""
     p = _dense_params(params, devices)
     dev = p["bot_w0"].device
-    dense = _on(batch, "dense", dev, FDTYPE)
-    sparse = _on(batch, "sparse", dev)
+    dense = batch_tensor(batch, "dense", dev, FDTYPE)
+    sparse = batch_tensor(batch, "sparse", dev)
     x_dense = _mlp(p, dense, "bot", len(cfg.bot_mlp))            # (B, D)
     embs = embedding_lookups(cfg, params, sparse, use_kernels=use_kernels,
                              devices=devices)
@@ -260,7 +256,7 @@ def loss_fn(cfg: DLRMConfig, params, batch, **kw):
     differentiable in every param that requires a gradient, the tables
     included."""
     logits = forward(cfg, params, batch, **kw)
-    loss = _bce(logits, _on(batch, "labels", logits.device, FDTYPE))
+    loss = _bce(logits, batch_tensor(batch, "labels", logits.device, FDTYPE))
     return loss, {"bce": loss}
 
 
@@ -280,12 +276,13 @@ def retrieval_score(cfg: DLRMConfig, params, batch, *,
     as (scores, indices), each (1, k), best first."""
     p = _dense_params(params, devices)
     dev = p["bot_w0"].device
-    dense = _on(batch, "dense", dev, FDTYPE)
+    dense = batch_tensor(batch, "dense", dev, FDTYPE)
     x_user = _mlp(p, dense, "bot", len(cfg.bot_mlp))             # (1, D)
-    for vec in embedding_lookups(cfg, params, _on(batch, "sparse", dev),
+    sparse = batch_tensor(batch, "sparse", dev)
+    for vec in embedding_lookups(cfg, params, sparse,
                                  use_kernels=use_kernels, devices=devices):
         x_user = x_user + vec
-    cand = _on(batch, "candidates", dev, FDTYPE)                 # (C, D)
+    cand = batch_tensor(batch, "candidates", dev, FDTYPE)         # (C, D)
     scores = x_user @ cand.T                                     # (1, C)
     k = min(100, cand.shape[0])
     top_s, top_i = torch.topk(scores, k, dim=-1)
@@ -418,9 +415,9 @@ def make_sparse_train_step(cfg: DLRMConfig, opt_cfg: adamw.AdamWConfig, *,
     def step(params, opt_state, batch):
         p = _dense_params(params, devs)
         dev = p["bot_w0"].device
-        dense = _on(batch, "dense", dev, FDTYPE)
-        sparse = _on(batch, "sparse", dev)
-        y = _on(batch, "labels", dev, FDTYPE)
+        dense = batch_tensor(batch, "dense", dev, FDTYPE)
+        sparse = batch_tensor(batch, "sparse", dev)
+        y = batch_tensor(batch, "labels", dev, FDTYPE)
         b = sparse.shape[0]
         fields = []
         for t, name in enumerate(tables):

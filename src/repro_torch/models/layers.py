@@ -1,12 +1,13 @@
-"""Shared model layers: the parameter dtypes and the init helpers DLRM
-uses (``src/repro/models/layers.py:25-76``).
+"""Shared model layers: the parameter dtypes, the init helpers DLRM and
+the GNNs use (``src/repro/models/layers.py:25-76``), and the gradient of
+a loss through a tree of params.
 
 Conventions (the reference's):
   * params are bf16 (``PDTYPE``); dense layers keep float32 (``FDTYPE``).
-  * a model has ``param_shapes(cfg) -> {name: (shape, dtype)}``, used both
-    by real init (``materialize``) and by the shape-only path
-    (``abstractify``: tensors on torch's ``meta`` device, no allocation,
-    where the reference builds ``jax.ShapeDtypeStruct``s).
+  * a model has ``param_shapes(cfg) -> {name: (shape, dtype)}``, a tree
+    of nested dicts, used both by real init (``materialize``) and by the
+    shape-only path (``abstractify``: tensors on torch's ``meta`` device,
+    no allocation, where the reference builds ``jax.ShapeDtypeStruct``s).
   * modules read ``layers.PDTYPE`` as a module attribute at call time, not
     by value, so ``set_dtypes`` takes effect.
 """
@@ -14,9 +15,12 @@ Conventions (the reference's):
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Callable, Dict
 
 import torch
+
+from repro_torch.pytree import (flatten_with_path, leaves, tree_map,
+                                tree_map_with_path)
 
 PDTYPE = torch.bfloat16   # parameter dtype
 FDTYPE = torch.float32    # dense-layer and accumulation dtype
@@ -38,35 +42,65 @@ def _is_zero_init(name: str, shape) -> bool:
         or "_b" in name
 
 
-def materialize(shapes: Dict[str, Any], generator: torch.Generator,
-                device="cpu") -> Dict[str, torch.Tensor]:
-    """Turn a flat ``{name: (shape, dtype)}`` dict into initialized tensors
-    on ``device``, drawn from ``generator`` (a ``torch.Generator`` on that
-    device's kind) in sorted key order, as the reference splits its key
-    over its flattened (sorted) tree.
+def _is_shape(x) -> bool:
+    """A leaf of a shapes tree: ``(shape tuple, dtype)``."""
+    return isinstance(x, tuple) and len(x) == 2 and isinstance(x[0], tuple)
 
-    Name-aware, as the reference: keys containing 'norm' get ones; bias-like
-    keys (``eps``, 1-D ``b*``, ``*_b*``) zeros; every other key a normal
-    draw times 1/sqrt(fan_in), fan_in = ``shape[-2]`` (``shape[-1]`` for
-    1-D). The draw is made in the parameter's own dtype, in place (a
-    float32 temporary of a 39,980,032 x 128 table would take 20.5 GB)."""
-    out: Dict[str, torch.Tensor] = {}
-    for name in sorted(shapes):
-        shape, dtype = shapes[name]
+
+def materialize(shapes: Dict[str, Any], generator: torch.Generator,
+                device="cpu") -> Dict[str, Any]:
+    """Turn a ``{name: (shape, dtype)}`` tree (nested dicts) into
+    initialized tensors on ``device``, drawn from ``generator`` (a
+    ``torch.Generator`` on that device's kind) leaf by leaf in pytree
+    order (sorted keys at every level; ``repro_torch.pytree``), as the
+    reference splits its key over its flattened tree. A flat dict is drawn
+    in sorted key order.
+
+    Name-aware, as the reference: a leaf's name is its last key; names
+    containing 'norm' get ones; bias-like names (``eps``, 1-D ``b*``,
+    ``*_b*``) zeros; every other leaf a normal draw times 1/sqrt(fan_in),
+    fan_in = ``shape[-2]`` (``shape[-1]`` for 1-D). The draw is made in
+    the parameter's own dtype, in place (a float32 temporary of a
+    39,980,032 x 128 table would take 20.5 GB)."""
+    made = {}
+    for path, (shape, dtype) in flatten_with_path(shapes, is_leaf=_is_shape):
+        name = path[-1] if path else ""
         if "norm" in name:
-            out[name] = torch.ones(shape, dtype=dtype, device=device)
+            made[path] = torch.ones(shape, dtype=dtype, device=device)
         elif _is_zero_init(name, shape):
-            out[name] = torch.zeros(shape, dtype=dtype, device=device)
+            made[path] = torch.zeros(shape, dtype=dtype, device=device)
         else:
             fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
             std = 1.0 / math.sqrt(max(1, fan_in))
-            out[name] = torch.empty(shape, dtype=dtype, device=device) \
+            made[path] = torch.empty(shape, dtype=dtype, device=device) \
                 .normal_(0.0, std, generator=generator)
-    return {name: out[name] for name in shapes}
+    return tree_map_with_path(lambda path, _: made[path], shapes,
+                              is_leaf=_is_shape)
 
 
-def abstractify(shapes: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """The same dict as tensors on the ``meta`` device: shapes and dtypes,
+def abstractify(shapes: Dict[str, Any]) -> Dict[str, Any]:
+    """The same tree as tensors on the ``meta`` device: shapes and dtypes,
     zero allocation."""
-    return {name: torch.empty(shape, dtype=dtype, device="meta")
-            for name, (shape, dtype) in shapes.items()}
+    return tree_map(lambda x: torch.empty(x[0], dtype=x[1], device="meta"),
+                    shapes, is_leaf=_is_shape)
+
+
+def batch_tensor(batch, key: str, device, dtype=None) -> torch.Tensor:
+    """``batch[key]`` (an array or a tensor) as a tensor on ``device``, in
+    ``dtype`` when given: the tensor itself when it is already there."""
+    return torch.as_tensor(batch[key], dtype=dtype, device=device)
+
+
+def value_and_grad(fn: Callable, params):
+    """(value, aux, grads) of ``value, aux = fn(params)``: the gradient of
+    ``value`` with respect to every leaf of the ``params`` tree, in a tree
+    of its structure. The leaves enter ``fn`` detached, so ``params``
+    themselves need no gradient and autograd keeps no graph after."""
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    flat = leaves(live)
+    value, aux = fn(live)
+    grads = torch.autograd.grad(value, flat, allow_unused=True)
+    # a leaf the value does not use gets zeros, as jax.grad gives it
+    grads = {id(p): torch.zeros_like(p) if g is None else g
+             for p, g in zip(flat, grads)}
+    return value.detach(), aux, tree_map(lambda p: grads[id(p)], live)

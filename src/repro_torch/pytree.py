@@ -73,19 +73,23 @@ def tree_map(fn: Callable, tree, *rest, is_leaf: Optional[Callable] = None):
     return fn(tree, *rest)
 
 
-def tree_map_with_path(fn: Callable, tree, prefix: Tuple[str, ...] = ()):
+def tree_map_with_path(fn: Callable, tree, prefix: Tuple[str, ...] = (),
+                       is_leaf: Optional[Callable] = None):
     """``fn(path, leaf)`` of each leaf of ``tree``, in a tree of its
     structure (paths as in :func:`flatten_with_path`)."""
     if tree is None:
         return None
+    if is_leaf is not None and is_leaf(tree):
+        return fn(prefix, tree)
     if isinstance(tree, dict):
-        return {k: tree_map_with_path(fn, v, prefix + (str(k),))
+        return {k: tree_map_with_path(fn, v, prefix + (str(k),), is_leaf)
                 for k, v in tree.items()}
     if _is_namedtuple(tree):
         return type(tree)(*(tree_map_with_path(fn, getattr(tree, f),
-                                               prefix + (f".{f}",))
+                                               prefix + (f".{f}",), is_leaf)
                             for f in tree._fields))
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map_with_path(fn, v, prefix + (str(i),))
+        return type(tree)(tree_map_with_path(fn, v, prefix + (str(i),),
+                                             is_leaf)
                           for i, v in enumerate(tree))
     return fn(prefix, tree)

@@ -27,8 +27,8 @@ from repro.models import dlrm as RM
 from repro.optim import adamw as RA
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.dlrm_mlperf import SMOKE_CONFIG
-from repro_torch.convert import (dlrm_params_from_reference,
-                                 opt_state_from_reference)
+from repro_torch.convert import (opt_state_from_reference,
+                                 params_from_reference)
 from repro_torch.data.recsys import CriteoLikeGenerator
 from repro_torch.models import dlrm as M
 from repro_torch.models import layers as L
@@ -67,7 +67,7 @@ def _dlrm_state(seed=0):
         rp, ro, _ = step(rp, ro, {k: jnp.asarray(v)
                                   for k, v in gen.batch(16).items()})
     np_p = {k: np.asarray(v) for k, v in rp.items()}
-    pp = dlrm_params_from_reference(np_p)
+    pp = params_from_reference(np_p)
     po = opt_state_from_reference(RA.OptState(
         np.asarray(ro.step), {k: np.asarray(v) for k, v in ro.m.items()},
         {k: np.asarray(v) for k, v in ro.v.items()}))

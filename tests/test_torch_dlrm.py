@@ -3,7 +3,7 @@
 The port's ``models.dlrm`` (``forward``, ``serve_step``,
 ``retrieval_score`` and the value of ``loss_fn``) runs the reference's
 materialized ``SMOKE_CONFIG`` params, carried across bit for bit by
-``convert.dlrm_params_from_reference``, on batches made with numpy from
+``convert.params_from_reference``, on batches made with numpy from
 fixed seeds, at float32 tables (the reference's CPU default, set by
 ``tests/conftest.py``) and at bfloat16 tables (the reference's own
 ``layers.PDTYPE``, set inside the test and restored after). Tolerances:
@@ -37,7 +37,7 @@ from repro_torch.configs import (all_arch_ids, config_for_shape, get_arch,
                                  input_specs)
 from repro_torch.configs.base import RECSYS_SHAPES
 from repro_torch.configs.dlrm_mlperf import CONFIG, SMOKE_CONFIG
-from repro_torch.convert import dlrm_params_from_reference
+from repro_torch.convert import params_from_reference
 from repro_torch.data.recsys import CriteoLikeGenerator
 from repro_torch.kernels.embedding_bag import ops as bag_ops
 from repro_torch.models import dlrm as M
@@ -89,8 +89,7 @@ def _models(seed=0):
     """The reference's params under the current dtypes and the port's
     copy of them."""
     rp = RM.init_params(REF_SMOKE, jax.random.PRNGKey(seed))
-    pp = dlrm_params_from_reference({k: np.asarray(v)
-                                     for k, v in rp.items()})
+    pp = params_from_reference({k: np.asarray(v) for k, v in rp.items()})
     return rp, pp
 
 
@@ -324,7 +323,8 @@ def test_input_specs_match_reference(shape, smoke):
 
 
 def test_registry_holds_only_ported_archs():
-    assert all_arch_ids() == ["dlrm-mlperf"]
+    assert all_arch_ids() == ["dlrm-mlperf", "gcn-cora", "gin-tu",
+                              "graphcast", "schnet"]
     bundle = get_arch("dlrm-mlperf")
     ref = ref_get_arch("dlrm-mlperf")
     assert bundle.family == ref.family == "recsys"
@@ -334,7 +334,7 @@ def test_registry_holds_only_ported_archs():
     assert config_for_shape("dlrm-mlperf", "serve_bulk") is CONFIG
     assert config_for_shape("dlrm-mlperf", "serve_p99", smoke=True) \
         is SMOKE_CONFIG
-    for arch in ("qwen2-7b", "gcn-cora", "no-such-arch"):
+    for arch in ("qwen2-7b", "deepseek-v2-236b", "no-such-arch"):
         with pytest.raises(KeyError, match=arch):
             get_arch(arch)
 

@@ -47,8 +47,8 @@ from repro.models import layers as RL
 from repro.optim import adamw as RA
 from repro_torch.configs import get_arch
 from repro_torch.configs.dlrm_mlperf import SMOKE_CONFIG
-from repro_torch.convert import (dlrm_params_from_reference,
-                                 opt_state_from_reference)
+from repro_torch.convert import (opt_state_from_reference,
+                                 params_from_reference)
 from repro_torch.data.recsys import CriteoLikeGenerator
 from repro_torch.kernels.embedding_bag import grad as bag_grad
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_backward_ref
@@ -391,7 +391,7 @@ def _start(seed=0):
     copies."""
     rp = RM.init_params(REF_SMOKE, jax.random.PRNGKey(seed))
     ro = RA.init(rp)
-    pp = dlrm_params_from_reference({k: np.asarray(v) for k, v in rp.items()})
+    pp = params_from_reference({k: np.asarray(v) for k, v in rp.items()})
     po = opt_state_from_reference(RA.OptState(
         np.asarray(ro.step), {k: np.asarray(x) for k, x in ro.m.items()},
         {k: np.asarray(x) for k, x in ro.v.items()}))
@@ -636,7 +636,7 @@ def _from_reference_init(monkeypatch):
     """The CLI's init_params replaced by the reference's PRNGKey(0) params
     (what the reference's CLI starts from), carried across."""
     rp = RM.init_params(REF_SMOKE, jax.random.PRNGKey(0))
-    pp = dlrm_params_from_reference({k: np.asarray(v) for k, v in rp.items()})
+    pp = params_from_reference({k: np.asarray(v) for k, v in rp.items()})
     monkeypatch.setattr(M, "init_params", lambda cfg, gen, device: {
         k: v.clone().to(device) for k, v in pp.items()})
 
