@@ -87,8 +87,37 @@ Phases (the kernels each main-path phase must launch in brackets):
                   gcn-cora (full_graph_sm, minibatch_lg), gin-tu and schnet
                   (molecule) at their full CONFIG, a kernel step equal bit
                   for bit to the plain step (sums on the CPU copy) and to
-                  itself repeated. dryrun, dlrm, train and gnn run first,
-                  on an empty card.
+                  itself repeated.
+ 2e. lm         — LM serving (no kernel of the port lies on this path:
+                  plain PyTorch GEMMs, cuBLAS bfloat16 with float32
+                  accumulation, bfloat16 reduced-precision reductions and
+                  TF32 off): (a) qwen2-7b's full CONFIG (28 layers, d_model
+                  3,584, vocab 152,064: 15.23 GB of bfloat16 params from a
+                  seeded generator on the card) serves LM_BATCH prompts of
+                  LM_PROMPT tokens (``TokenStream(vocab, seed=0)``) with
+                  LM_GEN greedy tokens through ``launch.serve.generate``;
+                  prefill and decode timed and profiled, the peak below 80
+                  GB; prefill's last logits against ``forward(prompt)[:,
+                  -1]``, each decode step's logits against the teacher-forced
+                  ``forward`` at its position, both within LM_LOGIT_REL of
+                  the row's largest |logit|, the greedy token equal to the
+                  forward's argmax wherever its top-2 margin exceeds that
+                  bound; one prefill of LM_LONG tokens at B = 1 with
+                  attn_q_chunk = LM_Q_CHUNK against the unchunked one within
+                  the bound. (b) deepseek-v2-236b at full width cut to
+                  LM_DS_LAYERS layers (MLA, the dense prefix and two MoE
+                  layers of 160 experts, top-6, on ``moe_ffn_sorted``:
+                  18.66 GB): prefill = forward within the bound, the
+                  prefill run twice equal bit for bit, LM_DS_GEN greedy
+                  tokens with every decode logit finite. (c) the five
+                  SMOKE_CONFIGs at float32: forward, loss_fn, prefill and
+                  LM_SMOKE_DECODES decode steps on the card against the CPU
+                  from the same params within LM_SMOKE_REL, every MoE
+                  routing equal (a flip names the token). (d) the serve CLI
+                  (``python -m repro_torch.launch.serve --arch yi-6b
+                  --smoke``) in a child process. No launch of a kernel.
+                  dryrun, dlrm, train, gnn and lm run first, on an empty
+                  card.
   3. rmat       — Graph500-style RMAT, ``backend="auto"`` [intersect]; the
                   count must equal the plain torch ``binary`` lane.
   4. clustered  — triangle-rich planted-partition graph [triangle_dense];
@@ -322,6 +351,26 @@ GNN_OPT = {"lr": 3e-3, "warmup_steps": 3, "total_steps": 10}
 GNN_CHECK_LAYERS = 2
 GNN_PEAK_LIMIT = 80e9
 GNN_MB_NODES, GNN_MB_EDGES, GNN_MB_SEEDS = 232_965, 1 << 22, 1024
+# the lm phase (PERF.md §4): qwen2-7b's full CONFIG serving LM_BATCH
+# prompts of LM_PROMPT tokens with LM_GEN greedy tokens each, and one
+# prefill of LM_LONG tokens at B = 1, unchunked and with attn_q_chunk =
+# LM_Q_CHUNK; deepseek-v2-236b at full width cut to LM_DS_LAYERS layers with
+# LM_DS_GEN greedy tokens; logits held to within LM_LOGIT_REL of the row's
+# largest |logit|; the smoke configs card against CPU within LM_SMOKE_REL
+LM_ARCH, LM_SEED = "qwen2-7b", 0
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 512, 32
+LM_LONG, LM_Q_CHUNK = 8192, 1024
+LM_DS_ARCH, LM_DS_LAYERS, LM_DS_GEN = "deepseek-v2-236b", 3, 16
+LM_LOGIT_REL = 2.0 ** -4
+LM_SMOKE_ARCHS = ("qwen2-7b", "yi-6b", "qwen1.5-32b", "deepseek-v2-236b",
+                  "llama4-maverick-400b-a17b")
+LM_SMOKE_REL, LM_SMOKE_DECODES = 1e-4, 4
+LM_PEAK_LIMIT = 80e9
+LM_CLI_TIMEOUT_S = 300
+# the profiles' device-time sums by kernel-name part: cuBLAS's Hopper GEMMs
+# ("nvjet", "gemm"), the softmax, the elementwise passes
+LM_PROFILE_SUMS = {"nvjet": "nvjet", "gemm": "gemm", "softmax": "softmax",
+                   "elementwise": "elementwise"}
 # the dryrun phase: the fabric dry run at the reference test's sizes and at
 # its CLI's defaults
 DRYRUN_SHARDS = (3, 4)
@@ -4239,6 +4288,340 @@ def phase_gnn(torch, np, ops, shared, grad_ops) -> dict:
     return out
 
 
+def logits_err(torch, got, want) -> float:
+    """max over rows of max |got - want| / the row's largest |want|."""
+    got, want = got.float(), want.float()
+    scale = want.abs().amax(dim=-1, keepdim=True)
+    return float(((got - want).abs() / scale).amax())
+
+
+def lm_serve(torch, M, cfg, params, tok, n_gen: int) -> dict:
+    """The steps ``generate`` takes, each step's logits kept: a warm-up
+    prefill, a timed one, then n_gen timed greedy decode steps."""
+    max_len = tok.shape[1] + n_gen
+    M.prefill(cfg, params, tok, max_len=max_len)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache, last = M.prefill(cfg, params, tok, max_len=max_len)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    cur = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+    toks, steps = [], []
+    t0 = time.perf_counter()
+    for i in range(n_gen):
+        toks.append(cur[:, 0])
+        lg, cache = M.decode_step(cfg, params, cache, cur, tok.shape[1] + i)
+        steps.append(lg)
+        cur = torch.argmax(lg, dim=-1).to(torch.int32)[:, None]
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    return {"cache": cache, "last": last, "steps": torch.stack(steps, 1),
+            "tokens": torch.stack(toks, 1), "next": cur,
+            "prefill_ms": prefill_ms, "decode_ms_per_token":
+            decode_s * 1e3 / n_gen,
+            "tokens_per_s": tok.shape[0] * n_gen / decode_s}
+
+
+def lm_generate_check(torch, np, generate, cfg, params, prompts, run) -> dict:
+    """``launch.serve.generate`` (the entry point) timed, and equal token
+    for token to the steps ``lm_serve`` took."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = generate(cfg, params, prompts, run["tokens"].shape[1])
+    wall = time.perf_counter() - t0
+    assert np.array_equal(got, run["tokens"].cpu().numpy()), "generate"
+    return {"generate_s": wall, "sample_row": got[0][:16].tolist()}
+
+
+def lm_qwen(torch, np, M, generate, TokenStream) -> dict:
+    """(a) qwen2-7b's full CONFIG on the card (phase_lm)."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import get_arch
+    from repro_torch.pytree import leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch(LM_ARCH).config
+    t0 = time.perf_counter()
+    params = M.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(LM_SEED), "cuda")
+    torch.cuda.synchronize()
+    out = {"arch": LM_ARCH, "params": cfg.params_count(),
+           "param_bytes": sum(t.numel() * t.element_size()
+                              for t in leaves(params)),
+           "init_s": time.perf_counter() - t0, "batch": LM_BATCH,
+           "prompt": LM_PROMPT, "gen": LM_GEN}
+    prompts = TokenStream(cfg.vocab, seed=0).batch(LM_BATCH,
+                                                   LM_PROMPT)["tokens"]
+    tok = torch.from_numpy(prompts).cuda()
+    run = lm_serve(torch, M, cfg, params, tok, LM_GEN)
+    out.update({k: run[k] for k in ("prefill_ms", "decode_ms_per_token",
+                                    "tokens_per_s")})
+    out.update(lm_generate_check(torch, np, generate, cfg, params, prompts,
+                                 run))
+    # prefill's last logits against forward(prompt)[:, -1]
+    fwd, _ = M.forward(cfg, params, tok)
+    out["prefill_vs_forward_err"] = logits_err(torch, run["last"],
+                                               fwd[:, -1])
+    out["prefill_equals_forward_bits"] = bool(torch.equal(run["last"],
+                                                          fwd[:, -1]))
+    assert out["prefill_vs_forward_err"] <= LM_LOGIT_REL, out
+    del fwd
+    # each decode step against the teacher-forced forward at its position
+    seq = torch.cat([tok, run["tokens"].to(tok.dtype)], dim=1)
+    full, _ = M.forward(cfg, params, seq)
+    teacher = full[:, LM_PROMPT:]                      # (B, gen, V)
+    steps = run["steps"]
+    assert bool(torch.isfinite(steps).all()), "decode logits"
+    out["decode_vs_forward_err"] = logits_err(torch, steps, teacher)
+    assert out["decode_vs_forward_err"] <= LM_LOGIT_REL, out
+    # the greedy tokens against the forward's argmax where its margin is
+    # above the bound: token i+1 from step i, token 0 from position S-1
+    rows = full[:, LM_PROMPT - 1:-1]                   # predicts tokens
+    top2 = torch.topk(rows, 2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]) / rows.abs().amax(dim=-1)
+    sure = margin > LM_LOGIT_REL
+    agree = torch.argmax(rows, dim=-1) == run["tokens"]
+    out["greedy_checked"] = int(sure.sum())
+    out["greedy_agree_all"] = int(agree.sum())
+    assert bool(agree[sure].all()), (out, agree, sure)
+    del full, teacher, rows, seq
+    out["profile_decode"] = profile_call(
+        torch, lambda: M.decode_step(cfg, params, run["cache"], run["next"],
+                                     LM_PROMPT + LM_GEN - 1),
+        "lm_decode_step", DLRM_PROFILE_TOP, sums=LM_PROFILE_SUMS)
+    out["profile_prefill"] = profile_call(
+        torch, lambda: M.prefill(cfg, params, tok, max_len=LM_PROMPT
+                                 + LM_GEN), "lm_prefill", DLRM_PROFILE_TOP,
+        sums=LM_PROFILE_SUMS)
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    # one long prefill, unchunked and on query chunks
+    long_tok = torch.from_numpy(TokenStream(cfg.vocab, seed=1).batch(
+        1, LM_LONG)["tokens"]).cuda()
+    longs = {}
+    for name, c in (("unchunked", cfg),
+                    ("chunked", dataclasses.replace(
+                        cfg, attn_q_chunk=LM_Q_CHUNK))):
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, last = M.prefill(c, params, long_tok)
+        torch.cuda.synchronize()
+        longs[name] = (last, {"ms": (time.perf_counter() - t0) * 1e3,
+                              "max_memory_allocated":
+                              torch.cuda.max_memory_allocated()})
+    out["long_prefill"] = dict({k: v[1] for k, v in longs.items()},
+                               tokens=LM_LONG, q_chunk=LM_Q_CHUNK)
+    out["long_prefill"]["chunked_vs_unchunked_err"] = logits_err(
+        torch, longs["chunked"][0], longs["unchunked"][0])
+    assert out["long_prefill"]["chunked_vs_unchunked_err"] <= LM_LOGIT_REL
+    out["max_memory_allocated"] = max(
+        torch.cuda.max_memory_allocated(),
+        *(v[1]["max_memory_allocated"] for v in longs.values()))
+    assert out["max_memory_allocated"] < LM_PEAK_LIMIT, out
+    del params, longs, long_tok
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_deepseek(torch, np, M, generate, TokenStream) -> dict:
+    """(b) deepseek-v2-236b at full width, LM_DS_LAYERS layers (phase_lm)."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import get_arch
+    from repro_torch.pytree import leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_arch(LM_DS_ARCH).config,
+                              n_layers=LM_DS_LAYERS)
+    t0 = time.perf_counter()
+    params = M.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(LM_SEED), "cuda")
+    torch.cuda.synchronize()
+    out = {"arch": LM_DS_ARCH, "n_layers": LM_DS_LAYERS,
+           "moe_impl": cfg.moe_impl, "params": cfg.params_count(),
+           "param_bytes": sum(t.numel() * t.element_size()
+                              for t in leaves(params)),
+           "init_s": time.perf_counter() - t0, "batch": LM_BATCH,
+           "prompt": LM_PROMPT, "gen": LM_DS_GEN}
+    prompts = TokenStream(cfg.vocab, seed=0).batch(LM_BATCH,
+                                                   LM_PROMPT)["tokens"]
+    tok = torch.from_numpy(prompts).cuda()
+    run = lm_serve(torch, M, cfg, params, tok, LM_DS_GEN)
+    out.update({k: run[k] for k in ("prefill_ms", "decode_ms_per_token",
+                                    "tokens_per_s")})
+    assert bool(torch.isfinite(run["steps"]).all()), "decode logits"
+    out.update(lm_generate_check(torch, np, generate, cfg, params, prompts,
+                                 run))
+    # the prefill again: the same bits, cache and logits
+    cache2, last2 = M.prefill(cfg, params, tok,
+                              max_len=LM_PROMPT + LM_DS_GEN)
+    _, last1 = M.prefill(cfg, params, tok, max_len=LM_PROMPT + LM_DS_GEN)
+    out["prefill_repeat_equal_bits"] = bool(torch.equal(last1, last2))
+    assert out["prefill_repeat_equal_bits"], out
+    fwd, _ = M.forward(cfg, params, tok)
+    out["prefill_vs_forward_err"] = logits_err(torch, last1, fwd[:, -1])
+    out["prefill_equals_forward_bits"] = bool(torch.equal(last1,
+                                                          fwd[:, -1]))
+    assert out["prefill_vs_forward_err"] <= LM_LOGIT_REL, out
+    fwd2, _ = M.forward(cfg, params, tok)
+    out["forward_repeat_equal_bits"] = bool(torch.equal(fwd, fwd2))
+    assert out["forward_repeat_equal_bits"], out
+    out["profile_decode"] = profile_call(
+        torch, lambda: M.decode_step(cfg, params, run["cache"], run["next"],
+                                     LM_PROMPT + LM_DS_GEN - 1),
+        "lm_deepseek_decode_step", DLRM_PROFILE_TOP, sums=LM_PROFILE_SUMS)
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    assert out["max_memory_allocated"] < LM_PEAK_LIMIT, out
+    del params, run, cache2, fwd, fwd2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def recording_routes(moe, log: list):
+    """Records the top-k expert ids of every MoE routing (``moe.route``)."""
+    route = moe.route
+
+    def recorded(p, x, k):
+        res = route(p, x, k)
+        log.append(res[2].cpu())
+        return res
+    moe.route = recorded
+    try:
+        yield
+    finally:
+        moe.route = route
+
+
+def lm_smoke_run(torch, M, moe, cfg, params, tokens, targets) -> tuple:
+    """forward, loss_fn, prefill and LM_SMOKE_DECODES decode steps of one
+    smoke config on the params' device: ({name: tensor}, the routes)."""
+    from repro_torch.pytree import flatten_with_path
+    routes, res = [], {}
+    s = tokens.shape[1]
+    with recording_routes(moe, routes):
+        res["logits"], res["aux"] = M.forward(cfg, params, tokens)
+        loss, m = M.loss_fn(cfg, params, {"tokens": tokens,
+                                          "targets": targets})
+        res.update(loss=loss, nll=m["nll"])
+        cache, res["last"] = M.prefill(cfg, params, tokens[:, :s // 2],
+                                       max_len=s // 2 + LM_SMOKE_DECODES)
+        for i in range(LM_SMOKE_DECODES):
+            pos = s // 2 + i
+            res[f"decode{i}"], cache = M.decode_step(
+                cfg, params, cache, tokens[:, pos:pos + 1], pos)
+        res.update({f"cache/{'/'.join(path)}": t
+                    for path, t in flatten_with_path(cache)})
+    return res, routes
+
+
+def lm_smoke_configs(torch, np, M, TokenStream) -> dict:
+    """(c) each LM SMOKE_CONFIG at float32 (TF32 off) on the card and on
+    the CPU from the same params (phase_lm)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe
+    from repro_torch.pytree import tree_map
+    out = {}
+    for i, arch in enumerate(LM_SMOKE_ARCHS):
+        cfg = get_arch(arch).smoke_config
+        t0 = time.perf_counter()
+        params = M.init_params(cfg, torch.Generator().manual_seed(i), "cpu")
+        batch = TokenStream(cfg.vocab, seed=i).batch(2, 16)
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda t: t.to(dev), params)
+            tok = torch.from_numpy(batch["tokens"]).to(dev)
+            tgt = torch.from_numpy(batch["targets"]).to(dev)
+            runs[dev] = lm_smoke_run(torch, M, moe, cfg, p, tok, tgt)
+        (want, want_routes), (got, got_routes) = runs["cpu"], runs["cuda"]
+        assert len(got_routes) == len(want_routes), arch
+        for j, (g, w) in enumerate(zip(got_routes, want_routes)):
+            flips = (g != w).nonzero().tolist()
+            assert not flips, (arch, f"routing call {j}: the token at "
+                               f"(index..., rank) {flips[0]} routes to "
+                               f"{g[tuple(flips[0])]} on the card, "
+                               f"{w[tuple(flips[0])]} on the CPU")
+        errs = {}
+        for k, w in want.items():
+            g = got[k].cpu()
+            scale = max(float(w.abs().max()), 1e-30)
+            errs[k] = float((g - w).abs().max()) / scale
+        worst = max(errs, key=errs.get)
+        assert errs[worst] <= LM_SMOKE_REL, (arch, worst, errs[worst])
+        out[arch] = {"max_rel_err": errs[worst], "worst": worst,
+                     "routings": len(got_routes),
+                     "s": time.perf_counter() - t0}
+    return out
+
+
+def lm_cli(torch) -> dict:
+    """(d) the serve CLI on the card in a child process (phase_lm)."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "yi-6b",
+         "--smoke"], env=env, cwd=ROOT, capture_output=True, text=True,
+        timeout=LM_CLI_TIMEOUT_S)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "generated (4, 32)" in res.stdout, res.stdout[-500:]
+    return {"s": time.perf_counter() - t0,
+            "stdout": res.stdout.strip()[-200:]}
+
+
+def phase_lm(torch, np, ops, shared) -> dict:
+    """LM serving on the card: (a) qwen2-7b's full CONFIG, (b)
+    deepseek-v2-236b at full width and LM_DS_LAYERS layers, (c) the five
+    smoke configs card against CPU, (d) the serve CLI (the module
+    docstring's phase 2e). cuBLAS keeps float32 accumulation: bfloat16
+    reduced-precision reductions and TF32 off for the phase."""
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as M
+    mm = torch.backends.cuda.matmul
+    saved = (mm.allow_bf16_reduced_precision_reduction, mm.allow_tf32,
+             L.PDTYPE, L.ADTYPE)
+    mm.allow_bf16_reduced_precision_reduction = False
+    mm.allow_tf32 = False
+    out = {"phase": "lm",
+           "allow_bf16_reduced_precision_reduction":
+           mm.allow_bf16_reduced_precision_reduction,
+           "allow_tf32": mm.allow_tf32,
+           "allocated_at_start": torch.cuda.memory_allocated()}
+    reset_launches(ops)
+    try:
+        L.set_dtypes(torch.bfloat16, torch.bfloat16)
+        t0 = time.perf_counter()
+        out["qwen"] = dict(lm_qwen(torch, np, M, generate, TokenStream),
+                           s=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        out["deepseek"] = dict(lm_deepseek(torch, np, M, generate,
+                                           TokenStream),
+                               s=time.perf_counter() - t0)
+        L.set_dtypes(torch.float32, torch.float32)
+        t0 = time.perf_counter()
+        out["smoke_configs"] = dict(lm_smoke_configs(torch, np, M,
+                                                     TokenStream),
+                                    s=time.perf_counter() - t0)
+        out["cli"] = lm_cli(torch)
+    finally:
+        (mm.allow_bf16_reduced_precision_reduction, mm.allow_tf32) = \
+            saved[:2]
+        L.set_dtypes(*saved[2:])
+    out["launches"] = read_launches(ops)
+    assert not any(out["launches"].values()), out["launches"]
+    out["allocated_at_end"] = torch.cuda.memory_allocated()
+    return out
+
+
 def phase_dryrun(torch, ops, shared) -> dict:
     """The fabric dry run (``repro_torch.launch.dryrun``): ``fabric_dryrun``
     in this process at the reference test's size (3 shards, 64 vertices,
@@ -4734,7 +5117,7 @@ def bag_bf16_kernel_rows(timing: dict, by_phase: dict) -> list:
     return rows
 
 
-PHASES = ("dryrun", "dlrm", "train", "gnn", "rmat", "clustered", "listing",
+PHASES = ("dryrun", "dlrm", "train", "gnn", "lm", "rmat", "clustered", "listing",
           "skew", "fused", "query", "outofcore", "query_listing", "api", "shard", "serve",
           "embedding_bag")
 # the phases whose graphs and results a phase reuses
@@ -4764,7 +5147,7 @@ def main() -> int:
                     help="device, build and kernel checks only")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="main-path phases to run (default: all "
-                         "sixteen), "
+                         "seventeen), "
                          "with the phases they reuse (NEEDS)")
     ap.add_argument("--profile", action="store_true",
                     help="repeat each main-path count under "
@@ -4893,6 +5276,7 @@ def main() -> int:
             "dlrm": lambda: phase_dlrm(torch, np, ops, shared, bag_ops),
             "train": lambda: phase_train(torch, np, ops, shared, grad_ops),
             "gnn": lambda: phase_gnn(torch, np, ops, shared, grad_ops),
+            "lm": lambda: phase_lm(torch, np, ops, shared),
         }
         runs = []
         for name in with_needs(args.phases.split(",")):

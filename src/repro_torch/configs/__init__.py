@@ -1,7 +1,7 @@
-"""Architecture registry: one module per ported arch. The reference
-registers ten archs; the port registers each with its model: so far
-``dlrm-mlperf`` and the four GNNs (``gcn-cora``, ``gin-tu``, ``schnet``,
-``graphcast``)."""
+"""Architecture registry: one module per arch, the reference's ten: the
+five LMs (``qwen2-7b``, ``yi-6b``, ``qwen1.5-32b``, ``deepseek-v2-236b``,
+``llama4-maverick-400b-a17b``), ``dlrm-mlperf`` and the four GNNs
+(``gcn-cora``, ``gin-tu``, ``schnet``, ``graphcast``)."""
 
 from .base import (REGISTRY, ArchBundle, ShapeSpec, all_arch_ids,
                    config_for_shape, get_arch, input_specs)
@@ -13,8 +13,9 @@ def _load_all():
     global _LOADED
     if _LOADED:
         return
-    from . import dlrm_mlperf  # noqa: F401
-    from . import gcn_cora, gin_tu, graphcast, schnet  # noqa: F401
+    from . import (deepseek_v2_236b, dlrm_mlperf, gcn_cora, gin_tu,  # noqa
+                   graphcast, llama4_maverick, qwen15_32b, qwen2_7b,
+                   schnet, yi_6b)
     _LOADED = True
 
 

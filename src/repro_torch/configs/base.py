@@ -12,9 +12,8 @@ Step kinds per shape (assignment):
   DLRM: train_batch -> train_step · serve_p99/serve_bulk -> serve_step ·
         retrieval_cand -> retrieval_step
 
-The shape tables are the reference's, all three. Only the archs whose
-models are ported register (``configs/__init__.py``); the input specs of
-the ``lm`` family come with its models.
+The shape tables are the reference's, all three, and all ten archs
+register (``configs/__init__.py``).
 """
 
 from __future__ import annotations
@@ -58,8 +57,7 @@ def register(bundle: ArchBundle) -> ArchBundle:
 
 def get_arch(arch_id: str) -> ArchBundle:
     """The registered bundle of ``arch_id``; ``KeyError`` naming it when it
-    is not registered (an arch of the reference whose model is not ported
-    yet, or no arch at all)."""
+    is not registered."""
     if arch_id not in REGISTRY:
         from . import _load_all
         _load_all()
@@ -124,6 +122,20 @@ RECSYS_SHAPES = {
 def _spec(shape, dtype) -> torch.Tensor:
     """A shape-and-dtype stand-in: a tensor on the meta device."""
     return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def lm_input_specs(cfg, spec: ShapeSpec) -> Dict[str, Any]:
+    b, s = spec.dims["batch"], spec.dims["seq"]
+    if spec.step == "train":
+        return {"tokens": _spec((b, s), I32), "targets": _spec((b, s), I32)}
+    if spec.step == "prefill":
+        return {"tokens": _spec((b, s), I32)}
+    if spec.step == "decode":
+        from repro_torch.models.transformer import cache_specs
+        return {"cache": cache_specs(cfg, b, s),
+                "token": _spec((b, 1), I32),
+                "pos": _spec((), I32)}
+    raise ValueError(spec.step)
 
 
 def _pad_to(n: int, m: int = 512) -> int:
@@ -194,8 +206,10 @@ def input_specs(arch_id: str, shape_name: str, smoke: bool = False,
     if cfg is None:
         cfg = bundle.smoke_config if smoke else bundle.config
     spec = bundle.shapes[shape_name]
+    if bundle.family == "lm":
+        return spec.step, lm_input_specs(cfg, spec)
     if bundle.family == "gnn":
         return spec.step, gnn_input_specs(cfg, spec)
     if bundle.family == "recsys":
         return spec.step, recsys_input_specs(cfg, spec)
-    raise ValueError(f"input_specs: family {bundle.family!r} is not ported")
+    raise ValueError(bundle.family)

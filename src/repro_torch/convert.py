@@ -24,9 +24,11 @@ and ``mem_words`` (the budget the plan was cut for; ``kw`` may not
 override it, or the port would plan anew).
 
 A model's state is its params: ``params_from_reference`` takes the
-reference's materialized params (DLRM's or a GNN's) as a tree of numpy
-arrays (``np.asarray`` of each; a GNN's nest dicts) and returns the
-port's tensors in the same tree with the same bits, bfloat16 included. A training run's state adds the optimizer's:
+reference's materialized params (DLRM's, a GNN's or an LM's) as a tree of
+numpy arrays (``np.asarray`` of each; a GNN's and an LM's nest dicts, an
+LM's ``block{i}`` stacked along a leading layer axis) and returns the
+port's tensors in the same tree with the same bits, bfloat16 included.
+An LM's KV cache goes across the same way (``cache_from_reference``). A training run's state adds the optimizer's:
 ``opt_state_from_reference`` carries the reference's ``OptState`` (step,
 and the float32 moments m and v in the params' tree) across the same way.
 """
@@ -137,8 +139,19 @@ def _tree_from_reference(tree, device="cpu"):
 def params_from_reference(tree: Mapping, device="cpu") -> Dict[str, Any]:
     """A reference model's params as port tensors on ``device`` in the same
     tree, bit for bit: DLRM's flat name -> array dict (bfloat16 tables
-    included) or a GNN's nested dicts of float32 arrays (GIN's
-    ``layer<i>``, SchNet's ``inter<i>``, GraphCast's stacked ``proc``)."""
+    included), a GNN's nested dicts of float32 arrays (GIN's
+    ``layer<i>``, SchNet's ``inter<i>``, GraphCast's stacked ``proc``) or
+    an LM's (``embed``, ``prefix<i>``, ``block<i>`` with its params
+    stacked along a leading layer axis, ``attn`` / ``ffn`` subtrees;
+    bfloat16 or float32 as the reference's ``set_dtypes`` made them)."""
+    return _tree_from_reference(dict(tree), device)
+
+
+def cache_from_reference(tree: Mapping, device="cpu") -> Dict[str, Any]:
+    """A reference LM's KV cache (``prefix<i>`` / ``block<i>`` -> ``k``,
+    ``v`` or MLA's ``latent``, ``rope``; the blocks' stacked along a
+    leading layer axis) as port tensors on ``device``, bit for bit. The
+    port's ``decode_step`` writes into the cache it is given."""
     return _tree_from_reference(dict(tree), device)
 
 

@@ -10,8 +10,8 @@ backward kernel on the card) and ``gnn`` (``gcn-cora``, ``gin-tu``,
 ``schnet``, ``graphcast`` at ``d_in=32, d_out=5`` on the reference's fixed
 512-node random graph: every message-passing sum on the sorted-sum
 kernel). The
-``lm`` archs are not registered in the port yet, and ``get_arch`` raises
-``KeyError`` naming them. Under ``--smoke``, or on the CPU, params and
+``lm`` archs serve (``launch/serve.py``) but do not train in the port
+yet: the CLI raises ``KeyError`` naming the arch. Under ``--smoke``, or on the CPU, params and
 activations are float32 (the reference's ``set_dtypes`` rule).
 
 Examples:
@@ -63,8 +63,8 @@ def main(argv=None):
 
     bundle = get_arch(args.arch)
     if bundle.family not in ("recsys", "gnn"):
-        raise KeyError(f"arch {args.arch!r}: family {bundle.family!r} has "
-                       "no model in repro_torch")
+        raise KeyError(f"arch {args.arch!r}: family {bundle.family!r} "
+                       "does not train in repro_torch")
     cfg = bundle.smoke_config if args.smoke else bundle.config
     opt_cfg = adamw.AdamWConfig(lr=args.lr, total_steps=max(args.steps, 10),
                                 warmup_steps=max(2, args.steps // 10))

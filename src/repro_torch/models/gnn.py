@@ -55,7 +55,8 @@ from repro_torch.kernels.embedding_bag import grad as bag_grad
 from repro_torch.optim import adamw
 from repro_torch.pytree import leaves
 
-from .layers import abstractify, batch_tensor, materialize, value_and_grad
+from .layers import (ParamTree, abstractify, batch_tensor, materialize,
+                     value_and_grad)
 
 FDTYPE = torch.float32   # GNNs train in f32 (small models, full-batch grads)
 
@@ -411,24 +412,6 @@ def train_step(cfg: GNNConfig, opt_cfg: adamw.AdamWConfig, params,
     return params, opt_state, {"loss": loss, **om}
 
 
-class _ParamTree(nn.Module):
-    """A nested dict of tensors as nested modules of frozen parameters
-    (the tensors themselves, not copies); ``tree()`` gives the dict back."""
-
-    def __init__(self, tree: Dict[str, Any]):
-        super().__init__()
-        for k, v in tree.items():
-            if isinstance(v, dict):
-                self.add_module(k, _ParamTree(v))
-            else:
-                self.register_parameter(k, nn.Parameter(v,
-                                                        requires_grad=False))
-
-    def tree(self) -> Dict[str, Any]:
-        return {**dict(self._parameters),
-                **{k: m.tree() for k, m in self._modules.items()}}
-
-
 class GNN(nn.Module):
     """The module idiom over the functions above: the params (random from
     ``generator`` on ``device``, or given) held as frozen parameters, which
@@ -441,7 +424,7 @@ class GNN(nn.Module):
         self.cfg = cfg
         if params is None:
             params = init_params(cfg, generator, device)
-        self.params = _ParamTree(params)
+        self.params = ParamTree(params)
 
     def param_tree(self) -> Dict[str, Any]:
         return self.params.tree()

@@ -71,14 +71,19 @@ def test_importing_every_module_pulls_in_no_jax_and_no_reference():
                                     "repro_torch.optim.compression",
                                     "repro_torch.checkpoint.manager",
                                     "repro_torch.kernels.embedding_bag.grad",
-                                    "repro_torch.pytree"])
+                                    "repro_torch.pytree",
+                                    "repro_torch.models.transformer",
+                                    "repro_torch.models.moe",
+                                    "repro_torch.data.tokens",
+                                    "repro_torch.launch.serve"])
 def test_fused_lane_modules_import_no_jax_and_no_reference(module):
     """The fused lane's and the QueryEngine's modules, the embedding_bag
     entry point, the executor and converter that reach them, the public
     triangle API with MGT and the adversarial instance, ``obs``, DLRM
     serving and training (configs, model, layers, the Criteo-like
     generator, the lookup's gradient, AdamW, compression, checkpoints and
-    the train CLI) and the fabric dry run, load on a host without JAX: importing each alone pulls
+    the train CLI), the fabric dry run and LM serving (the transformer,
+    MoE, the token stream and the serve CLI), load on a host without JAX: importing each alone pulls
     in neither ``jax`` nor ``repro``."""
     code = (
         "import importlib, sys\n"
