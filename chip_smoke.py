@@ -116,8 +116,36 @@ Phases (the kernels each main-path phase must launch in brackets):
                   routing equal (a flip names the token). (d) the serve CLI
                   (``python -m repro_torch.launch.serve --arch yi-6b
                   --smoke``) in a child process. No launch of a kernel.
-                  dryrun, dlrm, train, gnn and lm run first, on an empty
-                  card.
+ 2f. lm_train   — LM training (GEMMs accumulating in float32): (a)
+                  qwen2-7b's full-width CONFIG cut to LM_TRAIN_LAYERS
+                  layers, one LM_TRAIN_SEQ-token sequence a step from
+                  ``TokenStream(vocab, seed=1)``, remat "layer",
+                  AdamW(LM_TRAIN_OPT), LM_TRAIN_STEPS
+                  ``transformer.train_step`` calls [embedding_bag_backward
+                  1 a step: the token embedding's gradient], timed, host
+                  syncs a step (0 after the first), finite losses and
+                  gradient norms, every leaf moved, the peak below
+                  LM_TRAIN_PEAK_LIMIT, 6·N·T model flops against the
+                  card's bfloat16 peak, one more step profiled; that
+                  step's embedding gradient alone (its bytes bound,
+                  ``index_add_``, equal to the plain version on the CPU
+                  copy). (b) At LM_TRAIN_CHECK_LAYERS layers: the step
+                  equal to the step repeated bit for bit in the loss and
+                  every param and moment, the embedding gradient equal to
+                  its plain version on the CPU copy, remat "none",
+                  "layer" and "dots" equal bit for bit with their peaks,
+                  the bfloat16 gradient within LM_GRAD_REL relative L2 of
+                  a float32 gradient of the same params, leaf by leaf.
+                  (c) The five SMOKE_CONFIGs at float32, and the two MoE
+                  ones on "gathered" and "gathered_sort" with routes
+                  dropped: the loss and every gradient, card against CPU,
+                  within LM_SMOKE_REL, every routing equal. (d) The train
+                  CLI in child processes (``--arch qwen2-7b --smoke
+                  --steps 15 --batch 4 --seq 64``, plain with a
+                  checkpoint, ``--compress int8``, then ``--resume`` to
+                  20): the final loss below the first.
+                  dryrun, dlrm, train, gnn, lm and lm_train run first, on
+                  an empty card.
   3. rmat       — Graph500-style RMAT, ``backend="auto"`` [intersect]; the
                   count must equal the plain torch ``binary`` lane.
   4. clustered  — triangle-rich planted-partition graph [triangle_dense];
@@ -371,6 +399,28 @@ LM_CLI_TIMEOUT_S = 300
 # ("nvjet", "gemm"), the softmax, the elementwise passes
 LM_PROFILE_SUMS = {"nvjet": "nvjet", "gemm": "gemm", "softmax": "softmax",
                    "elementwise": "elementwise"}
+# the lm_train phase (PERF.md §4): qwen2-7b's full-width CONFIG cut to
+# LM_TRAIN_LAYERS layers (the most whose step stays below
+# LM_TRAIN_PEAK_LIMIT), one LM_TRAIN_SEQ-token sequence a step (the
+# train_4k cell's sequence; its batch of 256 does not fit one card) from
+# TokenStream(vocab, seed=1), remat "layer", LM_TRAIN_STEPS steps of
+# AdamW(LM_TRAIN_OPT); the checks at LM_TRAIN_CHECK_LAYERS layers: the
+# bfloat16 gradient within LM_GRAD_REL relative L2 error of a float32
+# gradient of the same params, leaf by leaf; the smoke configs' gradients
+# card against CPU within LM_SMOKE_REL; the train CLI at the reference
+# test's flags
+LM_TRAIN_LAYERS, LM_TRAIN_BATCH, LM_TRAIN_SEQ = 18, 1, 4096
+LM_TRAIN_STEPS = 5
+LM_TRAIN_OPT = {"lr": 3e-4, "warmup_steps": 2, "total_steps": 10}
+LM_TRAIN_PEAK_LIMIT = 75e9
+LM_TRAIN_CHECK_LAYERS = 2
+LM_GRAD_REL = 2.0 ** -4
+LM_TRAIN_MOE_IMPLS = ("gathered", "gathered_sort")
+LM_TRAIN_CLI = ("--arch", "qwen2-7b", "--smoke", "--steps", "15", "--batch",
+                "4", "--seq", "64")
+LM_TRAIN_CLI_RESUME_STEPS = 20
+# the card's dense bfloat16 peak (NVIDIA's H100 SXM data sheet, at 700 W)
+H100_BF16_FLOPS = 989e12
 # the dryrun phase: the fabric dry run at the reference test's sizes and at
 # its CLI's defaults
 DRYRUN_SHARDS = (3, 4)
@@ -575,7 +625,8 @@ def profile_call(torch, fn, label: str, top: int = 10,
                  sums: "dict | None" = None) -> dict:
     """Device time by kernel name over one ``fn()`` under
     ``torch.profiler``; ``idle_share`` is the share of the wall time in
-    which no kernel or copy ran; ``sums``: {label: substring} gives the
+    which no kernel or copy ran; ``device_launches`` counts the kernels,
+    copies and memsets; ``sums``: {label: substring} gives the
     device ms and calls of the kernels whose names hold each substring."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -595,6 +646,7 @@ def profile_call(torch, fn, label: str, top: int = 10,
     device_ms = sum(r[0] for r in rows)
     out = {"phase": "profile", "of": label, "wall_ms": wall_ms,
            "device_ms": device_ms,
+           "device_launches": sum(r[2] for r in rows),
            "idle_share": 1.0 - device_ms / wall_ms if wall_ms else None,
            "top": [{"name": k[:80], "calls": c, "ms": ms}
                    for ms, k, c in rows[:top]]}
@@ -3913,20 +3965,25 @@ def phase_train(torch, np, ops, shared, grad_ops) -> dict:
     return out
 
 
-def bag_backward_kernel_row(timing, gnn_timing, by_phase: dict) -> dict:
-    """The backward kernel's line: its launches by phase (train, gnn), its
-    times at the largest train field's shape (both fields under
-    ``by_field``) or, where the train phase did not run, at the gnn
-    phase's largest segment sum, which ``by_gnn_shape`` holds too."""
+def bag_backward_kernel_row(timing, gnn_timing, lm_timing,
+                            by_phase: dict) -> dict:
+    """The backward kernel's line: its launches by phase (train, gnn,
+    lm_train), its times at the largest train field's shape (both fields
+    under ``by_field``) or, where the train phase did not run, at the gnn
+    phase's largest segment sum or else the lm_train phase's token
+    embedding; ``by_gnn_shape`` and ``by_lm_shape`` hold those two."""
     shapes = dict(timing or {})
     if gnn_timing:
         shapes["gnn"] = gnn_timing
-    top = timing["largest"] if timing else gnn_timing
+    if lm_timing:
+        shapes["lm"] = lm_timing
+    top = timing["largest"] if timing else gnn_timing or lm_timing
     launches = by_phase["embedding_bag_backward"]
     row = {"name": "embedding_bag_backward", "route": "cuda",
            "source": "src/repro_torch/csrc/embedding_bag_backward.cu",
            "replaces": "none: the XLA scatter-add of jnp.take's gradient "
-                       "(src/repro/models/dlrm.py:211) and "
+                       "(src/repro/models/dlrm.py:211, "
+                       "src/repro/models/transformer.py:194) and "
                        "jax.ops.segment_sum (src/repro/models/gnn.py:135)",
            "launches": sum(launches.values()),
            "launches_by_phase": launches,
@@ -3946,54 +4003,70 @@ def bag_backward_kernel_row(timing, gnn_timing, by_phase: dict) -> dict:
         row["by_field"] = timing
     if gnn_timing:
         row["by_gnn_shape"] = {"mesh_r6_d512": gnn_timing}
+    if lm_timing:
+        row["by_lm_shape"] = {"qwen2_7b_embed_4096": lm_timing}
     return row
 
 
-def time_segment_sum(torch, grad_ops, x, seg, n: int, order) -> dict:
-    """The backward kernel as the gnn phase's largest segment sum calls it:
-    (E, D) float32 values summed by int32 segment ids into n rows (L = 1).
+def time_segment_sum(torch, grad_ops, x, seg, n: int, order=None,
+                     dtype=None) -> dict:
+    """The backward kernel as an L = 1 sum calls it: (E, D) float32 values
+    summed by (E,) ids into n rows of ``dtype`` (default float32): the gnn
+    phase's largest segment sum, the lm_train phase's token embedding.
     ``ms``: the wrapper with its own stable sort, ``ms_with_order``: given
-    the batch's sort (``edge_orders``), between CUDA events; ``kernel_ms``:
-    the C entry alone on that sort (BAG_GRAPH_LAUNCHES calls in one CUDA
-    graph, per call); the plain version on the card and one
-    ``index_add_`` (eager: ``library_ms``; in a graph: ``library_graph_ms``);
-    the host synchronisations of one call; equality with the plain version
-    on the CPU copy; the bytes bound (each value row and id read once, the
-    n x D output written once) and the longest run's add chain, 4 cycles
-    a slot at the card's maximum SM clock."""
+    the caller's sort (``order``: the batch's ``edge_orders``; None where
+    the caller has none), between CUDA events; ``kernel_ms``: the C entry
+    alone on that sort (BAG_GRAPH_LAUNCHES calls in one CUDA graph, per
+    call); the plain version on the card and one ``index_add_`` into a
+    float32 (n, D) table (eager: ``library_ms``; in a graph:
+    ``library_graph_ms``); the host synchronisations of one call; equality
+    with the plain version on the CPU copy; the bytes bound (each value
+    row and id read once, the n x D output written once: every row, the
+    untouched ones zero) and the longest run's add chain, 4 cycles a slot
+    at the card's maximum SM clock."""
     from repro_torch.kernels.embedding_bag.ref import \
         embedding_bag_backward_ref
+    dtype = torch.float32 if dtype is None else dtype
     idx = seg.view(-1, 1)
     e, d = x.shape
-    keys, perm = order
-    want = embedding_bag_backward_ref(x.cpu(), idx.cpu(), n)
+    want = embedding_bag_backward_ref(x.cpu(), idx.cpu(), n, dtype)
     got, syncs = count_syncs(
-        torch, lambda: grad_ops.embedding_bag_backward(x, idx, n))
-    with_order, syncs_order = count_syncs(
-        torch, lambda: grad_ops.embedding_bag_backward(x, idx, n,
-                                                       order=order))
-    exact = torch.equal(got.cpu(), want) and \
-        torch.equal(with_order.cpu(), want)
-    err = float((got.cpu() - want).abs().max())
-    ms = cuda_ms(lambda: grad_ops.embedding_bag_backward(x, idx, n),
+        torch, lambda: grad_ops.embedding_bag_backward(x, idx, n, dtype))
+    exact = torch.equal(got.cpu(), want)
+    err = float((got.cpu().float() - want.float()).abs().max())
+    del got
+    ms = cuda_ms(lambda: grad_ops.embedding_bag_backward(x, idx, n, dtype),
                  TIMING_REPS)
-    ms_with_order = cuda_ms(lambda: grad_ops.embedding_bag_backward(
-        x, idx, n, order=order), TIMING_REPS)
-    out = torch.empty((n, d), dtype=torch.float32, device="cuda")
+    ms_with_order, syncs_order = None, 0
+    if order is not None:
+        with_order, syncs_order = count_syncs(
+            torch, lambda: grad_ops.embedding_bag_backward(
+                x, idx, n, dtype, order=order))
+        exact = exact and torch.equal(with_order.cpu(), want)
+        del with_order
+        ms_with_order = cuda_ms(lambda: grad_ops.embedding_bag_backward(
+            x, idx, n, dtype, order=order), TIMING_REPS)
+    keys, perm = order if order is not None else \
+        torch.sort(seg, stable=True)
+    out = torch.empty((n, d), dtype=dtype, device="cuda")
     work = torch.empty(grad_ops._workspace_bytes(e, n, d),
                        dtype=torch.uint8, device="cuda")
     kernel_ms = graph_ms(torch, lambda: [
-        grad_ops._launch_sorted(x, keys, perm, 1, n, out=out, work=work)
+        grad_ops._launch_sorted(x, keys, perm, 1, n, dtype, out=out,
+                                work=work)
         for _ in range(BAG_GRAPH_LAUNCHES)], TIMING_REPS) / BAG_GRAPH_LAUNCHES
     exact = exact and torch.equal(out.cpu(), want)
-    plain_ms = cuda_ms(lambda: embedding_bag_backward_ref(x, idx, n),
+    del out, work, want
+    plain_ms = cuda_ms(lambda: embedding_bag_backward_ref(x, idx, n, dtype),
                        TIMING_REPS)
     acc = torch.zeros((n, d), dtype=torch.float32, device="cuda")
     lib_ms = cuda_ms(lambda: acc.index_add_(0, seg, x), TIMING_REPS)
     lib_graph_ms = graph_ms(torch, lambda: [
         acc.index_add_(0, seg, x) for _ in range(BAG_GRAPH_LAUNCHES)],
         TIMING_REPS) / BAG_GRAPH_LAUNCHES
-    n_bytes = e * (seg.element_size() + 4 * d) + n * d * 4
+    del acc
+    item = torch.empty((), dtype=dtype).element_size()
+    n_bytes = e * (seg.element_size() + 4 * d) + n * d * item
     counts = torch.bincount(seg.long(), minlength=n)
     longest = int(counts.max())
     clocks = sm_clocks_mhz()
@@ -4003,6 +4076,7 @@ def time_segment_sum(torch, grad_ops, x, seg, n: int, order) -> dict:
             "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "bytes": n_bytes, "longest_run": longest,
             "median_run": float(counts.float().median()),
+            "distinct_ids": int((counts > 0).sum()),
             "longest_run_floor_ms": longest * 4 / (clocks["max_sm"] * 1e3),
             "sm_clock_mhz": clocks, "syncs_per_call": syncs,
             "syncs_per_call_with_order": syncs_order,
@@ -4011,7 +4085,7 @@ def time_segment_sum(torch, grad_ops, x, seg, n: int, order) -> dict:
                                    "bag_backward_runs (+ the sort "
                                    "without order)",
             "shape": {"rows": n, "idx": [e, 1], "d": d,
-                      "out_dtype": "float32"}}
+                      "out_dtype": str(dtype).replace("torch.", "")}}
 
 
 def weather_batch(torch, np, verts, src, dst, n_vars: int) -> dict:
@@ -4581,43 +4655,402 @@ def phase_lm(torch, np, ops, shared) -> dict:
     deepseek-v2-236b at full width and LM_DS_LAYERS layers, (c) the five
     smoke configs card against CPU, (d) the serve CLI (the module
     docstring's phase 2e). cuBLAS keeps float32 accumulation: bfloat16
-    reduced-precision reductions and TF32 off for the phase."""
+    reduced-precision reductions and TF32 off for the phase
+    (``layers.float32_accumulation``)."""
     from repro_torch.data import TokenStream
     from repro_torch.launch.serve import generate
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as M
     mm = torch.backends.cuda.matmul
-    saved = (mm.allow_bf16_reduced_precision_reduction, mm.allow_tf32,
-             L.PDTYPE, L.ADTYPE)
-    mm.allow_bf16_reduced_precision_reduction = False
-    mm.allow_tf32 = False
-    out = {"phase": "lm",
-           "allow_bf16_reduced_precision_reduction":
-           mm.allow_bf16_reduced_precision_reduction,
-           "allow_tf32": mm.allow_tf32,
-           "allocated_at_start": torch.cuda.memory_allocated()}
+    saved = (L.PDTYPE, L.ADTYPE)
+    out = {"phase": "lm", "allocated_at_start": torch.cuda.memory_allocated()}
     reset_launches(ops)
-    try:
-        L.set_dtypes(torch.bfloat16, torch.bfloat16)
-        t0 = time.perf_counter()
-        out["qwen"] = dict(lm_qwen(torch, np, M, generate, TokenStream),
-                           s=time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        out["deepseek"] = dict(lm_deepseek(torch, np, M, generate,
-                                           TokenStream),
+    with L.float32_accumulation():
+        out["allow_bf16_reduced_precision_reduction"] = \
+            mm.allow_bf16_reduced_precision_reduction
+        out["allow_tf32"] = mm.allow_tf32
+        try:
+            L.set_dtypes(torch.bfloat16, torch.bfloat16)
+            t0 = time.perf_counter()
+            out["qwen"] = dict(lm_qwen(torch, np, M, generate, TokenStream),
                                s=time.perf_counter() - t0)
-        L.set_dtypes(torch.float32, torch.float32)
-        t0 = time.perf_counter()
-        out["smoke_configs"] = dict(lm_smoke_configs(torch, np, M,
-                                                     TokenStream),
-                                    s=time.perf_counter() - t0)
-        out["cli"] = lm_cli(torch)
-    finally:
-        (mm.allow_bf16_reduced_precision_reduction, mm.allow_tf32) = \
-            saved[:2]
-        L.set_dtypes(*saved[2:])
+            t0 = time.perf_counter()
+            out["deepseek"] = dict(lm_deepseek(torch, np, M, generate,
+                                               TokenStream),
+                                   s=time.perf_counter() - t0)
+            L.set_dtypes(torch.float32, torch.float32)
+            t0 = time.perf_counter()
+            out["smoke_configs"] = dict(lm_smoke_configs(torch, np, M,
+                                                         TokenStream),
+                                        s=time.perf_counter() - t0)
+            out["cli"] = lm_cli(torch)
+        finally:
+            L.set_dtypes(*saved)
     out["launches"] = read_launches(ops)
     assert not any(out["launches"].values()), out["launches"]
+    out["allocated_at_end"] = torch.cuda.memory_allocated()
+    return out
+
+
+def leaf_checksums(torch, adamw, tree) -> list:
+    """Each leaf's float64 sum, taken over ``adamw.pieces`` slices (no
+    whole-leaf temporary): a leaf whose sum changed moved."""
+    from repro_torch.pytree import leaves
+    return [float(sum(torch.sum(t[at].double()) for at in
+                      adamw.pieces(t.shape))) for t in leaves(tree)]
+
+
+@contextlib.contextmanager
+def recording_bag_backward(grad_ops, log: list):
+    """Records the inputs of every ``embedding_bag_backward`` call (the
+    token embedding's gradient: grad_out, idx, rows, dtype)."""
+    backward = grad_ops.embedding_bag_backward
+
+    def recorded(grad_out, idx, v, dtype, order=None):
+        log.append((grad_out, idx, v, dtype))
+        return backward(grad_out, idx, v, dtype, order=order)
+    grad_ops.embedding_bag_backward = recorded
+    try:
+        yield
+    finally:
+        grad_ops.embedding_bag_backward = backward
+
+
+def lm_batches(torch, vocab: int, n: int, b: int, s: int) -> list:
+    from repro_torch.data import TokenStream
+    stream = TokenStream(vocab, seed=1)
+    return [{k: torch.from_numpy(v).cuda() for k, v in
+             stream.batch(b, s).items()} for _ in range(n)]
+
+
+def lm_train_full(torch, np, ops, grad_ops) -> tuple:
+    """(a) of phase_lm_train: qwen2-7b's full width at LM_TRAIN_LAYERS
+    layers. Returns (its line, the step's embedding-gradient inputs)."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as M
+    from repro_torch.optim import adamw
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    full = get_arch(LM_ARCH).config
+    cfg = dataclasses.replace(full, n_layers=LM_TRAIN_LAYERS, remat="layer")
+    t0 = time.perf_counter()
+    params = M.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(LM_SEED), "cuda")
+    opt_state = adamw.init(params)
+    torch.cuda.synchronize()
+    n_params, tokens = cfg.params_count(), LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    out = {"arch": LM_ARCH, "n_layers": cfg.n_layers, "remat": cfg.remat,
+           "d_model": cfg.d_model, "vocab": cfg.vocab, "params": n_params,
+           "state_bytes": torch.cuda.memory_allocated(),
+           "init_s": time.perf_counter() - t0, "batch": LM_TRAIN_BATCH,
+           "seq": LM_TRAIN_SEQ, "opt": LM_TRAIN_OPT,
+           "reduced": {"n_layers": [full.n_layers, cfg.n_layers],
+                       "batch": [256, LM_TRAIN_BATCH]}}
+    opt_cfg = adamw.AdamWConfig(**LM_TRAIN_OPT)
+    batches = lm_batches(torch, cfg.vocab, LM_TRAIN_STEPS + 1,
+                         LM_TRAIN_BATCH, LM_TRAIN_SEQ)
+    before = leaf_checksums(torch, adamw, params)
+    steps, seen = [], []
+    for i, batch in enumerate(batches[:LM_TRAIN_STEPS]):
+        log = seen if i == LM_TRAIN_STEPS - 1 else []
+        with recording_bag_backward(grad_ops, log):
+            (res, syncs), wall, got = drive(torch, ops, lambda: count_syncs(
+                torch, lambda: M.train_step(cfg, opt_cfg, params, opt_state,
+                                            batch)))
+        assert got["embedding_bag_backward"] == 1 and \
+            sum(got.values()) == 1, got
+        m = res[2]
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        assert np.isfinite(loss) and np.isfinite(gnorm), (i, loss, gnorm)
+        steps.append({"s": wall, "loss": loss, "grad_norm": gnorm,
+                      "syncs": syncs,
+                      "launches": {k: c for k, c in got.items() if c}})
+    out["steps"] = steps
+    out["losses"] = [x["loss"] for x in steps]
+    out["host_syncs_per_step"] = [x["syncs"] for x in steps]
+    assert all(x["syncs"] == 0 for x in steps[1:]), \
+        (out["host_syncs_per_step"], dict(SYNC_SITES))
+    out["embedding_bag_backward_per_step"] = 1
+    step_s = statistics.median(x["s"] for x in steps[1:])
+    out["ms_per_step"] = step_s * 1e3
+    out["tokens_per_s"] = tokens / step_s
+    out["model_flops_per_step"] = 6 * n_params * tokens
+    out["model_flops_share"] = out["model_flops_per_step"] / step_s \
+        / H100_BF16_FLOPS
+    out["peak_flops"] = {"bfloat16_dense": H100_BF16_FLOPS,
+                         "source": "NVIDIA H100 SXM data sheet, 700 W"}
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    assert out["max_memory_allocated"] < LM_TRAIN_PEAK_LIMIT, out
+    after = leaf_checksums(torch, adamw, params)
+    out["leaves"] = len(before)
+    out["leaves_moved"] = sum(a != b for a, b in zip(before, after))
+    assert out["leaves_moved"] == len(before), out
+    out["profile"] = profile_call(
+        torch, lambda: M.train_step(cfg, opt_cfg, params, opt_state,
+                                    batches[-1]), "lm_train_step",
+        DLRM_PROFILE_TOP,
+        sums=dict(LM_PROFILE_SUMS, embedding_bag_backward="bag_backward_"))
+    # the profiled step's one call: its plan and runs kernels
+    out["embedding_bag_backward_in_step_ms"] = \
+        out["profile"]["sums"]["embedding_bag_backward"]["ms"]
+    (grad_out, idx, v, dtype), = seen
+    embed = (grad_out.detach().clone(), idx.clone(), v, dtype)
+    del params, opt_state, res, batches, seen, grad_out, idx
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, embed
+
+
+def grads_of(torch, L, M, cfg, params, batch) -> tuple:
+    loss, _, grads = L.value_and_grad(lambda p: M.loss_fn(cfg, p, batch),
+                                      params)
+    return loss, grads
+
+
+def lm_train_checks(torch, np, grad_ops) -> dict:
+    """(b) of phase_lm_train, at LM_TRAIN_CHECK_LAYERS layers of the full
+    width: the step repeated bit for bit, the embedding's gradient against
+    its plain version on the CPU copy, the three remat settings' bits and
+    peaks, the bfloat16 gradient against a float32 one."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.embedding_bag.ref import \
+        embedding_bag_backward_ref
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as M
+    from repro_torch.optim import adamw
+    from repro_torch.pytree import flatten_with_path, leaves, tree_map
+    cfg = dataclasses.replace(get_arch(LM_ARCH).config,
+                              n_layers=LM_TRAIN_CHECK_LAYERS, remat="layer")
+    out = {"n_layers": cfg.n_layers}
+    opt_cfg = adamw.AdamWConfig(**LM_TRAIN_OPT)
+    first, batch = lm_batches(torch, cfg.vocab, 2, LM_TRAIN_BATCH,
+                              LM_TRAIN_SEQ)
+    params = M.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(LM_SEED + 1), "cuda")
+    opt_state = adamw.init(params)
+    M.train_step(cfg, opt_cfg, params, opt_state, first)
+    # the step and the same step again from a copy of its state
+    again = tree_map(torch.clone, (params, opt_state))
+    _, _, mk = M.train_step(cfg, opt_cfg, params, opt_state, batch)
+    _, _, ma = M.train_step(cfg, opt_cfg, *again, batch)
+    assert torch.equal(mk["loss"], ma["loss"]), (mk, ma)
+    state = leaves((params, opt_state))
+    for a, b in zip(state, leaves(again)):
+        assert torch.equal(a, b)
+    out["equal_when_repeated"] = True
+    out["leaves_compared"] = len(state)
+    del again, opt_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the embedding's gradient against its plain version on the CPU copy;
+    # the remat settings' bits and peaks
+    runs, peaks = {}, {}
+    for remat in ("layer", "none", "dots"):
+        c = dataclasses.replace(cfg, remat=remat)
+        log = []
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with recording_bag_backward(grad_ops, log):
+            runs[remat] = grads_of(torch, L, M, c, params, batch)
+        torch.cuda.synchronize()
+        peaks[remat] = torch.cuda.max_memory_allocated() - base
+        if remat == "layer":
+            (grad_out, idx, v, dtype), = log
+            want = embedding_bag_backward_ref(grad_out.cpu(), idx.cpu(), v,
+                                              dtype)
+            out["embed_grad_equals_plain_on_cpu"] = bool(torch.equal(
+                runs[remat][1]["embed"].cpu(), want))
+            assert out["embed_grad_equals_plain_on_cpu"]
+            del grad_out, idx, want
+        del log
+    ref = [runs["layer"][0]] + leaves(runs["layer"][1])
+    for remat in ("none", "dots"):
+        got = [runs[remat][0]] + leaves(runs[remat][1])
+        assert all(torch.equal(a, b) for a, b in zip(got, ref)), remat
+    out["remat_equal_bits"] = True
+    out["remat_peak_bytes_over_state"] = peaks
+    loss_bf16, g_bf16 = runs["layer"]
+    del runs, ref, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the bfloat16 gradient against a float32 gradient of the same params
+    saved = L.PDTYPE, L.ADTYPE
+    L.set_dtypes(torch.float32, torch.float32)
+    try:
+        p32 = tree_map(lambda t: t.float(), params)
+        del params
+        loss_f32, g_f32 = grads_of(torch, L, M, cfg, p32, batch)
+    finally:
+        L.set_dtypes(*saved)
+    errs = {}
+    for (path, a), b in zip(flatten_with_path(g_bf16), leaves(g_f32)):
+        errs["/".join(path)] = float(torch.linalg.vector_norm(
+            a.float() - b) / torch.linalg.vector_norm(b))
+    worst = max(errs, key=errs.get)
+    out["bf16_vs_f32"] = {"bound": LM_GRAD_REL, "worst_leaf": worst,
+                          "worst_rel_l2": errs[worst], "rel_l2": errs,
+                          "loss_bf16": float(loss_bf16),
+                          "loss_f32": float(loss_f32)}
+    assert errs[worst] <= LM_GRAD_REL, out["bf16_vs_f32"]
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    del p32, g_f32, g_bf16
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_train_smoke_configs(torch, np) -> dict:
+    """(c) of phase_lm_train: each LM SMOKE_CONFIG at float32 (TF32 off),
+    and the two MoE ones on the capacity forms (routes dropped at the
+    default capacity factor): the loss and every gradient on the card
+    against the CPU from the same params, within LM_SMOKE_REL of each
+    leaf's largest |value|, every routing equal."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenStream
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as M
+    from repro_torch.pytree import flatten_with_path, tree_map
+    cases = [(arch, None) for arch in LM_SMOKE_ARCHS]
+    cases += [(arch, impl) for arch in LM_SMOKE_ARCHS
+              if get_arch(arch).smoke_config.n_experts
+              for impl in LM_TRAIN_MOE_IMPLS]
+    out = {}
+    for i, (arch, impl) in enumerate(cases):
+        cfg = get_arch(arch).smoke_config
+        if impl:
+            cfg = dataclasses.replace(cfg, moe_impl=impl)
+        t0 = time.perf_counter()
+        params = M.init_params(cfg, torch.Generator().manual_seed(i), "cpu")
+        batch = TokenStream(cfg.vocab, seed=i).batch(2, 16)
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda t: t.to(dev), params)
+            bt = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+            routes = []
+            with recording_routes(moe, routes):
+                loss, grads = grads_of(torch, L, M, cfg, p, bt)
+            runs[dev] = ({"loss": loss, **{"/".join(k): g for k, g in
+                                           flatten_with_path(grads)}},
+                         routes)
+        (want, want_routes), (got, got_routes) = runs["cpu"], runs["cuda"]
+        assert len(got_routes) == len(want_routes), arch
+        for j, (g, w) in enumerate(zip(got_routes, want_routes)):
+            assert torch.equal(g, w), (arch, impl, f"routing call {j}")
+        errs = {k: float((got[k].cpu() - w).abs().max())
+                / max(float(w.abs().max()), 1e-30) for k, w in want.items()}
+        worst = max(errs, key=errs.get)
+        assert errs[worst] <= LM_SMOKE_REL, (arch, impl, worst, errs[worst])
+        name = arch if impl is None else f"{arch}/{impl}"
+        out[name] = {"max_rel_err": errs[worst], "worst": worst,
+                     "routings": len(got_routes),
+                     "s": time.perf_counter() - t0}
+        if impl:
+            b, s = batch["tokens"].shape
+            cap = moe._capacity(s, cfg.top_k, cfg.n_experts, 1.25)
+            dropped = sum(int((moe._ranks_cumsum(
+                r.reshape(b, s * cfg.top_k), cfg.n_experts) >= cap).sum())
+                for r in want_routes)
+            out[name]["dropped_routes"] = dropped
+            assert dropped > 0, (name, "no route dropped")
+    return out
+
+
+def start_lm_train_cli(tmp, *extra) -> tuple:
+    """``python -m repro_torch.launch.train`` with LM_TRAIN_CLI's flags on
+    the card, in a child process."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *LM_TRAIN_CLI,
+           *extra]
+    return cmd, subprocess.Popen(cmd, env=env, cwd=ROOT,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+
+
+def phase_lm_train(torch, np, ops, shared, grad_ops) -> dict:
+    """LM training on the card (the module docstring's phase 2f): (a)
+    qwen2-7b's full width at LM_TRAIN_LAYERS layers, one 4,096-token
+    sequence a step, remat "layer": LM_TRAIN_STEPS ``transformer.train_step``
+    calls [embedding_bag_backward 1 a step: the token embedding's
+    gradient], timed, host syncs a step, finite losses and gradient norms,
+    every leaf moved, the peak below LM_TRAIN_PEAK_LIMIT, one more step
+    profiled; the step's embedding gradient alone (``time_segment_sum``).
+    (b) ``lm_train_checks`` at LM_TRAIN_CHECK_LAYERS layers. (c)
+    ``lm_train_smoke_configs``. (d) the train CLI in child processes
+    (LM_TRAIN_CLI; ``--compress int8``; ``--ckpt-dir`` then ``--resume``
+    to LM_TRAIN_CLI_RESUME_STEPS): the final loss below the first. GEMMs
+    accumulate in float32 (``layers.float32_accumulation``)."""
+    import gc
+    import tempfile
+    from repro_torch.models import layers as L
+    out = {"phase": "lm_train",
+           "allocated_at_start": torch.cuda.memory_allocated()}
+    saved = L.PDTYPE, L.ADTYPE
+    tmp = tempfile.mkdtemp(prefix="lm_train_cli_")
+    children = []
+    with L.float32_accumulation():
+        try:
+            L.set_dtypes(torch.bfloat16, torch.bfloat16)
+            t0 = time.perf_counter()
+            full, embed = lm_train_full(torch, np, ops, grad_ops)
+            out["full_width"] = dict(full, s=time.perf_counter() - t0)
+            # the CLI's processes run beside the rest of the phase (not
+            # beside (a), whose peak leaves the card little room)
+            t_cli = time.perf_counter()
+            plain = start_lm_train_cli(tmp, "--ckpt-dir", f"{tmp}/plain")
+            int8 = start_lm_train_cli(tmp, "--compress", "int8")
+            children += [plain, int8]
+            reset_launches(ops)
+            t0 = time.perf_counter()
+            grad_out, idx, v, dtype = embed
+            shared["lm_embed_timing"] = time_segment_sum(
+                torch, grad_ops, grad_out, idx.view(-1), v, dtype=dtype)
+            del grad_out, idx
+            del embed
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["embed_backward_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["check"] = dict(lm_train_checks(torch, np, grad_ops),
+                                s=time.perf_counter() - t0)
+            L.set_dtypes(torch.float32, torch.float32)
+            t0 = time.perf_counter()
+            out["smoke_configs"] = dict(lm_train_smoke_configs(torch, np),
+                                        s=time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            cli = {"plain": finish_train_cli(plain)}
+            resume = start_lm_train_cli(
+                tmp, "--ckpt-dir", f"{tmp}/plain", "--resume", "--steps",
+                str(LM_TRAIN_CLI_RESUME_STEPS))
+            children.append(resume)
+            cli["int8"] = finish_train_cli(int8)
+            cli["resume"] = finish_train_cli(resume)
+            assert "resumed from step 15" in cli["resume"]["stdout"], cli
+            for name in ("plain", "int8"):
+                assert cli[name]["final_below_first"], cli[name]
+            cli["s"] = time.perf_counter() - t0
+            cli["s_from_start"] = time.perf_counter() - t_cli
+            out["cli"] = cli
+        finally:
+            L.set_dtypes(*saved)
+            for _, proc in children:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            import shutil
+            shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = {k: sum(x["launches"].get(k, 0) for x in
+                              out["full_width"]["steps"]) for k in ops}
+    gc.collect()
+    torch.cuda.empty_cache()
     out["allocated_at_end"] = torch.cuda.memory_allocated()
     return out
 
@@ -4816,6 +5249,7 @@ def time_dense(torch, rec, launches: dict, reps: int) -> dict:
     ``library_int_mm_kernel_ms`` the ``_int_mm`` yardstick's the same
     way."""
     from repro_torch.kernels.triangle_dense.ref import triangle_count_ref
+    from repro_torch.models.layers import float32_accumulation
     a, b, m = rec.largest
     got = int(rec.orig(a, b, m))
     want = int(triangle_count_ref(a, b, m))
@@ -4827,9 +5261,9 @@ def time_dense(torch, rec, launches: dict, reps: int) -> dict:
                                                                      mm)))
     med_ms = cuda_ms(lambda: rec.orig(ma, mb, mm), reps)
     med_kernel_ms = graph_ms(torch, lambda: rec.orig(ma, mb, mm), reps)
-    torch.backends.cuda.matmul.allow_tf32 = False
     af, bf, mf = a.float(), b.float(), m.float()
-    f32_ms = cuda_ms(lambda: (mf * (af @ bf.T)).sum(), reps)
+    with float32_accumulation():
+        f32_ms = cuda_ms(lambda: (mf * (af @ bf.T)).sum(), reps)
     int_mm = int_mm_masked(torch, a, b, m)
     int_mm_ms = int_mm_kernel_ms = None
     if int_mm is not None:
@@ -5117,7 +5551,8 @@ def bag_bf16_kernel_rows(timing: dict, by_phase: dict) -> list:
     return rows
 
 
-PHASES = ("dryrun", "dlrm", "train", "gnn", "lm", "rmat", "clustered", "listing",
+PHASES = ("dryrun", "dlrm", "train", "gnn", "lm", "lm_train", "rmat",
+          "clustered", "listing",
           "skew", "fused", "query", "outofcore", "query_listing", "api", "shard", "serve",
           "embedding_bag")
 # the phases whose graphs and results a phase reuses
@@ -5147,7 +5582,7 @@ def main() -> int:
                     help="device, build and kernel checks only")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="main-path phases to run (default: all "
-                         "seventeen), "
+                         "eighteen), "
                          "with the phases they reuse (NEEDS)")
     ap.add_argument("--profile", action="store_true",
                     help="repeat each main-path count under "
@@ -5277,6 +5712,8 @@ def main() -> int:
             "train": lambda: phase_train(torch, np, ops, shared, grad_ops),
             "gnn": lambda: phase_gnn(torch, np, ops, shared, grad_ops),
             "lm": lambda: phase_lm(torch, np, ops, shared),
+            "lm_train": lambda: phase_lm_train(torch, np, ops, shared,
+                                               grad_ops),
         }
         runs = []
         for name in with_needs(args.phases.split(",")):
@@ -5315,11 +5752,13 @@ def main() -> int:
         if "bag_timing_bf16" in shared:
             kernels.extend(bag_bf16_kernel_rows(shared["bag_timing_bf16"],
                                                 by_phase))
-        if "bag_backward_timing" in shared or \
-                "gnn_segment_timing" in shared:
+        if any(k in shared for k in ("bag_backward_timing",
+                                     "gnn_segment_timing",
+                                     "lm_embed_timing")):
             kernels.append(bag_backward_kernel_row(
                 shared.get("bag_backward_timing"),
-                shared.get("gnn_segment_timing"), by_phase))
+                shared.get("gnn_segment_timing"),
+                shared.get("lm_embed_timing"), by_phase))
         for k in kernels:
             assert k["exact"], k
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start,

@@ -26,6 +26,12 @@ The reference differentiates ``jnp.take`` instead, and XLA scatter-adds
 the gradient in the table's type: bfloat16 for bfloat16 tables, where
 this sum is float32 rounded once (``PERF.md`` §6 records the departure).
 
+:func:`segment_rows` is the same sum for a gradient of one row a slot
+(L = 1: ``out[r] = Σ x[e]`` over ``seg[e] == r``), and :func:`gather_rows`
+is a row gather ``h[idx]`` whose backward is that ordered sum: the GNN's
+message passing and the LM's token embedding take their gradients through
+it, never through an unordered scatter.
+
 ``EmbeddingBagFunction`` (through :func:`embedding_bag_grad`) has the
 forward ``embedding_bag`` (the kernels on the card) and this backward, or
 with ``use_kernels=False`` the two plain versions on any device; an
@@ -44,9 +50,10 @@ from .. import _build
 from .ops import embedding_bag
 from .ref import embedding_bag_backward_ref, embedding_bag_ref
 
-__all__ = ["BACKWARD_LAUNCHES", "EmbeddingBagFunction", "LONG_RUN", "SPAN",
-           "embedding_bag_backward", "embedding_bag_backward_ref",
-           "embedding_bag_grad"]
+__all__ = ["BACKWARD_LAUNCHES", "EmbeddingBagFunction", "GatherFunction",
+           "LONG_RUN", "SPAN", "embedding_bag_backward",
+           "embedding_bag_backward_ref", "embedding_bag_grad", "gather_rows",
+           "segment_rows"]
 
 BACKWARD_LAUNCHES = _build.LaunchCounter()
 GRAD_DTYPES = (torch.float32, torch.bfloat16)
@@ -239,3 +246,56 @@ def embedding_bag_grad(table: torch.Tensor, idx: torch.Tensor, *,
     stable sort of ``idx.reshape(-1)`` (``embedding_bag_backward``), goes
     to the kernel's backward."""
     return EmbeddingBagFunction.apply(table, idx, use_kernels, order)
+
+
+def segment_rows(x: torch.Tensor, seg: torch.Tensor, n: int,
+                 order: Optional[Order] = None, *, use_kernels: bool = True,
+                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """(n, ...) rows ``out[r] = Σ x[e]`` over ``seg[e] == r``, for a 1-D
+    or 2-D float32 ``x`` and (E,) ids ``seg``, summed in float32 in ``e``
+    order and returned in ``dtype`` (``x``'s by default):
+    :func:`embedding_bag_backward` with L = 1 (the kernel on CUDA tensors,
+    on ``order`` where given) or, with ``use_kernels=False``, its plain
+    version."""
+    x2d = x.unsqueeze(1) if x.dim() == 1 else x
+    idx = seg.unsqueeze(1)
+    dtype = x.dtype if dtype is None else dtype
+    if use_kernels:
+        out = embedding_bag_backward(x2d, idx, n, dtype, order=order)
+    else:
+        out = embedding_bag_backward_ref(x2d, idx, n, dtype)
+    return out.squeeze(1) if x.dim() == 1 else out
+
+
+class GatherFunction(torch.autograd.Function):
+    """``h.index_select(0, idx)``; the backward is :func:`segment_rows` of
+    the output gradient (widened to float32) by ``idx``, in ``h``'s
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, h, idx, order, use_kernels):
+        ctx.save_for_backward(idx, *(order or ()))
+        ctx.rows, ctx.dtype, ctx.use_kernels = h.shape[0], h.dtype, \
+            use_kernels
+        return h.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None
+        idx, *order = ctx.saved_tensors
+        return (segment_rows(grad.float(), idx, ctx.rows,
+                             tuple(order) or None,
+                             use_kernels=ctx.use_kernels, dtype=ctx.dtype),
+                None, None, None)
+
+
+def gather_rows(h: torch.Tensor, idx: torch.Tensor,
+                order: Optional[Order] = None, *,
+                use_kernels: bool = True) -> torch.Tensor:
+    """``h[idx]`` for (E,) int32/int64 ``idx``, differentiable in ``h``:
+    its gradient is the ordered sum of the output gradient's rows by
+    ``idx`` (:func:`segment_rows`, on ``order``, the stable sort of
+    ``idx``, where given), so the scatter of a gather's gradient runs on
+    the kernel, in index order, with no atomics."""
+    return GatherFunction.apply(h, idx, order, use_kernels)

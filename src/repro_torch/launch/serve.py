@@ -7,8 +7,9 @@ non-greedy sampling draws from a seeded ``torch.Generator`` on the
 device. Under ``--smoke``, or on the CPU, params and activations are
 float32 (the reference's ``set_dtypes`` rule); on the card the bfloat16
 GEMMs accumulate in float32 with bfloat16 reduced-precision reductions
-and TF32 turned off, as the reference's ``preferred_element_type``
-asks.
+and TF32 turned off while it generates (``layers.float32_accumulation``,
+which restores the flags after), as the reference's
+``preferred_element_type`` asks.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke \\
       --batch 4 --prompt-len 64 --gen 32 [--torch-device cpu]
@@ -65,8 +66,6 @@ def main(argv=None):
     dev = resolve_torch_device(args.torch_device)
     if args.smoke or dev.type == "cpu":
         L.set_dtypes(torch.float32, torch.float32)
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     bundle = get_arch(args.arch)
     if bundle.family != "lm":
         ap.error(f"serve.py drives LM archs; {args.arch!r} is "
@@ -79,7 +78,8 @@ def main(argv=None):
     prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len))
 
     t0 = time.time()
-    toks = generate(cfg, params, prompts, args.gen)
+    with L.float32_accumulation():
+        toks = generate(cfg, params, prompts, args.gen)
     dt = time.time() - t0
     rate = args.batch * args.gen / dt
     print(f"generated {toks.shape} in {dt:.2f}s ({rate:.1f} tok/s) "

@@ -4,15 +4,17 @@ restart, the straggler watchdog, optional gradient compression.
 The port of ``src/repro/launch/train.py``, with the same flags and printed
 lines, plus ``--torch-device`` (default ``cuda``, which raises without a
 card; ``cpu`` runs on the CPU). A step is ``loss_fn``'s gradient through
-every param, then ``optim.adamw.apply``. Two families train here:
+every param, then ``optim.adamw.apply``. Every family trains here:
 ``recsys`` (``dlrm-mlperf``: the tables' gradient through the lookup's
-backward kernel on the card) and ``gnn`` (``gcn-cora``, ``gin-tu``,
+backward kernel on the card), ``gnn`` (``gcn-cora``, ``gin-tu``,
 ``schnet``, ``graphcast`` at ``d_in=32, d_out=5`` on the reference's fixed
 512-node random graph: every message-passing sum on the sorted-sum
-kernel). The
-``lm`` archs serve (``launch/serve.py``) but do not train in the port
-yet: the CLI raises ``KeyError`` naming the arch. Under ``--smoke``, or on the CPU, params and
-activations are float32 (the reference's ``set_dtypes`` rule).
+kernel) and ``lm`` (the five transformers on ``TokenStream(vocab,
+seed=1)`` batches of ``--batch`` x ``--seq``; the token embedding's
+gradient on the sorted-sum kernel, every GEMM accumulating in float32:
+``layers.float32_accumulation``). Under ``--smoke``, or on the CPU,
+params and activations are float32 (the reference's ``set_dtypes``
+rule).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-mlperf \\
@@ -21,11 +23,14 @@ Examples:
       --smoke --steps 30 --compress int8 --torch-device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch gcn-cora \\
       --smoke --steps 30 --torch-device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b \\
+      --smoke --steps 15 --batch 4 --seq 64 --torch-device cpu
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 from functools import partial
 
@@ -48,9 +53,18 @@ def main(argv=None):
     ap.add_argument("--torch-device", default="cuda")
     args = ap.parse_args(argv)
 
+    from repro_torch.configs import get_arch
+    from repro_torch.models import layers as L
+
+    bundle = get_arch(args.arch)
+    with (L.float32_accumulation() if bundle.family == "lm"
+          else contextlib.nullcontext()):
+        return _train(args, bundle)
+
+
+def _train(args, bundle):
     import torch
 
-    from repro_torch.configs import get_arch
     from repro_torch.core.engine import resolve_torch_device
     from repro_torch.models import layers as L
     from repro_torch.optim import adamw
@@ -61,16 +75,19 @@ def main(argv=None):
     if args.smoke or dev.type == "cpu":
         L.set_dtypes(torch.float32, torch.float32)
 
-    bundle = get_arch(args.arch)
-    if bundle.family not in ("recsys", "gnn"):
-        raise KeyError(f"arch {args.arch!r}: family {bundle.family!r} "
-                       "does not train in repro_torch")
     cfg = bundle.smoke_config if args.smoke else bundle.config
     opt_cfg = adamw.AdamWConfig(lr=args.lr, total_steps=max(args.steps, 10),
                                 warmup_steps=max(2, args.steps // 10))
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    if bundle.family == "gnn":
+    if bundle.family == "lm":
+        from repro_torch.data.tokens import TokenStream
+        from repro_torch.models import transformer as M
+        params = M.init_params(cfg, gen, device=dev)
+        stream = TokenStream(cfg.vocab, seed=1)
+        batches = (stream.batch(args.batch, args.seq)
+                   for _ in range(10**9))
+    elif bundle.family == "gnn":
         import dataclasses
 
         from repro_torch.data.graphs import make_gnn_batch, random_graph

@@ -164,26 +164,12 @@ def param_specs(cfg: GNNConfig):
 # message passing: ordered segment sums and gathers
 # ---------------------------------------------------------------------------
 
-def _sum_rows(x: torch.Tensor, seg: torch.Tensor, n: int,
-              order: Optional[Order], use_kernels: bool) -> torch.Tensor:
-    """(n, ...) rows ``out[v] = Σ x[e]`` over ``seg[e] == v``, for a 1-D
-    or 2-D ``x``: the kernel's wrapper (the plain version on CPU tensors)
-    or, with ``use_kernels=False``, the plain version."""
-    x2d = x.unsqueeze(1) if x.dim() == 1 else x
-    idx = seg.unsqueeze(1)
-    if use_kernels:
-        out = bag_grad.embedding_bag_backward(x2d, idx, n, x.dtype,
-                                              order=order)
-    else:
-        out = bag_grad.embedding_bag_backward_ref(x2d, idx, n, x.dtype)
-    return out.squeeze(1) if x.dim() == 1 else out
-
-
 class _SegmentSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, seg, n, order, use_kernels):
         ctx.save_for_backward(seg)
-        return _sum_rows(x, seg, n, order, use_kernels)
+        return bag_grad.segment_rows(x, seg, n, order,
+                                     use_kernels=use_kernels)
 
     @staticmethod
     def backward(ctx, grad):
@@ -191,22 +177,6 @@ class _SegmentSum(torch.autograd.Function):
             return None, None, None, None, None
         seg, = ctx.saved_tensors
         return grad.index_select(0, seg), None, None, None, None
-
-
-class _Gather(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, h, idx, order, use_kernels):
-        ctx.save_for_backward(idx, *(order or ()))
-        ctx.rows, ctx.use_kernels = h.shape[0], use_kernels
-        return h.index_select(0, idx)
-
-    @staticmethod
-    def backward(ctx, grad):
-        if not ctx.needs_input_grad[0]:
-            return None, None, None, None
-        idx, *order = ctx.saved_tensors
-        return (_sum_rows(grad, idx, ctx.rows, tuple(order) or None,
-                          ctx.use_kernels), None, None, None)
 
 
 def segment_sum(x: torch.Tensor, seg: torch.Tensor, n: int,
@@ -227,8 +197,9 @@ def gather(h: torch.Tensor, idx: torch.Tensor,
     """``h[idx]`` (``index_select`` of rows), differentiable in ``h``: its
     backward is :func:`segment_sum` of the output gradient by ``idx`` (on
     ``order``, the stable sort of ``idx``), so the scatter of a gather's
-    gradient runs on the kernel too, in index order."""
-    return _Gather.apply(h, idx, order, use_kernels)
+    gradient runs on the kernel too, in index order
+    (``bag_grad.gather_rows``, which the LM's token embedding shares)."""
+    return bag_grad.gather_rows(h, idx, order, use_kernels=use_kernels)
 
 
 def edge_orders(batch) -> Dict[str, Order]:

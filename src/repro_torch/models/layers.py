@@ -14,8 +14,9 @@ Conventions (the reference's):
     logits), :func:`mm_as` rounds it once to the activation dtype. On
     CUDA that is cuBLAS with a float32 accumulator (``out_dtype=float32``,
     or a bfloat16 GEMM with bfloat16 reduced-precision reductions off:
-    ``launch/serve.py`` turns them off); on the CPU the operands are
-    widened to float32, which is exact.
+    :func:`float32_accumulation`, which the serve and train CLIs hold);
+    on the CPU the operands are widened to float32, which is exact. Its
+    gradient is two more such products (``_ProductF32``).
   * attention masks with ``finfo(float32).min``, never ``-inf``.
   * a model has ``param_shapes(cfg) -> {name: (shape, dtype)}``, a tree
     of nested dicts, used both by real init (``materialize``) and by the
@@ -27,6 +28,7 @@ Conventions (the reference's):
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -144,18 +146,59 @@ class ParamTree(torch.nn.Module):
 # products accumulated in float32
 # ---------------------------------------------------------------------------
 
-def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` (2-D, or 3-D batched) accumulated in float32, returned
-    in float32: the reference's ``preferred_element_type=float32`` kept
-    without a cast. On CUDA a bfloat16 pair goes to cuBLAS with
+def _product(a: torch.Tensor, b: torch.Tensor, dtype) -> torch.Tensor:
+    """``a @ b`` (2-D, or 3-D batched) accumulated in float32 and rounded
+    once to ``dtype``, outside autograd. A float32 pair is one float32
+    GEMM; on CUDA a pair of ``dtype`` is one GEMM in it (cuBLAS
+    accumulates in float32), any other pair is cuBLAS with
     ``out_dtype=float32``; on the CPU, which has no kernel for that, the
     operands are widened (exact)."""
     mm = torch.mm if a.dim() == 2 else torch.bmm
+    if a.dtype == b.dtype and (a.dtype == torch.float32
+                               or a.is_cuda and a.dtype == dtype):
+        out = mm(a, b)
+    elif a.is_cuda:
+        out = mm(a, b, out_dtype=torch.float32)
+    else:
+        out = mm(a.float(), b.float())
+    return out.to(dtype)
+
+
+class _ProductF32(torch.autograd.Function):
+    """:func:`mm_f32` of a pair that is not all float32. Forward: the
+    float32 product. Backward: ``grad_a = g @ b^T`` and ``grad_b = a^T @
+    g``, each with the float32 cotangent ``g`` rounded to the other
+    operand's dtype, accumulated in float32 and returned in its own
+    operand's dtype: for a bfloat16 pair, two bfloat16 GEMMs with float32
+    accumulation. (``torch.mm(..., out_dtype=float32)`` itself has no
+    derivative.)"""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _product(a, b, torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = _product(g.to(b.dtype), b.transpose(-1, -2), a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = _product(a.transpose(-1, -2), g.to(a.dtype), b.dtype)
+        return ga, gb
+
+
+def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (2-D, or 3-D batched) accumulated in float32, returned
+    in float32: the reference's ``preferred_element_type=float32`` kept
+    without a cast. A float32 pair is a plain GEMM; any other pair goes
+    through ``_ProductF32`` (cuBLAS with ``out_dtype=float32`` on CUDA,
+    widened operands on the CPU), whose backward is two GEMMs accumulating
+    in float32."""
     if a.dtype == b.dtype == torch.float32:
-        return mm(a, b)
-    if a.is_cuda:
-        return mm(a, b, out_dtype=torch.float32)
-    return mm(a.float(), b.float())
+        return torch.mm(a, b) if a.dim() == 2 else torch.bmm(a, b)
+    return _ProductF32.apply(a, b)
 
 
 def mm_as(a: torch.Tensor, b: torch.Tensor, dtype) -> torch.Tensor:
@@ -167,6 +210,22 @@ def mm_as(a: torch.Tensor, b: torch.Tensor, dtype) -> torch.Tensor:
     if a.dtype == b.dtype == dtype and (a.is_cuda or dtype == torch.float32):
         return torch.mm(a, b) if a.dim() == 2 else torch.bmm(a, b)
     return mm_f32(a, b).to(dtype)
+
+
+@contextlib.contextmanager
+def float32_accumulation():
+    """Within it, cuBLAS accumulates every GEMM in float32 and rounds once,
+    as the reference's ``preferred_element_type=float32`` asks: bfloat16
+    reduced-precision reductions and TF32 off. The flags are the
+    process's; they are restored on exit."""
+    mm = torch.backends.cuda.matmul
+    saved = mm.allow_bf16_reduced_precision_reduction, mm.allow_tf32
+    mm.allow_bf16_reduced_precision_reduction = False
+    mm.allow_tf32 = False
+    try:
+        yield
+    finally:
+        mm.allow_bf16_reduced_precision_reduction, mm.allow_tf32 = saved
 
 
 def linear(x: torch.Tensor, w: torch.Tensor, dtype=None) -> torch.Tensor:
@@ -315,6 +374,23 @@ def gqa_attention(p: Dict[str, torch.Tensor], x: torch.Tensor,
     return y, None
 
 
+def _scores(lg: torch.Tensor, m: torch.Tensor, *, add=None, mul=None,
+            div=None) -> torch.Tensor:
+    """The float32 attention scores ``((lg + add) * mul) / div`` (each
+    step where given), masked with ``NEG`` outside ``m``. Without autograd
+    (serving) they are taken in place, so a prefill holds one score buffer;
+    under autograd out of place, since remat ``"dots"`` keeps the products
+    as computed."""
+    inplace = not lg.requires_grad
+    if add is not None:
+        lg = lg.add_(add) if inplace else lg + add
+    if mul is not None:
+        lg = lg.mul_(mul) if inplace else lg * mul
+    if div is not None:
+        lg = lg.div_(div) if inplace else lg / div
+    return lg.masked_fill_(~m, NEG) if inplace else lg.masked_fill(~m, NEG)
+
+
 def _sdpa(q, k, v, n_heads, n_kv, mask, q_chunk: Optional[int] = None):
     """Grouped scaled dot-product attention; float32 logits and softmax.
 
@@ -348,8 +424,8 @@ def _sdpa_core(q, k, v, g, dh, m):
     s = k.shape[1]
     qm = q.permute(0, 2, 3, 1, 4).reshape(b * n_kv, g * qc, dh)
     km = k.permute(0, 2, 3, 1).reshape(b * n_kv, dh, s)
-    logits = mm_f32(qm, km).view(b, n_kv, g, qc, s)
-    logits.div_(math.sqrt(dh)).masked_fill_(~m, NEG)
+    logits = _scores(mm_f32(qm, km).view(b, n_kv, g, qc, s), m,
+                     div=math.sqrt(dh))
     w = torch.softmax(logits, dim=-1).to(q.dtype)
     del logits
     vm = v.permute(0, 2, 1, 3).reshape(b * n_kv, s, dh)
@@ -421,10 +497,9 @@ def mla_attention(p, x, positions, n_heads, q_lora, kv_lora, qk_nope,
         qc = qn.shape[1]
         lg = mm_f32(qn.permute(0, 2, 1, 3).reshape(b * n_heads, qc, qk_nope),
                     k_nope).view(b, n_heads, qc, skv)
-        lg.add_(mm_f32(qr.permute(0, 2, 1, 3).reshape(b, n_heads * qc,
-                                                      qk_rope),
-                       k_rope_t).view(b, n_heads, qc, skv))
-        lg.mul_(scale).masked_fill_(~m, NEG)
+        lg = _scores(lg, m, add=mm_f32(
+            qr.permute(0, 2, 1, 3).reshape(b, n_heads * qc, qk_rope),
+            k_rope_t).view(b, n_heads, qc, skv), mul=scale)
         w = torch.softmax(lg, dim=-1).to(x.dtype)
         del lg
         o = mm_as(w.view(b * n_heads, qc, skv), v, x.dtype)

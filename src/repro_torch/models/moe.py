@@ -21,7 +21,10 @@ of the reference's scatter-add (``moe.py:116-121``, ``:189-194``): top-k
 rank order for the gathered form, ascending expert id for the sorted
 form (its updates come in sorted order). They are gathered per token and
 added in that order, not with ``index_add_``, which adds with atomics on
-the card; so a forward gives the same bits on every run.
+the card; so a forward gives the same bits on every run, and so does a
+backward: the dispatch reads x through an ``expand`` (its gradient a
+fixed-order sum over each token's k routes), every other gather of the
+gradient's path either reads each position once or adds only zeros.
 """
 
 from __future__ import annotations
@@ -138,7 +141,6 @@ def _capacity_ffn(p, x, top_k: int, capacity_factor: float,
     probs, top_w, top_i = route(p, x, top_k)                    # (B, S, ·)
     flat_e = top_i.reshape(b, s * top_k)                        # (B, S·k)
     flat_w = top_w.reshape(b, s * top_k)
-    flat_t = torch.arange(s, device=x.device).repeat_interleave(top_k)
     pos = _ranks_sorted(flat_e) if sorted_ranks \
         else _ranks_cumsum(flat_e, n_e)
     keep = pos < cap
@@ -146,9 +148,13 @@ def _capacity_ffn(p, x, top_k: int, capacity_factor: float,
     rows = torch.arange(b, device=x.device)[:, None]
 
     # dispatch: every slot is written once, but the drop row n_e·cap,
-    # which is thrown away
+    # which is thrown away. Entry t·k + r is token t's r-th route, so the
+    # routed rows are x repeated k times along S (the reference's
+    # x[flat_t]); as an expand, their gradient is each token's k rows
+    # summed in a fixed order, not an accumulating index-put
     ge = x.new_zeros((b, n_e * cap + 1, d))
-    ge[rows, slot] = x[:, flat_t]
+    ge[rows, slot] = x[:, :, None, :].expand(b, s, top_k, d).reshape(
+        b, s * top_k, d)
     ge = ge[:, :-1].reshape(b, n_e, cap, d)
     act = _expert_act(p, ge.transpose(0, 1).reshape(n_e, b * cap, d),
                       x.dtype)
@@ -157,7 +163,10 @@ def _capacity_ffn(p, x, top_k: int, capacity_factor: float,
         b, n_e * cap, d)
 
     # combine: each token's k contributions, added into zeros in the
-    # reference's update order, rounded at every add
+    # reference's update order, rounded at every add. A dropped entry
+    # reads the clamped last slot with weight 0, so in the gradient it
+    # adds only zeros there, and the sum at that slot is its one kept
+    # entry's (or zero) in any order
     w = torch.where(keep, flat_w, 0.0)[..., None].to(flat_out.dtype)
     contrib = (w * flat_out[rows, slot.clamp(max=n_e * cap - 1)]) \
         .view(b, s, top_k, d)

@@ -6,15 +6,31 @@ dense first layer), then ``pattern`` repeated ``n_repeats`` times
 (Llama-4's interleaved MoE / chunked-local / NoPE layers), each pattern
 position's params stacked along a leading axis (``block{i}``). The
 reference scans over that axis with ``lax.scan``; the port walks it in a
-Python loop, each layer a view of the stacked tensors. The reference's
-``constrain`` calls (the identity off a mesh) are left out, and so are
-its ``scan_unroll`` and ``remat`` fields, which tune the scan and the
-gradient's rematerialisation.
+Python loop over one ``unbind(0)`` of each stacked tensor a call (so a
+layer's gradient is one slice of one ``stack``, not a zeroed copy of the
+whole stack a layer). The reference's ``constrain`` calls (the identity
+off a mesh) are left out, and so is its ``scan_unroll`` field, which
+tunes the scan.
+
+``remat`` is the reference's (``transformer.py:207-211``), on the
+repeated blocks only, never the prefix, and only where autograd records
+the forward: ``"layer"`` keeps each layer's input and recomputes the
+layer in the backward (``torch.utils.checkpoint``, non-reentrant),
+``"dots"`` keeps the outputs of the layer's GEMMs (``aten.mm`` /
+``aten.bmm``) and recomputes the rest (selective checkpointing),
+``"none"`` keeps everything. The three give the same bits.
+
+The token embedding's gradient is the ordered float32 sum of the
+embedded rows' gradients by token id (``bag_grad.gather_rows``: the
+sorted-sum kernel ``embedding_bag_backward`` with L = 1 on the card),
+rounded once to the table's dtype, never an unordered scatter.
 
 API (functional, params a nested dict of tensors):
   param_shapes(cfg) / init_params(cfg, generator, device) / param_specs(cfg)
   forward(cfg, params, tokens)                  -> (logits, aux)
   loss_fn(cfg, params, batch)                   -> (loss, metrics)
+  train_step(cfg, opt_cfg, params, opt_state, batch)
+                                                -> (params, opt_state, metrics)
   prefill(cfg, params, tokens, max_len)         -> (cache, last_logits)
   decode_step(cfg, params, cache, token, pos)   -> (logits, cache)
 and the ``LM`` module over them.
@@ -28,14 +44,18 @@ it first.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.core.engine import resolve_torch_device
+from repro_torch.kernels.embedding_bag import grad as bag_grad
+from repro_torch.optim import adamw
 from repro_torch.pytree import leaves, tree_map
 
 from . import layers as L
@@ -77,6 +97,7 @@ class TransformerConfig:
     qk_rope: int = 0
     v_head: int = 0
     tie_embeddings: bool = False
+    remat: str = "layer"                # "none" | "layer" | "dots"
     attn_q_chunk: Optional[int] = None  # blockwise attention query chunk
 
     @property
@@ -161,20 +182,49 @@ def param_specs(cfg: TransformerConfig):
 # forward
 # ---------------------------------------------------------------------------
 
-def _at(tree, r: Optional[int]):
-    """Layer r of a stacked block's tree (views), or a prefix layer's tree
-    itself (r None)."""
-    return tree if r is None else tree_map(lambda a: a[r], tree)
+def _unstack(tree, n: int) -> list:
+    """The n layers of a stacked block's tree, each a tree of views, from
+    one ``unbind(0)`` of every leaf."""
+    parts = tree_map(lambda a: a.unbind(0), tree)
+    return [tree_map(lambda t: t[r], parts,
+                     is_leaf=lambda x: isinstance(x, tuple))
+            for r in range(n)]
 
 
-def _layers(cfg: TransformerConfig):
-    """(name, r, spec) in execution order: the prefix (r None), then the
-    pattern repeated, layer r of each stacked block."""
+def _layers(cfg: TransformerConfig, *trees):
+    """(spec, repeated, layer r of each tree) in execution order: the
+    prefix (``prefix{i}``'s trees themselves), then the pattern repeated
+    (``block{i}``'s stacked trees, unstacked once)."""
     for i, spec in enumerate(cfg.prefix):
-        yield f"prefix{i}", None, spec
+        yield (spec, False, *(t[f"prefix{i}"] for t in trees))
+    blocks = [[_unstack(t[f"block{i}"], cfg.n_repeats) for t in trees]
+              for i in range(len(cfg.pattern))]
     for r in range(cfg.n_repeats):
         for i, spec in enumerate(cfg.pattern):
-            yield f"block{i}", r, spec
+            yield (spec, True, *(b[r] for b in blocks[i]))
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """remat ``"dots"``'s policy: keep the outputs of the GEMMs, recompute
+    every other op (the reference's ``checkpoint_dots``)."""
+    if getattr(op, "overloadpacket", None) in (torch.ops.aten.mm,
+                                               torch.ops.aten.bmm):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: TransformerConfig, fn):
+    """``fn`` (a repeated layer) under ``cfg.remat`` where autograd records
+    the forward (module docstring)."""
+    if cfg.remat not in ("none", "layer", "dots"):
+        raise ValueError(f"remat {cfg.remat!r}: none | layer | dots")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, **kw)
 
 
 def _apply_layer(cfg: TransformerConfig, spec: LayerSpec, p, x, positions,
@@ -208,10 +258,13 @@ def _apply_layer(cfg: TransformerConfig, spec: LayerSpec, p, x, positions,
 
 
 def _embed(params, tokens) -> torch.Tensor:
-    """Token ids (an array or a tensor, (B, S)) -> (B, S, D) activations."""
+    """Token ids (an array or a tensor, (B, S)) -> (B, S, D) activations;
+    the table's gradient is the ordered sum by token id
+    (``bag_grad.gather_rows``)."""
     table = params["embed"]
     tokens = torch.as_tensor(tokens, device=table.device)
-    return table[tokens].to(L.ADTYPE)
+    rows = bag_grad.gather_rows(table, tokens.reshape(-1))
+    return rows.view(*tokens.shape, -1).to(L.ADTYPE)
 
 
 def _positions(b: int, s: int, device, start: int = 0) -> torch.Tensor:
@@ -232,9 +285,11 @@ def forward(cfg: TransformerConfig, params, tokens, last_only: bool = False):
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for name, r, spec in _layers(cfg):
-        x, aux, _ = _apply_layer(cfg, spec, _at(params[name], r), x,
-                                 positions)
+    for spec, repeated, p in _layers(cfg, params):
+        fn = functools.partial(_apply_layer, cfg, spec)
+        if repeated:
+            fn = _remat(cfg, fn)
+        x, aux, _ = fn(p, x, positions)
         aux_total = aux_total + aux
     return _logits(cfg, params, x[:, -1, :] if last_only else x), aux_total
 
@@ -249,6 +304,17 @@ def loss_fn(cfg: TransformerConfig, params, batch: Dict[str, Any]):
     nll = torch.mean(logz - gold)
     loss = nll + 0.01 * aux
     return loss, {"nll": nll, "aux": aux}
+
+
+def train_step(cfg: TransformerConfig, opt_cfg: adamw.AdamWConfig, params,
+               opt_state: adamw.OptState, batch):
+    """The reference's LM step (``src/repro/launch/train.py:93-98``): the
+    gradient of ``loss_fn`` through every param, then ``adamw.apply``, in
+    place. Returns (params, opt_state, {"loss", "grad_norm", "lr"})."""
+    loss, _, grads = L.value_and_grad(lambda p: loss_fn(cfg, p, batch),
+                                      params)
+    params, opt_state, om = adamw.apply(opt_cfg, params, grads, opt_state)
+    return params, opt_state, {"loss": loss, **om}
 
 
 # ---------------------------------------------------------------------------
@@ -298,10 +364,9 @@ def decode_step(cfg: TransformerConfig, params, cache, token, pos):
     pos = int(pos)
     x = _embed(params, token)
     positions = _positions(x.shape[0], 1, x.device, pos)
-    for name, r, spec in _layers(cfg):
-        x, _, _ = _apply_layer(cfg, spec, _at(params[name], r), x, positions,
-                               kv_cache=_cache_tuple(cfg, _at(cache[name], r)),
-                               cache_len=pos)
+    for spec, _, p, c in _layers(cfg, params, cache):
+        x, _, _ = _apply_layer(cfg, spec, p, x, positions,
+                               kv_cache=_cache_tuple(cfg, c), cache_len=pos)
     return _logits(cfg, params, x[:, -1, :]), cache
 
 
@@ -338,9 +403,8 @@ def prefill(cfg: TransformerConfig, params, tokens,
     max_len = max_len or s
     positions = _positions(b, s, x.device)
     cache = init_cache(cfg, b, max_len, x.device)
-    for name, r, spec in _layers(cfg):
-        p = _at(params[name], r)
-        for c, new in zip(_cache_tuple(cfg, _at(cache[name], r)),
+    for spec, _, p, layer_cache in _layers(cfg, params, cache):
+        for c, new in zip(_cache_tuple(cfg, layer_cache),
                           _project_kv(cfg, spec, p, x, positions)):
             c[:, :s] = new
         x, _, _ = _apply_layer(cfg, spec, p, x, positions)
@@ -373,8 +437,18 @@ class LM(nn.Module):
     def decode_step(self, cache, token, pos):
         return decode_step(self.cfg, self.param_tree(), cache, token, pos)
 
+    def train_step(self, opt_cfg: adamw.AdamWConfig,
+                   opt_state: adamw.OptState, batch):
+        """One :func:`train_step` on the module's params, in place; returns
+        (opt_state, metrics). ``opt_state`` is ``adamw.init`` of
+        ``param_tree()``, on its device."""
+        _, opt_state, metrics = train_step(self.cfg, opt_cfg,
+                                           self.param_tree(), opt_state,
+                                           batch)
+        return opt_state, metrics
+
 
 __all__ = ["LM", "LayerSpec", "TransformerConfig", "cache_shapes",
            "cache_specs", "decode_step", "forward", "init_cache",
            "init_params", "loss_fn", "param_shapes", "param_specs",
-           "prefill"]
+           "prefill", "train_step"]

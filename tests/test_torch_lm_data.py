@@ -113,13 +113,12 @@ def test_all_archs_registered():
 
 # Fields of the reference's TransformerConfig that the port leaves out:
 # ``scan_unroll`` unrolls the ``lax.scan`` over layers, which the port runs
-# as a Python loop, and ``remat`` picks what the gradient rematerialises,
-# which serving never takes (LM training is a later slice).
-REF_ONLY_FIELDS = ("scan_unroll", "remat")
+# as a Python loop. (``remat`` is compared: the port's training honours it.)
+REF_ONLY_FIELDS = ("scan_unroll",)
 
 
 def _ref_fields(cfg):
-    assert not cfg.scan_unroll and cfg.remat in ("none", "layer", "dots")
+    assert not cfg.scan_unroll
     d = dataclasses.asdict(cfg)
     for k in REF_ONLY_FIELDS:
         d.pop(k)

@@ -132,6 +132,75 @@ def test_global_norm_and_clip_match_reference():
                 np.testing.assert_array_equal(pc[k].numpy(), g[k])
 
 
+@pytest.mark.parametrize("shape,chunk", [((8, 4), 32), ((8, 4), 12),
+                                         ((4, 6, 5), 7), ((4, 6, 5), 40),
+                                         ((3, 2, 9), 4), ((11,), 3), ((), 1)])
+def test_pieces_cover_every_element_once(shape, chunk):
+    seen = torch.zeros(shape, dtype=torch.int64)
+    at = A.pieces(shape, chunk)
+    for i in at:
+        assert seen[i].numel() <= max(chunk, 1)
+        seen[i] += 1
+    assert bool((seen == 1).all())
+    assert (at == [()]) == (seen.numel() <= chunk)
+
+
+def _whole_leaf_apply(cfg, params, grads, state):
+    """``apply`` as it was before leaves were sliced: the clipped copy of
+    every gradient first, then each leaf's update on the whole leaf."""
+    with torch.no_grad():
+        norm = torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
+                              for x in leaves(grads)))
+        scale = torch.clamp(cfg.clip_norm / (norm + 1e-9), max=1.0)
+        grads = [(g.to(torch.float32) * scale).to(g.dtype)
+                 for g in leaves(grads)]
+        state.step.add_(1)
+        lr = A.schedule(cfg, state.step)
+        bc1, bc2 = A.bias_corrections(cfg, state.step)
+        b1, b2 = cfg.beta1, cfg.beta2
+        for p, g, m, v in zip(leaves(params), grads, leaves(state.m),
+                              leaves(state.v)):
+            gf = g.to(torch.float32)
+            m.mul_(b1).add_((1 - b1) * gf)
+            v.mul_(b2).add_((1 - b2) * gf * gf)
+            delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+            if cfg.weight_decay and p.dim() >= 2:
+                delta = delta + cfg.weight_decay * p.to(torch.float32)
+            p.copy_(p.to(torch.float32) - lr * delta)
+    return norm
+
+
+@pytest.mark.parametrize("chunk", [None, 7, 24])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sliced_update_gives_the_whole_leaf_bits(monkeypatch, dtype, chunk):
+    """The sliced update against the whole-leaf one, bit for bit in every
+    param and moment over three steps: at the default ``CHUNK`` (every
+    leaf here, and every DLRM and GNN leaf, is one piece), and at chunks
+    that cut leaves into rows and rows into slices, with a clip norm the
+    gradients stay under (the slices' sums of squares add in another
+    order, so the norm may differ in its last bits; its scale is then 1
+    in both)."""
+    if chunk is not None:
+        monkeypatch.setattr(A, "CHUNK", chunk)
+    shapes = (("w", (8, 4)), ("b", (4,)), ("a", (3, 2, 9)), ("s", ()))
+    kw = dict(lr=1e-2, warmup_steps=1) if chunk is None else \
+        dict(lr=1e-2, warmup_steps=1, clip_norm=1e6)
+    cfg = A.AdamWConfig(**kw)
+    got, want = _port(_tree(4, shapes), dtype), _port(_tree(4, shapes), dtype)
+    go, wo = A.init(got), A.init(want)
+    for i in range(3):
+        g = _port(_tree(30 + i, shapes), dtype)
+        _, _, m = A.apply(cfg, got, g, go)
+        norm = _whole_leaf_apply(cfg, want, g, wo)
+        if chunk is None:
+            assert torch.equal(m["grad_norm"], norm)
+        else:
+            np.testing.assert_allclose(float(m["grad_norm"]), float(norm),
+                                       rtol=1e-6)
+    for a, b in zip(leaves((got, go)), leaves((want, wo))):
+        assert torch.equal(a, b)
+
+
 def test_trees_walk_in_the_reference_order():
     tree = ({"b": 1, "a": [2, {"z": 3, "y": 4}]},
             A.OptState(step=5, m={"k": 6}, v=None))
