@@ -144,16 +144,37 @@ Phases (the kernels each main-path phase must launch in brackets):
                   --steps 15 --batch 4 --seq 64``, plain with a
                   checkpoint, ``--compress int8``, then ``--resume`` to
                   20): the final loss below the first.
-                  dryrun, dlrm, train, gnn, lm and lm_train run first, on
-                  an empty card.
+ 2g. launch     — the launch layer (``repro_torch.launch.steps``, the
+                  dry run's model cells, ``launch.perf``): (a)
+                  ``build_cell`` and the single / multi records of all 80
+                  (cell x production grid) pairs, per-device bytes <=
+                  whole bytes <= per-device bytes x n_chips; (b)
+                  ``run_cell(..., "card")`` at full shape, the launch
+                  counts zeroed before each cell and read after it:
+                  dlrm-mlperf serve_p99 [embedding_bag "dma" 11 and
+                  "onehot" 15 a step; scores within DLRM_SCORE_ATOL of
+                  use_kernels=False], gcn-cora full_graph_sm and graphcast
+                  molecule [embedding_bag_backward 10 and 48 a step;
+                  finite losses], qwen2-7b long_500k with its probes at 2
+                  and 3 layers (finite logits; whole and extrapolated step
+                  and peak), deepseek-v2-236b train_4k (not run: its
+                  arguments exceed the card); (c) ``python -m
+                  repro_torch.launch.dryrun --all`` in a child process that
+                  sees no card (80 records); (d) ``python -m
+                  repro_torch.launch.perf --cell dlrm_train`` in a child
+                  process (4 records, every one run).
+                  dryrun, dlrm, train, gnn, lm, lm_train and launch run
+                  first, on an empty card.
   3. rmat       — Graph500-style RMAT, ``backend="auto"`` [intersect]; the
                   count must equal the plain torch ``binary`` lane.
   4. clustered  — triangle-rich planted-partition graph [triangle_dense];
                   the int64 count (> 2^31) must equal a per-cluster
                   float64 oracle.
   5. listing    — ``list()`` on the card equals ``list()`` on the CPU byte
-                  for byte, with forced rescans; counts equal the host lane
-                  and a scipy-sparse oracle [intersect, triangle_dense].
+                  for byte (by SHA-256; the CPU's runs in a child process
+                  beside the earlier phases: HostChildren), with forced
+                  rescans; counts equal the host lane and a scipy-sparse
+                  oracle [intersect, triangle_dense].
   6. skew       — phase 3's graph, hub-first labels, ``skew="heavy_light"``
                   [lftj_fused]; the count must equal phase 3's.
   7. fused      — ``backend="fused"`` on phase 4's and phase 5's graphs
@@ -173,9 +194,9 @@ Phases (the kernels each main-path phase must launch in brackets):
                   ``backend="fused"`` [lftj_fused], count equal to phase
                   8's.
  10. query_listing — four-clique ``list()`` on ``backend="fused"``
-                  [lftj_fused_list]: bytes equal the CPU's and a forced-
-                  rescan run's; total equal to the host backend and the
-                  scipy oracle.
+                  [lftj_fused_list]: bytes equal the CPU's (by SHA-256,
+                  from HostChildren) and a forced-rescan run's; total
+                  equal to the host backend and the scipy oracle.
  11. api        — the public triangle API: ``count_triangles`` vectorized
                   on phase 3's graph in minmax orientation and on phase
                   5's in degree orientation [intersect, one launch each], dense on phase 4's [triangle_dense, one
@@ -300,6 +321,58 @@ QUERY_LIST_SCALE, QUERY_LIST_MEM_WORDS = 12, 1 << 14
 # stream wait on each other (four-clique at scale 13 with 8 workers:
 # PERF.md §7)
 QUERY_WORKERS = 8
+# host work that no device path waits on runs in child processes that see
+# no card (HostChildren), started when HOST_CHILDREN_START begins, so that
+# it overlaps the device-bound phases; each phase reads its child's result.
+# The rmat phase's graph generation (RMAT_CHILD: 46 s of host time on an
+# H100 host, PERF.md §5), and the listing and query_listing phases' CPU
+# listings (CPU_LISTING_CHILD: the whole listing through the kernels'
+# plain versions, 73 and 38 s). CPU_LISTING_THREADS torch threads a
+# listing child leave the parent cores of its own
+HOST_CHILDREN_START = "lm_train"
+CPU_LISTING_THREADS = 3
+HOST_CHILD_TIMEOUT_S = 600
+RMAT_CHILD = """
+import json, sys, time
+sys.path.insert(0, {src!r})
+import numpy as np
+from repro_torch.data.graphs import rmat_graph
+t0 = time.perf_counter()
+src, dst = rmat_graph(1 << {scale}, 16 << {scale}, seed=0)
+s = time.perf_counter() - t0
+np.save({out!r} + "/src.npy", src)
+np.save({out!r} + "/dst.npy", dst)
+print("RESULT " + json.dumps({{"s": s}}), flush=True)
+"""
+CPU_LISTING_CHILD = """
+import hashlib, json, sys, time
+sys.path.insert(0, {src!r})
+import torch
+torch.set_num_threads({threads})
+from repro_torch.data.graphs import rmat_graph
+src, dst = rmat_graph(1 << {scale}, 16 << {scale}, seed=1)
+if {kind!r} == "listing":
+    from repro_torch.core.engine import TriangleEngine
+    t0 = time.perf_counter()
+    rows = TriangleEngine(src, dst, mem_words={mem_words},
+                          torch_device="cpu").list()
+else:
+    from repro_torch.core.lftj_torch import csr_from_edges, orient_edges
+    from repro_torch.data.edgestore import InMemoryEdgeSource
+    from repro_torch.query import QueryEngine, patterns
+    a, b = orient_edges(src, dst)
+    csr = csr_from_edges(a, b, n_nodes=int(max(a.max(), b.max())) + 1)
+    t0 = time.perf_counter()
+    rows = QueryEngine(patterns.four_clique(),
+                       relations={{"E": InMemoryEdgeSource(
+                           *csr, orientation="minmax")}},
+                       mem_words={mem_words}, backend="fused",
+                       torch_device="cpu").list()
+print("RESULT " + json.dumps({{
+    "dtype": str(rows.dtype), "shape": list(rows.shape),
+    "sha256": hashlib.sha256(rows.tobytes()).hexdigest(),
+    "s": time.perf_counter() - t0}}), flush=True)
+"""
 # embedding_bag: the dlrm-mlperf configuration's largest field (Criteo's
 # 39,979,771 rows padded to 512), its seventh (7,120 padded to 512: 3.7 MB,
 # where "auto" picks "onehot" and "onehot" the row gather) and its
@@ -424,6 +497,18 @@ H100_BF16_FLOPS = 989e12
 # the dryrun phase: the fabric dry run at the reference test's sizes and at
 # its CLI's defaults
 DRYRUN_SHARDS = (3, 4)
+# the launch phase (PERF.md §4): the cells run on the card at full shape
+# (arch, shape, probes), and the embedding_bag_backward launches a step of
+# the two GNN cells: gcn-cora's two degree sums and, in each of its 2
+# layers, two aggregations and two gathers' backwards; graphcast's three a
+# layer (the aggregation and the two gathers' backwards) in 16 layers
+LAUNCH_CARD_CELLS = (("dlrm-mlperf", "serve_p99", False),
+                     ("gcn-cora", "full_graph_sm", False),
+                     ("graphcast", "molecule", False),
+                     ("qwen2-7b", "long_500k", True),
+                     ("deepseek-v2-236b", "train_4k", True))
+LAUNCH_BACKWARDS = {"gcn-cora": 2 + 4 * 2, "graphcast": 3 * 16}
+LAUNCH_CLI_TIMEOUT_S = 600
 # the fused kernel's plain version is timed on the largest main-path input
 # whose padded (R, K) atoms hold at most this many words
 FUSED_PLAIN_WORDS_CAP = 1 << 30
@@ -1553,13 +1638,13 @@ def phase_bag_backward_cases(torch, np, grad_ops) -> dict:
 # phases 3-7: the main path through TriangleEngine
 # ---------------------------------------------------------------------------
 
-def phase_rmat(torch, np, ops, shared, scale: int, mem_words: int,
+def phase_rmat(torch, np, ops, shared, mem_words: int,
                profile: bool) -> dict:
+    """The RMAT_SCALE graph (generated by HostChildren) counted on
+    ``backend="auto"``, against the ``binary`` lane."""
     from repro_torch.core.engine import TriangleEngine
-    from repro_torch.data.graphs import rmat_graph
-    t0 = time.perf_counter()
-    src, dst = rmat_graph(1 << scale, 16 << scale, seed=0)
-    t_gen = time.perf_counter() - t0
+    gen = shared["host_children"].result("rmat")
+    src, dst = gen.pop("graph")
     t0 = time.perf_counter()
     eng = TriangleEngine(src, dst, mem_words=mem_words)
     eng.plan()
@@ -1590,13 +1675,14 @@ def phase_rmat(torch, np, ops, shared, scale: int, mem_words: int,
                       "padded_words": stats.padded_words,
                       "actual_words": stats.actual_words,
                       "boxes": stats.n_boxes}
-    return {"phase": "rmat", "scale": scale, "edges": int(len(src)),
+    return {"phase": "rmat", "scale": RMAT_SCALE, "edges": int(len(src)),
             "mem_words": mem_words, "boxes": stats.n_boxes,
             "lanes": lane_stats(stats), "count": count,
             "count_binary_lane": want, "launches": launches,
             "device_invocations": stats.device_invocations,
             "padded_words": stats.padded_words,
-            "actual_words": stats.actual_words, "gen_s": t_gen,
+            "actual_words": stats.actual_words, "gen_s": gen["s"],
+            "gen_wait_s": gen["wait_s"],
             "plan_s": t_plan, "count_s": wall, "binary_count_s": wall_binary,
             "max_memory_allocated": peak}
 
@@ -1660,6 +1746,80 @@ def phase_clustered(torch, np, ops, shared, n_clusters: int, size: int,
             "max_memory_allocated": peak}
 
 
+class HostChildren:
+    """The host work of HOST_CHILDREN_START's comment, each in a child
+    process that sees no card, started once by ``start`` and read by the
+    phase that needs it (``result``); the rmat graph passes through .npy
+    files in a temporary directory."""
+
+    LISTING_SIZES = {"listing": (LIST_SCALE, LIST_MEM_WORDS),
+                     "query_listing": (QUERY_LIST_SCALE,
+                                       QUERY_LIST_MEM_WORDS)}
+
+    def __init__(self, names):
+        self.kinds = [k for k in ("rmat", *self.LISTING_SIZES)
+                      if k in names]
+        self.procs = {}
+        self.tmp = None
+
+    def _code(self, kind: str) -> str:
+        if kind == "rmat":
+            return RMAT_CHILD.format(src=str(ROOT / "src"), scale=RMAT_SCALE,
+                                     out=self.tmp)
+        scale, mem_words = self.LISTING_SIZES[kind]
+        return CPU_LISTING_CHILD.format(
+            src=str(ROOT / "src"), threads=CPU_LISTING_THREADS, scale=scale,
+            kind=kind, mem_words=mem_words)
+
+    def start(self) -> None:
+        import os
+        import tempfile
+        if self.tmp is None:
+            self.tmp = tempfile.mkdtemp(prefix="host_children_")
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+        for kind in self.kinds:
+            if kind not in self.procs:
+                self.procs[kind] = subprocess.Popen(
+                    [sys.executable, "-c", self._code(kind)], env=env,
+                    cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True)
+
+    def result(self, kind: str) -> dict:
+        """The child's RESULT (a listing's dtype, shape, SHA-256 of its
+        bytes and seconds; the rmat graph's seconds of generation), how
+        long the phase waited for it, and for "rmat" the graph."""
+        import numpy as np
+        self.start()
+        t0 = time.perf_counter()
+        proc = self.procs[kind]
+        stdout, stderr = proc.communicate(timeout=HOST_CHILD_TIMEOUT_S)
+        assert proc.returncode == 0, (kind, proc.returncode, stderr[-2000:])
+        line = [x for x in stdout.splitlines() if x.startswith("RESULT ")]
+        assert len(line) == 1, (kind, stdout[-2000:])
+        out = json.loads(line[0][len("RESULT "):])
+        if kind == "rmat":
+            out["graph"] = (np.load(Path(self.tmp, "src.npy")),
+                            np.load(Path(self.tmp, "dst.npy")))
+        return dict(out, wait_s=time.perf_counter() - t0)
+
+    def close(self) -> None:
+        import shutil
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if self.tmp is not None:
+            shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def same_listing(rows, cpu: dict) -> bool:
+    """``rows`` (the card's listing) equal to a HostChildren result: dtype,
+    shape and the SHA-256 of the bytes."""
+    return (str(rows.dtype) == cpu["dtype"]
+            and list(rows.shape) == cpu["shape"]
+            and hashlib.sha256(rows.tobytes()).hexdigest() == cpu["sha256"])
+
+
 def phase_listing(torch, np, ops, shared, scale: int,
                   mem_words: int) -> dict:
     import scipy.sparse as sp
@@ -1686,12 +1846,8 @@ def phase_listing(torch, np, ops, shared, scale: int,
     assert rescans_forced > 0, rescans_forced
     assert forced.tobytes() == tris.tobytes()
     assert len(tris) == count, (len(tris), count)
-    t0 = time.perf_counter()
-    cpu = TriangleEngine(src, dst, mem_words=mem_words, torch_device="cpu")
-    tris_cpu = cpu.list()
-    t_cpu = time.perf_counter() - t0
-    assert tris.dtype == tris_cpu.dtype and tris.shape == tris_cpu.shape
-    assert tris.tobytes() == tris_cpu.tobytes()
+    cpu = shared["host_children"].result("listing")
+    assert same_listing(tris, cpu), cpu
     eng.backend = "host"
     count_host = eng.count()
     assert count_host == count, (count_host, count)
@@ -1710,7 +1866,8 @@ def phase_listing(torch, np, ops, shared, scale: int,
             "count_lanes": count_lanes, "launches": launches,
             "rescans_default": rescans_default,
             "forced_capacity": cap, "rescans_forced": rescans_forced,
-            "count_s": t_count, "list_s": t_list, "cpu_list_s": t_cpu,
+            "count_s": t_count, "list_s": t_list, "cpu_list_s": cpu["s"],
+            "cpu_list_wait_s": cpu["wait_s"],
             "count_host_lane": count_host, "scipy_oracle": oracle}
 
 
@@ -2203,11 +2360,8 @@ def phase_query_listing(torch, np, ops, shared, scale: int,
     assert rescans_forced > rescans_default, (rescans_forced,
                                               rescans_default)
     assert forced.tobytes() == rows.tobytes()
-    t0 = time.perf_counter()
-    cpu = engine(backend="fused", torch_device="cpu").list()
-    t_cpu = time.perf_counter() - t0
-    assert cpu.dtype == rows.dtype and cpu.shape == rows.shape
-    assert cpu.tobytes() == rows.tobytes()
+    cpu = shared["host_children"].result("query_listing")
+    assert same_listing(rows, cpu), cpu
     count_host = engine(backend="host").count()
     oracle = four_clique_oracle(np, oriented_adjacency(np, src, dst))
     assert len(rows) == count_host == oracle, (len(rows), count_host,
@@ -2221,7 +2375,8 @@ def phase_query_listing(torch, np, ops, shared, scale: int,
             "mem_words": mem_words, "listed": len(rows), "lanes": stats,
             "launches": launches, "rescans_default": rescans_default,
             "forced_capacity": cap, "rescans_forced": rescans_forced,
-            "list_s": t_list, "cpu_list_s": t_cpu,
+            "list_s": t_list, "cpu_list_s": cpu["s"],
+            "cpu_list_wait_s": cpu["wait_s"],
             "count_host_backend": count_host, "scipy_oracle": oracle}
 
 
@@ -3373,7 +3528,7 @@ def phase_dlrm(torch, np, ops, shared, bag_ops) -> dict:
     """DLRM serving at the full dlrm-mlperf width: ``init_params`` on the
     card (26 bfloat16 tables), ``serve_step`` at serve_p99 and serve_bulk,
     ``retrieval_score`` at retrieval_cand, and ``serve_step`` at serve_p99
-    with the tables row-sharded (``dlrm_param_sharding``) over the card
+    with the tables row-sharded (``dlrm_param_placement``) over the card
     repeated DLRM_SHARD_DEVICES times [embedding_bag "dma" and "onehot",
     26 launches a forward unsharded]. Each run is held against the same
     call with ``use_kernels=False``: the lookups equal bit for bit (at
@@ -3387,7 +3542,7 @@ def phase_dlrm(torch, np, ops, shared, bag_ops) -> dict:
     from repro_torch.data.recsys import CriteoLikeGenerator
     from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
     from repro_torch.models import dlrm
-    from repro_torch.parallel.sharding import dlrm_param_sharding
+    from repro_torch.parallel.sharding import dlrm_param_placement
 
     bundle = get_arch(DLRM_ARCH)
     cfg = bundle.config
@@ -3509,7 +3664,7 @@ def phase_dlrm(torch, np, ops, shared, bag_ops) -> dict:
 
     # serve_p99 with the tables row-sharded over the card repeated
     devices = ["cuda:0"] * DLRM_SHARD_DEVICES
-    sharded = dlrm_param_sharding(params, devices)
+    sharded = dlrm_param_placement(params, devices)
     for t in range(cfg.n_sparse):
         base = params[f"table{t}"].untyped_storage().data_ptr()
         assert all(s.untyped_storage().data_ptr() == base
@@ -3778,8 +3933,8 @@ def phase_train(torch, np, ops, shared, grad_ops) -> dict:
     from repro_torch.configs import get_arch, input_specs
     from repro_torch.models import dlrm
     from repro_torch.optim import adamw
-    from repro_torch.parallel.sharding import (dlrm_opt_state_sharding,
-                                               dlrm_param_sharding)
+    from repro_torch.parallel.sharding import (dlrm_opt_state_placement,
+                                               dlrm_param_placement)
     t_phase = time.perf_counter()
     full = get_arch(DLRM_ARCH).config
     cfg = capped_config(full, TRAIN_CAP_ROWS)
@@ -3874,8 +4029,8 @@ def phase_train(torch, np, ops, shared, grad_ops) -> dict:
         before = {k: t.clone() for k, t in params.items()
                   if k.startswith("table")}
         devices = ["cuda:0"] * TRAIN_SHARD_DEVICES
-        sharded = (dlrm_param_sharding(sh_params, devices),
-                   dlrm_opt_state_sharding(sh_opt, devices))
+        sharded = (dlrm_param_placement(sh_params, devices),
+                   dlrm_opt_state_placement(sh_opt, devices))
         _, _, mk = dlrm.make_sparse_train_step(cfg_b, check_cfg)(
             params, opt_state, bb[1])
         with plain_backward_on_cpu(grad_ops):
@@ -5055,6 +5210,162 @@ def phase_lm_train(torch, np, ops, shared, grad_ops) -> dict:
     return out
 
 
+def launch_grid_records(tmp) -> dict:
+    """(a) of phase_launch: ``run_cell`` on both production grids for every
+    cell, in this process; per-device bytes <= whole bytes <= per-device
+    bytes x n_chips."""
+    from repro_torch.configs import all_arch_ids, get_arch
+    from repro_torch.launch.dryrun import run_cell
+    n, largest = 0, (0, "")
+    for aid in all_arch_ids():
+        for shp in get_arch(aid).shape_names():
+            for grid in ("single", "multi"):
+                rec = run_cell(aid, shp, grid, Path(tmp) / "grids")
+                per, whole = rec["argument_size_in_bytes"], \
+                    rec["argument_bytes_whole"]
+                assert rec["ok"] and per <= whole <= per * rec["n_chips"], rec
+                largest = max(largest, (per, f"{aid}/{shp}/{grid}"))
+                n += 1
+    assert n == 80, n
+    return {"records": n, "largest_per_device": largest}
+
+
+def launch_card_cell(torch, ops, bag_ops, tmp, arch: str, shape: str,
+                     probes: bool) -> tuple:
+    """(b) of phase_launch: one cell through ``run_cell(..., "card")`` with
+    the launch counts zeroed before it and read after it; the launches a
+    step each cell's model makes; the DLRM scores against the
+    ``use_kernels=False`` step (which launches nothing) within
+    DLRM_SCORE_ATOL."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.models import dlrm
+
+    def dlrm_check(cell, args, out):
+        params, batch = args
+        want = dlrm.serve_step(cell.cfg, params, batch, use_kernels=False)
+        err = float((out - want).abs().max())
+        assert err <= DLRM_SCORE_ATOL, err
+        return {"max_abs_err": err}
+
+    reset_launches(ops)
+    rec = run_cell(arch, shape, "card", Path(tmp) / "card", probes=probes,
+                   check=dlrm_check if arch == "dlrm-mlperf" else None)
+    got = read_launches(ops)
+    assert rec["ok"], rec
+    calls = rec.get("step_calls", 0)
+    line = {k: rec.get(k) for k in (
+        "ran", "fits_one_card", "reason", "argument_size_in_bytes",
+        "step_ms", "peak_bytes", "counted_flops", "model_flops_global",
+        "useful_flops_ratio", "bf16_peak_share", "finite", "loss",
+        "step_calls", "check", "wall_s")}
+    line["launches"] = {k: v for k, v in got.items() if v}
+    if arch == "dlrm-mlperf":
+        per_step = dlrm_expected_launches(bag_ops, get_arch(arch).config, 1)
+        assert per_step["embedding_bag_dma"] == 11 and \
+            per_step["embedding_bag_onehot"] == 15, per_step
+    elif arch in LAUNCH_BACKWARDS:
+        per_step = {"embedding_bag_backward": LAUNCH_BACKWARDS[arch]}
+    else:
+        per_step = {}
+    if rec["ran"]:
+        assert rec["finite"], rec
+        assert got == {k: per_step.get(k, 0) * calls for k in ops}, \
+            (arch, got, per_step, calls)
+        line["launches_a_step"] = per_step
+    else:
+        assert not any(got.values()), got
+    if probes:
+        line["probes"] = {k: {x: v.get(x) for x in (
+            "ran", "reason", "argument_size_in_bytes", "step_ms",
+            "peak_bytes", "counted_flops")} for k, v in rec.get(
+            "probes", {}).items()}
+        line["extrapolated"] = rec.get("extrapolated")
+    return rec, got, line
+
+
+def phase_launch(torch, np, ops, shared, bag_ops) -> dict:
+    """The launch layer (``repro_torch.launch.steps`` / ``dryrun`` /
+    ``perf``): (a) ``build_cell`` and the ``single`` / ``multi`` records
+    for all 80 (cell x grid) pairs; (b) ``run_cell(..., "card")`` at full
+    shape for LAUNCH_CARD_CELLS, each with the launch counts zeroed before
+    it and read after it: dlrm-mlperf serve_p99 [embedding_bag "dma" 11,
+    "onehot" 15 a step; scores against use_kernels=False], gcn-cora
+    full_graph_sm and graphcast molecule [embedding_bag_backward 10 and 48
+    a step; finite losses], qwen2-7b long_500k with probes (finite logits;
+    whole and extrapolated step and peak), deepseek-v2-236b train_4k (not
+    run: its arguments exceed the card); (c) ``python -m
+    repro_torch.launch.dryrun --all`` in a child process that sees no card
+    (80 records), started first and run beside (a)-(b); (d) ``python -m
+    repro_torch.launch.perf --cell dlrm_train`` in a child process on the
+    card, after (b): 4 records, every one run."""
+    import os
+    import shutil
+    import tempfile
+    out = {"phase": "launch",
+           "allocated_at_start": torch.cuda.memory_allocated()}
+    tmp = tempfile.mkdtemp(prefix="launch_")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    children = []
+    totals = Counter()
+    try:
+        all_cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--all", "--out", f"{tmp}/all"]
+        all_proc = subprocess.Popen(
+            all_cmd, env=dict(env, CUDA_VISIBLE_DEVICES=""), cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        children.append(all_proc)
+        t0 = time.perf_counter()
+        out["grids"] = dict(launch_grid_records(tmp),
+                            s=time.perf_counter() - t0)
+        out["cells"] = {}
+        for arch, shape, probes in LAUNCH_CARD_CELLS:
+            rec, got, line = launch_card_cell(torch, ops, bag_ops, tmp, arch,
+                                              shape, probes)
+            totals.update(got)
+            out["cells"][f"{arch}/{shape}"] = line
+        qwen = out["cells"]["qwen2-7b/long_500k"]
+        assert qwen["ran"] and qwen["extrapolated"], qwen
+        assert all(p["ran"] for p in qwen["probes"].values()), qwen
+        deepseek = out["cells"]["deepseek-v2-236b/train_4k"]
+        assert not deepseek["ran"] and deepseek["reason"] == \
+            "arguments exceed the card", deepseek
+        t0 = time.perf_counter()
+        perf_cmd = [sys.executable, "-m", "repro_torch.launch.perf",
+                    "--cell", "dlrm_train", "--out", f"{tmp}/perf"]
+        res = subprocess.run(perf_cmd, env=env, cwd=ROOT,
+                             capture_output=True, text=True,
+                             timeout=LAUNCH_CLI_TIMEOUT_S)
+        assert res.returncode == 0, res.stderr[-2000:]
+        recs = [json.loads(f.read_text())
+                for f in sorted(Path(tmp, "perf").glob("*.json"))]
+        assert len(recs) == 4 and all(r["ok"] and r["ran"] for r in recs), \
+            [r.get("reason", r.get("error")) for r in recs]
+        out["perf_dlrm_train"] = {
+            "s": time.perf_counter() - t0,
+            "reduced": recs[0]["reduced"],
+            "records": {r["variant"]: {k: r.get(k) for k in (
+                "step_ms", "peak_bytes", "counted_flops",
+                "useful_flops_ratio", "loss")} for r in recs}}
+        t0 = time.perf_counter()
+        stdout, stderr = all_proc.communicate(timeout=LAUNCH_CLI_TIMEOUT_S)
+        assert all_proc.returncode == 0, stderr[-2000:]
+        n_all = len(list(Path(tmp, "all").glob("*.json")))
+        assert n_all == 80 and "80 ok, 0 failed" in stdout, (n_all, stdout)
+        out["dryrun_all_cli"] = {"records": n_all,
+                                 "wait_s": time.perf_counter() - t0,
+                                 "stdout": stdout.strip()[-120:]}
+    finally:
+        for proc in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = {k: totals.get(k, 0) for k in ops}
+    out["allocated_at_end"] = torch.cuda.memory_allocated()
+    return out
+
+
 def phase_dryrun(torch, ops, shared) -> dict:
     """The fabric dry run (``repro_torch.launch.dryrun``): ``fabric_dryrun``
     in this process at the reference test's size (3 shards, 64 vertices,
@@ -5551,7 +5862,8 @@ def bag_bf16_kernel_rows(timing: dict, by_phase: dict) -> list:
     return rows
 
 
-PHASES = ("dryrun", "dlrm", "train", "gnn", "lm", "lm_train", "rmat",
+PHASES = ("dryrun", "dlrm", "train", "gnn", "lm", "lm_train", "launch",
+          "rmat",
           "clustered", "listing",
           "skew", "fused", "query", "outofcore", "query_listing", "api", "shard", "serve",
           "embedding_bag")
@@ -5582,7 +5894,7 @@ def main() -> int:
                     help="device, build and kernel checks only")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="main-path phases to run (default: all "
-                         "eighteen), "
+                         "nineteen), "
                          "with the phases they reuse (NEEDS)")
     ap.add_argument("--profile", action="store_true",
                     help="repeat each main-path count under "
@@ -5679,8 +5991,7 @@ def main() -> int:
         shared = {}
         phases = {
             "rmat": lambda: phase_rmat(
-                torch, np, ops, shared, RMAT_SCALE, RMAT_MEM_WORDS,
-                args.profile),
+                torch, np, ops, shared, RMAT_MEM_WORDS, args.profile),
             "clustered": lambda: phase_clustered(
                 torch, np, ops, shared, CLUSTERS, CLUSTER_SIZE, P_IN,
                 CLUSTERED_MEM_WORDS, args.profile),
@@ -5714,17 +6025,26 @@ def main() -> int:
             "lm": lambda: phase_lm(torch, np, ops, shared),
             "lm_train": lambda: phase_lm_train(torch, np, ops, shared,
                                                grad_ops),
+            "launch": lambda: phase_launch(torch, np, ops, shared, bag_ops),
         }
         runs = []
-        for name in with_needs(args.phases.split(",")):
-            t0 = time.perf_counter()
-            runs.append(phases[name]())
-            runs[-1]["phase_s"] = time.perf_counter() - t0
-            emit(runs[-1])
-            if name == "rmat":
-                # the rmat phase's largest intersect call: a triangle-lane
-                # box, timed beside the main path's largest call
-                shared["rmat_intersect"] = rec_i.largest
+        names = with_needs(args.phases.split(","))
+        shared["host_children"] = HostChildren(names)
+        try:
+            for name in names:
+                if PHASES.index(name) >= PHASES.index(HOST_CHILDREN_START):
+                    shared["host_children"].start()
+                t0 = time.perf_counter()
+                runs.append(phases[name]())
+                runs[-1]["phase_s"] = time.perf_counter() - t0
+                emit(runs[-1])
+                if name == "rmat":
+                    # the rmat phase's largest intersect call: a
+                    # triangle-lane box, timed beside the main path's
+                    # largest call
+                    shared["rmat_intersect"] = rec_i.largest
+        finally:
+            shared["host_children"].close()
         launches = {k: sum(r["launches"][k] for r in runs) for k in ops}
         by_phase = {k: {r["phase"]: r["launches"][k] for r in runs
                         if r["launches"][k]} for k in ops}

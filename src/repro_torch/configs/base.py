@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -199,13 +199,17 @@ def recsys_input_specs(cfg, spec: ShapeSpec) -> Dict[str, Any]:
 
 
 def input_specs(arch_id: str, shape_name: str, smoke: bool = False,
-                cfg=None):
+                cfg=None, dims: Optional[Dict[str, Any]] = None):
     """(step_kind, specs) for a cell; smoke=True uses the reduced config.
-    ``cfg`` overrides the registry config (probe/transformed cells)."""
+    ``cfg`` overrides the registry config (probe/transformed cells);
+    ``dims`` overrides entries of the shape's dims (a cell cut to fit one
+    card, ``launch.perf``)."""
     bundle = get_arch(arch_id)
     if cfg is None:
         cfg = bundle.smoke_config if smoke else bundle.config
     spec = bundle.shapes[shape_name]
+    if dims:
+        spec = dataclasses.replace(spec, dims={**spec.dims, **dims})
     if bundle.family == "lm":
         return spec.step, lm_input_specs(cfg, spec)
     if bundle.family == "gnn":

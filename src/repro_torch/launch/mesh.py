@@ -11,14 +11,25 @@ Multi-process runs (one process per slice of the shards, the worker CLI
 of ``parallel.fabric``) merge JSON partials; ``maybe_init_distributed``
 joins those processes into a ``torch.distributed`` process group when the
 three ``REPRO_FABRIC_*`` variables configure one.
+
+The model cells of ``launch.steps`` and ``launch.dryrun`` lay their
+arguments out on a named grid of devices instead (``DeviceGrid``): the
+production grids of the reference (``make_production_mesh``: 16 x 16
+``("data", "model")``, or 2 x 16 x 16 with ``"pod"``) and the one-card
+grid that runs a cell (``make_host_mesh``). ``HW`` holds the card's
+published peaks for the dry run's roofline terms.
 """
 
 from __future__ import annotations
 
 import datetime
+import math
 import os
-from typing import List, Optional, Sequence
+import subprocess
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 FABRIC_AXIS = "shards"
@@ -118,3 +129,92 @@ def maybe_init_distributed(coordinator: Optional[str] = None,
         rank=int(process_id),
         timeout=datetime.timedelta(seconds=_INIT_TIMEOUT_S))
     return True
+
+
+# ---------------------------------------------------------------------------
+# named device grids of the model cells (the reference's Mesh)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True, eq=False)
+class DeviceGrid:
+    """A named grid of devices, the counterpart of ``jax.sharding.Mesh``.
+
+    ``shape`` maps each axis name to its size, in ``axis_names`` order, as
+    the reference's ``mesh.shape`` does. ``devices`` is a numpy object
+    array of ``torch.device`` of that shape (a device may repeat, as in
+    ``fabric_mesh``), or ``None`` for an abstract grid: one that gives
+    partition specs, shard shapes and byte reckonings but runs nothing."""
+    axis_names: Tuple[str, ...]
+    shape: Dict[str, int]
+    devices: Optional[np.ndarray] = None
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+
+def _grid(dims: Tuple[int, ...], axes: Tuple[str, ...],
+          devices: Optional[Sequence]) -> DeviceGrid:
+    from repro_torch.core.engine import resolve_torch_device
+
+    arr = None
+    if devices is not None:
+        devs = [resolve_torch_device(d) for d in devices]
+        if len(devs) != math.prod(dims):
+            raise ValueError(f"a {dims} grid needs {math.prod(dims)} "
+                             f"devices, got {len(devs)} (repeat a device "
+                             f"to put several grid places on it)")
+        arr = np.empty(len(devs), dtype=object)
+        arr[:] = devs
+        arr = arr.reshape(dims)
+    return DeviceGrid(tuple(axes), dict(zip(axes, dims)), arr)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         devices: Optional[Sequence] = None) -> DeviceGrid:
+    """(16, 16) 'data' x 'model' single pod (256 places), or (2, 16, 16)
+    'pod' x 'data' x 'model' for 2 pods (512 places). Abstract unless
+    ``devices`` (one per place, in grid order, repeats allowed) is
+    given."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _grid(shape, axes, devices)
+
+
+def make_host_mesh(torch_device="cuda") -> DeviceGrid:
+    """The (1, 1) 'data' x 'model' grid over the local card (raises where
+    there is none), or over the CPU when ``torch_device="cpu"``."""
+    return _grid((1, 1), ("data", "model"), [torch_device])
+
+
+# The card's published peaks (NVIDIA H100 SXM5 80GB data sheet, dense, at
+# the 700 W limit) for the dry run's roofline terms; the memory size is the
+# card's own (``hbm_bytes``), and every record that uses these carries
+# ``nvidia_smi_line()`` beside them.
+HW = dict(
+    peak_bf16_flops=989e12,      # per card
+    hbm_bandwidth=3.35e12,       # bytes/s per card, HBM3
+)
+
+
+def hbm_bytes(torch_device="cuda") -> int:
+    """The memory of the card ``torch_device`` names, in bytes, read from
+    ``torch.cuda.get_device_properties`` (raises where there is no
+    card)."""
+    from repro_torch.core.engine import resolve_torch_device
+
+    dev = resolve_torch_device(torch_device)
+    if dev.type != "cuda":
+        raise ValueError(f"hbm_bytes: {dev} is not a card")
+    return int(torch.cuda.get_device_properties(dev).total_memory)
+
+
+def nvidia_smi_line() -> str:
+    """The card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them (the
+    first card's line)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]

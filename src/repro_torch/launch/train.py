@@ -3,10 +3,10 @@ restart, the straggler watchdog, optional gradient compression.
 
 The port of ``src/repro/launch/train.py``, with the same flags and printed
 lines, plus ``--torch-device`` (default ``cuda``, which raises without a
-card; ``cpu`` runs on the CPU). A step is ``loss_fn``'s gradient through
-every param, then ``optim.adamw.apply``. Every family trains here:
-``recsys`` (``dlrm-mlperf``: the tables' gradient through the lookup's
-backward kernel on the card), ``gnn`` (``gcn-cora``, ``gin-tu``,
+card; ``cpu`` runs on the CPU). A step is the family's ``train_step``:
+``loss_fn``'s gradient through every param, then ``optim.adamw.apply``.
+Every family trains here: ``recsys`` (``dlrm-mlperf``: the tables'
+gradient through the lookup's backward kernel on the card), ``gnn`` (``gcn-cora``, ``gin-tu``,
 ``schnet``, ``graphcast`` at ``d_in=32, d_out=5`` on the reference's fixed
 512-node random graph: every message-passing sum on the sorted-sum
 kernel) and ``lm`` (the five transformers on ``TokenStream(vocab,
@@ -127,10 +127,7 @@ def _train(args, bundle):
                                           params)
         return loss, grads
 
-    def step_plain(params, opt_state, batch):
-        loss, grads = grads_of(params, batch)
-        params, opt_state, om = adamw.apply(opt_cfg, params, grads, opt_state)
-        return params, opt_state, {"loss": loss, **om}
+    step_plain = partial(M.train_step, cfg, opt_cfg)
 
     def step_int8(params, opt_state, ef, batch):
         loss, grads = grads_of(params, batch)

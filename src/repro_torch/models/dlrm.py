@@ -2,8 +2,7 @@
 
 The port of ``src/repro/models/dlrm.py``: serving (``forward``,
 ``serve_step``, ``retrieval_score``), ``loss_fn`` and training
-(``make_sparse_train_step``, and ``loss_fn``'s gradient for the dense
-step). The embedding lookup is the hot path. The reference takes
+(``make_sparse_train_step``, and ``train_step``, the dense step). The embedding lookup is the hot path. The reference takes
 ``jnp.take(tab, jnp.minimum(idx, V - 1))`` and a float32 sum over the bag;
 here each index is clamped to V - 1 the same way and the bag summed by
 ``embedding_bag(table, idx, mode="auto")``: on the card one of the two
@@ -22,7 +21,7 @@ type (the reference's XLA scatter-add sums a bfloat16 table's gradient in
 bfloat16).
 
 Tables may be row-sharded over a device list (``devices=[...]`` with the
-params of ``parallel.sharding.dlrm_param_sharding``): a bag-sum over a
+params of ``parallel.sharding.dlrm_param_placement``): a bag-sum over a
 row-sharded table is a local masked bag-sum per shard followed by a sum of
 the partial bags on ``devices[0]`` (the reference's psum over the
 ``model`` axis): the sum over bag slots commutes with the shard sum, so no
@@ -190,7 +189,7 @@ def embedding_lookups(cfg: DLRMConfig, params, sparse: torch.Tensor, *,
     per field t, ``table_t[min(idx, V_t - 1)]`` widened to float32 and
     summed over the bag, a (B, D) float32 tensor. ``use_kernels`` picks
     ``embedding_bag`` (the kernels on the card) or its plain version.
-    With ``devices``, ``params`` are ``dlrm_param_sharding``'s per-device
+    With ``devices``, ``params`` are ``dlrm_param_placement``'s per-device
     lists and every result lies on ``devices[0]``."""
     bag = _bag_of(use_kernels)
     if devices is not None:
@@ -258,6 +257,18 @@ def loss_fn(cfg: DLRMConfig, params, batch, **kw):
     logits = forward(cfg, params, batch, **kw)
     loss = _bce(logits, batch_tensor(batch, "labels", logits.device, FDTYPE))
     return loss, {"bce": loss}
+
+
+def train_step(cfg: DLRMConfig, opt_cfg: adamw.AdamWConfig, params,
+               opt_state: adamw.OptState, batch, *, use_kernels: bool = True):
+    """The reference's dense DLRM step (``src/repro/launch/steps.py:223-228``):
+    the gradient of ``loss_fn`` through every param, the tables included,
+    then ``adamw.apply``, in place. Returns (params, opt_state, {"loss",
+    "grad_norm", "lr"})."""
+    loss, _, grads = L.value_and_grad(
+        lambda p: loss_fn(cfg, p, batch, use_kernels=use_kernels), params)
+    params, opt_state, om = adamw.apply(opt_cfg, params, grads, opt_state)
+    return params, opt_state, {"loss": loss, **om}
 
 
 def serve_step(cfg: DLRMConfig, params, batch, **kw) -> torch.Tensor:
@@ -380,8 +391,8 @@ def make_sparse_train_step(cfg: DLRMConfig, opt_cfg: adamw.AdamWConfig, *,
     their moments: two copies of the dlrm-mlperf state would not fit one
     card), and the returned params and state are the ones passed in.
 
-    ``devices``: params from ``parallel.sharding.dlrm_param_sharding`` and
-    the state from ``dlrm_opt_state_sharding`` over the same list. The
+    ``devices``: params from ``parallel.sharding.dlrm_param_placement`` and
+    the state from ``dlrm_opt_state_placement`` over the same list. The
     ``table*`` moments are cut into the tables' row blocks: a device list
     has one axis, so the reference's ``shard_moments_2d`` (moments over
     (model, dp)) has nothing more to cut and the moments follow the

@@ -310,11 +310,14 @@ def train_step(cfg: TransformerConfig, opt_cfg: adamw.AdamWConfig, params,
                opt_state: adamw.OptState, batch):
     """The reference's LM step (``src/repro/launch/train.py:93-98``): the
     gradient of ``loss_fn`` through every param, then ``adamw.apply``, in
-    place. Returns (params, opt_state, {"loss", "grad_norm", "lr"})."""
-    loss, _, grads = L.value_and_grad(lambda p: loss_fn(cfg, p, batch),
-                                      params)
+    place. Returns (params, opt_state, {"loss", "nll", "aux", "grad_norm",
+    "lr"}), the metrics of the reference's cell step
+    (``src/repro/launch/steps.py:109-114``)."""
+    loss, metrics, grads = L.value_and_grad(
+        lambda p: loss_fn(cfg, p, batch), params)
     params, opt_state, om = adamw.apply(opt_cfg, params, grads, opt_state)
-    return params, opt_state, {"loss": loss, **om}
+    return params, opt_state, {"loss": loss, **{
+        k: v.detach() for k, v in metrics.items()}, **om}
 
 
 # ---------------------------------------------------------------------------

@@ -16,18 +16,47 @@ the §5 interval algebra ``merge_interval`` / ``interval_gaps``) price the
 ``QueryEngine``'s n-dimensional boxes and plan the byte ranges each
 ``parallel.fabric`` shard must hold. All of it is numpy in, numpy out.
 
-``dlrm_param_sharding`` places DLRM's tables over a device list as row
+``dlrm_param_placement`` places DLRM's tables over a device list as row
 blocks (``models.dlrm`` sums the per-block bags), and
-``dlrm_opt_state_sharding`` their AdamW moments in the same blocks.
+``dlrm_opt_state_placement`` their AdamW moments in the same blocks.
+
+The per-family sharding rules of the model cells (``launch.steps``) are
+the reference's (``src/repro/parallel/sharding.py:30-279``, ``:561-578``),
+under its names and contracts, on a named grid
+(``launch.mesh.DeviceGrid``) with ``P`` and ``NamedSharding`` standing for
+jax's ``PartitionSpec`` and ``NamedSharding``. Grid axes: ("pod", "data",
+"model") for two pods or ("data", "model") for one; ``dp`` = the
+data-parallel super-axis, ("pod", "data") where the pod axis exists.
+
+  LM   : FSDP over dp + tensor parallelism over model (column/row-parallel
+         pairs); MoE experts over model; KV cache sequence-sharded over
+         model.
+  GNN  : node and edge rows over every axis (flattened); params
+         replicated.
+  DLRM : embedding tables row(vocab)-sharded over model; MLPs replicated;
+         batch over dp.
+
+A dimension an axis does not divide stays whole (``_evenly``), as in the
+reference. ``set_rules`` / ``constrain`` keep the reference's activation
+rules: ``constraint_spec`` resolves a rule for a shape exactly as the
+reference's ``constrain`` does, and ``constrain`` returns its tensor
+unchanged. One process holds whole tensors (and on a (1, 1) grid the
+reference's constraint is the identity too), so nothing here moves data,
+and the port's models do not call ``constrain``.
 """
 
 from __future__ import annotations
 
-from typing import (Callable, Dict, Iterator, List, NamedTuple, Optional,
-                    Sequence, Tuple)
+import math
+from dataclasses import dataclass
+from typing import (Any, Callable, Dict, Iterator, List, NamedTuple,
+                    Optional, Sequence, Tuple)
 
 import numpy as np
 import torch
+
+from repro_torch.pytree import (flatten_with_path, leaves, tree_map,
+                               tree_map_with_path)
 
 # core.lftj_torch's padding value (imported there from here would cycle:
 # core's executor imports this module)
@@ -361,7 +390,7 @@ def shard_local_slices(edge_lists: Sequence[Tuple[np.ndarray, np.ndarray]],
 
 
 # ---------------------------------------------------------------------------
-# DLRM tables over a device list (the reference's dlrm_param_sharding:
+# DLRM tables over a device list (the reference's dlrm_param_sharding run:
 # tables vocab-sharded over the model axis, everything else replicated)
 # ---------------------------------------------------------------------------
 
@@ -372,8 +401,8 @@ def table_row_block(v: int, n_devices: int) -> int:
     return v // n_devices if n_devices > 1 and v % n_devices == 0 else 0
 
 
-def dlrm_param_sharding(params: Dict[str, torch.Tensor],
-                        devices: Sequence) -> Dict[str, List[torch.Tensor]]:
+def dlrm_param_placement(params: Dict[str, torch.Tensor],
+                         devices: Sequence) -> Dict[str, List[torch.Tensor]]:
     """DLRM params placed over ``devices`` (repeats allowed), per name one
     tensor per device: a ``table*`` whose row count divides by
     ``len(devices)`` cut into equal contiguous row blocks, block i on
@@ -394,9 +423,9 @@ def dlrm_param_sharding(params: Dict[str, torch.Tensor],
     return out
 
 
-def dlrm_opt_state_sharding(state, devices: Sequence):
+def dlrm_opt_state_placement(state, devices: Sequence):
     """An ``optim.adamw.OptState`` of DLRM params placed as
-    ``dlrm_param_sharding`` places the params: each ``table*`` moment cut
+    ``dlrm_param_placement`` places the params: each ``table*`` moment cut
     into the same row blocks, every other moment replicated, the step on
     ``devices[0]``. ``models.dlrm.make_sparse_train_step(...,
     devices=devices)`` reads this layout. (The reference's
@@ -404,5 +433,292 @@ def dlrm_opt_state_sharding(state, devices: Sequence):
     has one axis, so the moments follow the tables.)"""
     devs = box_mesh(devices)
     return type(state)(state.step.to(devs[0]),
-                       dlrm_param_sharding(state.m, devs),
-                       dlrm_param_sharding(state.v, devs))
+                       dlrm_param_placement(state.m, devs),
+                       dlrm_param_placement(state.v, devs))
+
+
+# ---------------------------------------------------------------------------
+# partition specs on a named grid (jax's PartitionSpec and NamedSharding)
+# ---------------------------------------------------------------------------
+
+class P(tuple):
+    """A partition spec: one entry per leading dimension, each ``None``
+    (whole), an axis name, or a tuple of axis names (split over their
+    product). Dimensions past the last entry stay whole."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+def _axes(entry) -> Tuple[str, ...]:
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+@dataclass(frozen=True, eq=False)
+class NamedSharding:
+    """``spec`` over the grid ``mesh`` (a ``launch.mesh.DeviceGrid``)."""
+    mesh: Any
+    spec: P
+
+    def shard_shape(self, shape) -> Tuple[int, ...]:
+        """The shape of one device's block of a ``shape`` array; raises
+        ``ValueError`` where a split dimension does not divide."""
+        shape = tuple(shape)
+        if len(self.spec) > len(shape):
+            raise ValueError(f"spec {self.spec} has more entries than "
+                             f"shape {shape}")
+        out = list(shape)
+        for i, entry in enumerate(self.spec):
+            if entry is None:
+                continue
+            n = math.prod(self.mesh.shape[a] for a in _axes(entry))
+            if shape[i] % n:
+                raise ValueError(f"dimension {i} of {shape} does not divide "
+                                 f"by {n} ({entry!r})")
+            out[i] = shape[i] // n
+        return tuple(out)
+
+
+def _ns(mesh, spec: P) -> NamedSharding:
+    return NamedSharding(mesh, spec)
+
+
+def _is_shape_leaf(x) -> bool:
+    """A leaf of a ``param_shapes`` tree: ``(shape tuple, dtype)``."""
+    return isinstance(x, tuple) and len(x) == 2 and isinstance(x[0], tuple)
+
+
+def dp_axes(mesh) -> Tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def all_axes(mesh) -> Tuple[str, ...]:
+    return tuple(mesh.axis_names)
+
+
+def _evenly(dim: int, mesh, axes) -> bool:
+    return dim % math.prod(mesh.shape[a] for a in _axes(axes)) == 0
+
+
+# ---------------------------------------------------------------------------
+# activation rules: the reference's models call ``constrain(x, kind)`` and
+# its cells set a rule set for the cell's grid (module docstring)
+# ---------------------------------------------------------------------------
+
+_RULES: Optional[Dict[str, Any]] = None
+_RULES_MESH = None
+
+
+def set_rules(mesh, family: Optional[str]) -> None:
+    global _RULES, _RULES_MESH
+    if mesh is None or family is None:
+        _RULES, _RULES_MESH = None, None
+        return
+    dp = dp_axes(mesh)
+    alln = all_axes(mesh)
+    if family == "lm":
+        _RULES = {
+            "lm_act": (dp, "model", None),         # (B, S, D)
+            "lm_logits": (dp, None, "model"),      # (B, S, V)
+            "lm_logits2": (dp, "model"),           # (B, V)
+            "moe_ge": (dp, "model", None, None),   # (B, E, cap, D)
+            "moe_x_local": (dp, None, None),
+            "attn_q": (dp, None, None, "model", None),   # (B, KV, G, Q, S)
+            "attn_s": (dp, None, None, None, "model"),
+            "mla_scores": (dp, "model", None, None),     # (B, H, Q, S)
+        }
+    elif family == "gnn":
+        _RULES = {"gnn_nodes": (alln, None)}       # (N, D)
+    elif family == "recsys":
+        _RULES = {"dlrm_act": (dp, None),          # (B, D)
+                  "dlrm_rows": (None, None)}
+    _RULES_MESH = mesh
+
+
+def constraint_spec(shape, kind: str) -> Optional[P]:
+    """The spec the reference's ``constrain`` would put on an array of
+    ``shape`` under the rules set now: the rule's entries for the leading
+    dimensions, an entry whose axes do not divide its dimension dropped to
+    ``None``; ``None`` when no rule applies."""
+    if _RULES is None or kind not in _RULES:
+        return None
+    resolved = []
+    for i, a in enumerate(_RULES[kind][:len(shape)]):
+        resolved.append(a if a is not None
+                        and _evenly(shape[i], _RULES_MESH, a) else None)
+    return P(*resolved)
+
+
+def constrain(x, kind: str):
+    """``x`` itself: the constraint is resolved (``constraint_spec``) and
+    moves nothing (module docstring)."""
+    constraint_spec(x.shape, kind)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# LM
+# ---------------------------------------------------------------------------
+
+def _lm_leaf_spec(name: str, shape, mesh) -> P:
+    dp = dp_axes(mesh)
+    nd = len(shape)
+    # stacked blocks carry a leading layer axis -> never sharded
+    lead = (None,) if name.startswith("block") else ()
+    core = shape[len(lead):]
+    key = name.split("/")[-1]
+
+    def fit(dim, axes):
+        return _evenly(dim, mesh, axes)
+
+    if key in ("norm1", "norm2", "final_norm", "q_a_norm", "kv_a_norm"):
+        return P(*lead, None)
+    if key in ("bq", "bk", "bv"):
+        return P(*lead, "model") if fit(core[0], "model") else P(*lead, None)
+    if key == "embed":
+        return P("model" if fit(core[0], "model") else None,
+                 dp if fit(core[1], dp) else None)
+    if key == "lm_head":
+        return P(dp if fit(core[0], dp) else None,
+                 "model" if fit(core[1], "model") else None)
+    if key == "router":
+        return P(*lead, dp if fit(core[0], dp) else None, None)
+    if key in ("wi", "shared_wi", "wq", "wk", "wv", "wq_b", "wkv_b"):
+        if len(core) == 3:  # MoE expert-stacked (E, D, F): experts over model
+            return P(*lead, "model" if fit(core[0], "model") else None,
+                     dp if fit(core[1], dp) else None, None)
+        return P(*lead, dp if fit(core[0], dp) else None,
+                 "model" if fit(core[1], "model") else None)
+    if key in ("wo", "shared_wo"):
+        if len(core) == 3:  # (E, F, D)
+            return P(*lead, "model" if fit(core[0], "model") else None,
+                     None, dp if fit(core[2], dp) else None)
+        return P(*lead, "model" if fit(core[0], "model") else None,
+                 dp if fit(core[1], dp) else None)
+    if key in ("wq_a", "wkv_a"):
+        return P(*lead, dp if fit(core[0], dp) else None, None)
+    # fallback: shard the largest fitting dim over dp
+    spec = [None] * nd
+    for i in np.argsort([-s for s in shape]):
+        if fit(shape[i], dp):
+            spec[i] = dp
+            break
+    return P(*spec)
+
+
+def lm_param_sharding(mesh, shapes_tree) -> Any:
+    """Map the {name: (shape, dtype)} tree to NamedShardings."""
+    def leaf(path, x):
+        top, name = path[0], path[-1]
+        if top.startswith("block"):
+            name = f"{top}/{name}"
+        return _ns(mesh, _lm_leaf_spec(name, x[0], mesh))
+    return tree_map_with_path(leaf, shapes_tree, is_leaf=_is_shape_leaf)
+
+
+def lm_batch_sharding(mesh, specs: Dict[str, Any]) -> Any:
+    dp = dp_axes(mesh)
+
+    def spec_for(k, v):
+        if k in ("tokens", "targets", "token"):
+            ax = dp if _evenly(v.shape[0], mesh, dp) else None
+            return _ns(mesh, P(ax, *([None] * (len(v.shape) - 1))))
+        if k == "pos":
+            return _ns(mesh, P())
+        raise KeyError(k)
+
+    return {k: spec_for(k, v) if k != "cache" else None
+            for k, v in specs.items()}
+
+
+def lm_cache_sharding(mesh, cache_tree) -> Any:
+    """KV caches: batch->dp, sequence->model (flash-decode style).
+    Stacked-vs-unstacked is decided by the tree path ('block*' subtrees
+    carry a leading layer axis, 'prefix*' do not)."""
+    dp = dp_axes(mesh)
+
+    def leaf(path, x):
+        nd = len(x.shape)
+        if path[0].startswith("block"):      # stacked (L, B, S, ...)
+            spec = [None, dp, "model"] + [None] * (nd - 3)
+        else:                                # (B, S, ...)
+            spec = [dp, "model"] + [None] * (nd - 2)
+        for i, a in enumerate(spec):
+            if a is not None and not _evenly(x.shape[i], mesh, a):
+                spec[i] = None
+        return _ns(mesh, P(*spec))
+    return tree_map_with_path(leaf, cache_tree)
+
+
+# ---------------------------------------------------------------------------
+# GNN / DLRM
+# ---------------------------------------------------------------------------
+
+def gnn_param_sharding(mesh, shapes_tree) -> Any:
+    return tree_map(lambda x: _ns(mesh, P()), shapes_tree,
+                    is_leaf=_is_shape_leaf)
+
+
+def gnn_batch_sharding(mesh, specs: Dict[str, Any]) -> Any:
+    axes = all_axes(mesh)
+
+    def leaf(v):
+        if not hasattr(v, "shape") or len(v.shape) == 0:
+            return _ns(mesh, P())
+        if _evenly(v.shape[0], mesh, axes):
+            return _ns(mesh, P(axes, *([None] * (len(v.shape) - 1))))
+        return _ns(mesh, P())
+
+    return {k: leaf(v) for k, v in specs.items()}
+
+
+def dlrm_param_sharding(mesh, shapes_tree) -> Any:
+    """Tables over 'model' by rows where it divides them; the rest
+    replicated."""
+    def leaf(path, x):
+        if path[-1].startswith("table") and _evenly(x[0][0], mesh, "model"):
+            return _ns(mesh, P("model", None))
+        return _ns(mesh, P())
+    return tree_map_with_path(leaf, shapes_tree, is_leaf=_is_shape_leaf)
+
+
+def dlrm_batch_sharding(mesh, specs: Dict[str, Any]) -> Any:
+    dp = dp_axes(mesh)
+
+    def leaf(k, v):
+        if k == "candidates":
+            ax = "model" if _evenly(v.shape[0], mesh, "model") else None
+            return _ns(mesh, P(ax, None))
+        if len(v.shape) == 0 or not _evenly(v.shape[0], mesh, dp):
+            return _ns(mesh, P())
+        return _ns(mesh, P(dp, *([None] * (len(v.shape) - 1))))
+
+    return {k: leaf(k, v) for k, v in specs.items()}
+
+
+# ---------------------------------------------------------------------------
+# generic helpers
+# ---------------------------------------------------------------------------
+
+def replicate(mesh, tree) -> Any:
+    return tree_map(lambda _: _ns(mesh, P()), tree)
+
+
+def like_tree(sharding_tree, template_tree) -> Any:
+    """Re-key a sharding tree onto an identically-structured template:
+    the i-th leaf of one, in the reference's order, at the i-th leaf of
+    the other."""
+    paths = [path for path, _ in flatten_with_path(template_tree)]
+    at = dict(zip(paths, leaves(sharding_tree)))
+    return tree_map_with_path(lambda path, _: at[path], template_tree)
+
+
+def opt_state_sharding(param_sharding, opt_state_tree):
+    """Moments shard like params; the step counter is replicated."""
+    from repro_torch.optim.adamw import OptState
+    first = leaves(param_sharding)[0]
+    return OptState(step=_ns(first.mesh, P()), m=param_sharding,
+                    v=param_sharding)

@@ -42,7 +42,7 @@ from repro_torch.data.recsys import CriteoLikeGenerator
 from repro_torch.kernels.embedding_bag import ops as bag_ops
 from repro_torch.models import dlrm as M
 from repro_torch.models import layers as L
-from repro_torch.parallel.sharding import (dlrm_param_sharding,
+from repro_torch.parallel.sharding import (dlrm_param_placement,
                                            table_row_block)
 
 RTOL = ATOL = 1e-5
@@ -215,7 +215,7 @@ def test_sharded_serve_step_equals_unsharded(sizes, n, sharded, hot):
     params = M.init_params(cfg, torch.Generator().manual_seed(n),
                            device="cpu")
     devices = ["cpu"] * n
-    sh = dlrm_param_sharding(params, devices)
+    sh = dlrm_param_placement(params, devices)
     for t, v in enumerate(sizes):
         blocks = sh[f"table{t}"]
         assert len(blocks) == n
@@ -257,7 +257,7 @@ def test_sharded_reference_params_match_reference(table_dtype):
     rp, pp = _models()
     batch = _batch(SMOKE_CONFIG, 16, 17)
     want = np.asarray(RM.serve_step(REF_SMOKE, rp, _ref(batch)))
-    sh = dlrm_param_sharding(pp, ["cpu"] * 4)
+    sh = dlrm_param_placement(pp, ["cpu"] * 4)
     got = M.serve_step(SMOKE_CONFIG, sh, batch, devices=["cpu"] * 4)
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
 

@@ -55,8 +55,8 @@ from repro_torch.kernels.embedding_bag.ref import embedding_bag_backward_ref
 from repro_torch.models import dlrm as M
 from repro_torch.models import layers as L
 from repro_torch.optim import adamw as A
-from repro_torch.parallel.sharding import (dlrm_opt_state_sharding,
-                                           dlrm_param_sharding,
+from repro_torch.parallel.sharding import (dlrm_opt_state_placement,
+                                           dlrm_param_placement,
                                            table_row_block)
 
 TABLE_DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -569,8 +569,8 @@ def test_sharded_sparse_step_equals_unsharded(table_dtype, n):
     unsharded step's bit for bit over 3 steps."""
     _, (pp, po) = _start(2)
     devices = ["cpu"] * n
-    sp = dlrm_param_sharding({k: v.clone() for k, v in pp.items()}, devices)
-    so = dlrm_opt_state_sharding(A.OptState(
+    sp = dlrm_param_placement({k: v.clone() for k, v in pp.items()}, devices)
+    so = dlrm_opt_state_placement(A.OptState(
         po.step.clone(), {k: v.clone() for k, v in po.m.items()},
         {k: v.clone() for k, v in po.v.items()}), devices)
     cfg = A.AdamWConfig(**OPT)

@@ -75,7 +75,11 @@ def test_importing_every_module_pulls_in_no_jax_and_no_reference():
                                     "repro_torch.models.transformer",
                                     "repro_torch.models.moe",
                                     "repro_torch.data.tokens",
-                                    "repro_torch.launch.serve"])
+                                    "repro_torch.launch.serve",
+                                    "repro_torch.launch.steps",
+                                    "repro_torch.launch.perf",
+                                    "repro_torch.launch.mesh",
+                                    "repro_torch.parallel.sharding"])
 def test_fused_lane_modules_import_no_jax_and_no_reference(module):
     """The fused lane's and the QueryEngine's modules, the embedding_bag
     entry point, the executor and converter that reach them, the public
@@ -83,7 +87,9 @@ def test_fused_lane_modules_import_no_jax_and_no_reference(module):
     serving and training (configs, model, layers, the Criteo-like
     generator, the lookup's gradient, AdamW, compression, checkpoints and
     the train CLI), the fabric dry run and LM serving (the transformer,
-    MoE, the token stream and the serve CLI), load on a host without JAX: importing each alone pulls
+    MoE, the token stream and the serve CLI), and the launch layer (the
+    cells, the dry run, the variant runs, the grids and the sharding
+    rules), load on a host without JAX: importing each alone pulls
     in neither ``jax`` nor ``repro``."""
     code = (
         "import importlib, sys\n"
@@ -116,11 +122,23 @@ def test_source_has_no_jax_or_reference_import(path):
             assert top not in ("jax", "jaxlib", "repro"), (path, name)
 
 
-def test_entry_point_defaults_to_the_card():
+def test_entry_point_defaults_to_the_card(tmp_path):
     """Without torch_device the engines run on CUDA; on a host without it,
-    they raise instead of running on the CPU."""
+    they raise instead of running on the CPU. So do the launch layer's
+    card paths: the one-card grid, the dry run's ``--mesh card`` and the
+    variant runs."""
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device; the default runs there")
+    from repro_torch.launch import dryrun, perf
+    from repro_torch.launch.mesh import make_host_mesh
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_host_mesh()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dryrun.main(["--arch", "gcn-cora", "--shape", "molecule", "--mesh",
+                     "card", "--out", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        perf.main(["--cell", "dlrm_train", "--out", str(tmp_path)])
+    assert not any(tmp_path.iterdir())
     from repro_torch import (QueryEngine, TriangleEngine, engine_count,
                              patterns, query_count)
     src, dst = np.array([0, 1, 0]), np.array([1, 2, 2])
