@@ -148,7 +148,9 @@ Phases (the kernels each main-path phase must launch in brackets):
                   dry run's model cells, ``launch.perf``): (a)
                   ``build_cell`` and the single / multi records of all 80
                   (cell x production grid) pairs, per-device bytes <=
-                  whole bytes <= per-device bytes x n_chips; (b)
+                  whole bytes <= per-device bytes x n_chips, the 56
+                  records of the cells a grid runs with their
+                  collectives (reckoned on ``meta`` blocks); (b)
                   ``run_cell(..., "card")`` at full shape, the launch
                   counts zeroed before each cell and read after it:
                   dlrm-mlperf serve_p99 [embedding_bag "dma" 11 and
@@ -163,8 +165,37 @@ Phases (the kernels each main-path phase must launch in brackets):
                   sees no card (80 records); (d) ``python -m
                   repro_torch.launch.perf --cell dlrm_train`` in a child
                   process (4 records, every one run).
-                  dryrun, dlrm, train, gnn, lm, lm_train and launch run
-                  first, on an empty card.
+ 2h. grid       — cells split over a named grid of places
+                  (``launch.steps.Cell.sharded``: one process drives every
+                  place, ``parallel.spmd``), GRID_PLACES places on the card
+                  repeated: (a) each collective (all-gather,
+                  reduce-scatter, all-reduce at float32 and bfloat16,
+                  all-to-all, fetch) against its plain loop on CPU copies
+                  in grid order, bit for bit; (b) graphcast's full CONFIG
+                  on the refinement-6 multimesh, padded to whole 512-row
+                  blocks, on a (2, 2) grid, GRID_GNN_STEPS steps
+                  [embedding_bag_backward 4 x 48 a step], step ms, each
+                  device's peak, the ledger's bytes a step, the last step
+                  run again from its saved state equal bit for bit, and at
+                  GRID_GNN_CHECK_LAYERS layers the grid step within
+                  GRID_GNN_REL_L2 relative L2 of the whole step a leaf;
+                  (c) dlrm-mlperf serve_p99 at CONFIG on a (1, 4) grid,
+                  the tables' row blocks views of the whole tables
+                  (48.07 GB held once) [embedding_bag 4 x 26 a step, each
+                  block's mode as "auto" picks it], scores within
+                  DLRM_SCORE_ATOL of the whole step; (d) qwen2-7b's CONFIG
+                  at GRID_LM_LAYERS layers on a (1, 4) grid: prefill of
+                  GRID_LM_BATCH x GRID_LM_PROMPT tokens, GRID_LM_GEN decode
+                  steps fed the whole model's greedy tokens, logits within
+                  LM_LOGIT_REL of the row's largest |logit|, the grid's
+                  greedy token (an argmax over places) equal where the
+                  top-2 margin exceeds that, ms a token, the ledger's
+                  bytes; (e) where four cards are visible, (b)-(d) on
+                  cuda:0..3, else ``"distinct_cards": "not run: <n>
+                  visible"``. The phase's line carries the nvidia-smi
+                  line. No new kernel.
+                  dryrun, dlrm, train, gnn, lm, lm_train, launch and grid
+                  run first, on an empty card.
   3. rmat       — Graph500-style RMAT, ``backend="auto"`` [intersect]; the
                   count must equal the plain torch ``binary`` lane.
   4. clustered  — triangle-rich planted-partition graph [triangle_dense];
@@ -509,6 +540,21 @@ LAUNCH_CARD_CELLS = (("dlrm-mlperf", "serve_p99", False),
                      ("deepseek-v2-236b", "train_4k", True))
 LAUNCH_BACKWARDS = {"gcn-cora": 2 + 4 * 2, "graphcast": 3 * 16}
 LAUNCH_CLI_TIMEOUT_S = 600
+# the grid phase (PERF.md §4): cells split over a grid of four places on
+# the card repeated (and on four cards where there are four); graphcast's
+# batch padded to whole 512-row blocks, as the cells' input specs pad
+# theirs; AdamW's step started past the warmup so that the step moves the
+# params; the 2-layer check against the whole step in relative L2 a leaf;
+# qwen2-7b's depth, prompt and decode
+GRID_PLACES = 4
+GRID_GNN_STEPS = 3
+GRID_GNN_PAD = 512
+GRID_OPT_STEP = 50
+GRID_GNN_CHECK_LAYERS = 2
+GRID_GNN_REL_L2 = 1e-5
+GRID_LM_LAYERS = 28
+GRID_LM_BATCH, GRID_LM_PROMPT, GRID_LM_GEN = 4, 512, 16
+GRID_PHASE_LIMIT_S = 60
 # the fused kernel's plain version is timed on the largest main-path input
 # whose padded (R, K) atoms hold at most this many words
 FUSED_PLAIN_WORDS_CAP = 1 << 30
@@ -4413,6 +4459,8 @@ def phase_gnn(torch, np, ops, shared, grad_ops) -> dict:
     verts, src, dst = icosahedral_mesh(GNN_REFINEMENT)
     mesh_s = time.perf_counter() - t0
     batch = weather_batch(torch, np, verts, src, dst, cfg.d_in)
+    # the grid phase trains on the same inputs
+    shared["weather_batch"] = {k: v.cpu() for k, v in batch.items()}
     n, e = len(verts), len(src)
     out = {"phase": "gnn", "arch": GNN_ARCH, "n_layers": cfg.n_layers,
            "d_hidden": cfg.d_hidden, "d_in": cfg.d_in, "d_out": cfg.d_out,
@@ -5216,7 +5264,7 @@ def launch_grid_records(tmp) -> dict:
     bytes x n_chips."""
     from repro_torch.configs import all_arch_ids, get_arch
     from repro_torch.launch.dryrun import run_cell
-    n, largest = 0, (0, "")
+    n, largest, coll = 0, (0, ""), 0
     for aid in all_arch_ids():
         for shp in get_arch(aid).shape_names():
             for grid in ("single", "multi"):
@@ -5225,9 +5273,14 @@ def launch_grid_records(tmp) -> dict:
                     rec["argument_bytes_whole"]
                 assert rec["ok"] and per <= whole <= per * rec["n_chips"], rec
                 largest = max(largest, (per, f"{aid}/{shp}/{grid}"))
+                coll += bool(rec.get("collectives"))
                 n += 1
     assert n == 80, n
-    return {"records": n, "largest_per_device": largest}
+    # the records of the cells a grid runs carry their collectives: the
+    # GNN (16), DLRM serving (3) and dense-LM serving (9) cells, each grid
+    assert coll == 2 * (16 + 3 + 9), coll
+    return {"records": n, "largest_per_device": largest,
+            "with_collectives": coll}
 
 
 def launch_card_cell(torch, ops, bag_ops, tmp, arch: str, shape: str,
@@ -5363,6 +5416,498 @@ def phase_launch(torch, np, ops, shared, bag_ops) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     out["launches"] = {k: totals.get(k, 0) for k in ops}
     out["allocated_at_end"] = torch.cuda.memory_allocated()
+    return out
+
+
+def grid_collective_cases(torch, spmd, grid) -> dict:
+    """(a) of phase_grid: each collective on the grid's places against its
+    plain loop on CPU copies, in grid order (place 0 first), bit for bit;
+    the bytes the ledger counted."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def blocks(shape, dtype=torch.float32):
+        return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                for _ in range(GRID_PLACES)]
+
+    def loop_sum(xs, g):
+        acc = xs[g[0]].cpu().float().clone()
+        for m in g[1:]:
+            acc += xs[m].cpu().float()
+        return acc
+
+    out = {}
+    for axes in ("model", ("data", "model")):
+        k = spmd.axis_size(grid, axes)
+        groups = spmd.groups(grid, axes)
+        name = "+".join(spmd.axes_of(axes))
+        checks = {}
+        xs = blocks((4 * k, 96))
+        spmd.reset_ledger()
+        got = spmd.all_gather(xs, grid, axes, 1)
+        checks["all_gather"] = all(torch.equal(
+            got[m].cpu(), torch.cat([xs[i].cpu() for i in g], 1))
+            for g in groups for m in g)
+        got = spmd.reduce_scatter(xs, grid, axes, 0)
+        checks["reduce_scatter"] = all(torch.equal(
+            got[m].cpu(), loop_sum(xs, g)[r * 4:(r + 1) * 4])
+            for g in groups for r, m in enumerate(g))
+        for dtype in (torch.float32, torch.bfloat16):
+            ys = blocks((64, 96), dtype)
+            got = spmd.all_reduce(ys, grid, axes)
+            checks[f"all_reduce_{str(dtype)[6:]}"] = all(torch.equal(
+                got[m].cpu(), loop_sum(ys, g).to(dtype))
+                for g in groups for m in g)
+        got = spmd.all_to_all(xs, grid, axes, 0, 1)
+        checks["all_to_all"] = all(torch.equal(got[m].cpu(), torch.cat(
+            [torch.chunk(xs[i].cpu(), k, 0)[r] for i in g], 1))
+            for g in groups for r, m in enumerate(g))
+        want = [[(0, 5), (96 * (k - 1), 96 * k - 1)]] * GRID_PLACES
+        got = spmd.fetch(xs, grid, axes, 1, 96, want)
+        checks["fetch"] = all(torch.equal(got[m].cpu(), torch.cat(
+            [torch.cat([xs[i].cpu() for i in g], 1)[:, a:b]
+             for a, b in want[m]], 1)) for g in groups for m in g)
+        assert all(checks.values()), (name, checks)
+        out[name] = {"equal_bits": checks, "ledger": spmd.ledger()}
+    return out
+
+
+def grid_pad_graph(torch, batch: dict, multiple: int) -> dict:
+    """The graph batch with its node and edge rows padded to ``multiple``,
+    as the cells' input specs pad theirs: zero rows, masks 0, padding
+    edges from node 0 to node 0."""
+    out = {}
+    n, e = batch["node_feat"].shape[0], batch["edge_src"].shape[0]
+    for k, v in batch.items():
+        rows = e if k.startswith("edge_") else n
+        pad = -rows % multiple
+        out[k] = torch.cat([v, v.new_zeros((pad,) + tuple(v.shape[1:]))])
+    return out
+
+
+def rel_l2(torch, got, want) -> float:
+    got, want = got.double(), want.double()
+    return float(torch.linalg.vector_norm(got - want)
+                 / max(float(torch.linalg.vector_norm(want)), 1e-300))
+
+
+def grid_gnn(torch, np, ops, devs, shared) -> dict:
+    """(b) of phase_grid: graphcast's full CONFIG on the refinement-6
+    multimesh (the gnn phase's inputs, kept in ``shared`` where that phase
+    ran, padded to whole GRID_GNN_PAD-row blocks) on a (2, 2) grid of
+    ``devs``, through ``Cell.sharded``:
+    GRID_GNN_STEPS steps [embedding_bag_backward 48 a place a step], step
+    ms, peaks, the ledger of a step; the last step run again from its
+    saved state, equal bit for bit; at GRID_GNN_CHECK_LAYERS layers the
+    grid step against the whole step in relative L2 a leaf, within
+    GRID_GNN_REL_L2 or twice what the whole step moves when only the
+    order of its float32 sums changes (its edges reversed), whichever is
+    larger: from a state one whole step has warmed, the loss, params and
+    moments; from the fresh state the loss and moments (AdamW's first
+    update of a near-zero gradient is its sign, so rounding decides
+    it)."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import get_arch
+    from repro_torch.data.graphs import icosahedral_mesh
+    from repro_torch.launch.mesh import make_grid
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import gnn
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.parallel import spmd
+    from repro_torch.pytree import flatten_with_path, tree_map
+
+    t0 = time.perf_counter()
+    cfg = get_arch(GNN_ARCH).config
+    if "weather_batch" not in shared:
+        shared["weather_batch"] = weather_batch(
+            torch, np, *icosahedral_mesh(GNN_REFINEMENT), cfg.d_in)
+    batch = grid_pad_graph(torch, {k: v.to(devs[0]) for k, v in
+                                   shared["weather_batch"].items()},
+                           GRID_GNN_PAD)
+    grid = make_grid((2, 2), devs)
+    distinct = list(dict.fromkeys(devs))
+
+    def cell_of(c):
+        cell = build_cell(GNN_ARCH, "molecule", grid,
+                          cfg_transform=lambda _: c)
+        return dataclasses.replace(cell, in_shardings=(
+            cell.in_shardings[0], cell.in_shardings[1],
+            SH.gnn_batch_sharding(grid, batch)))
+
+    def state_of(c, seed):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        params = gnn.init_params(c, gen, device=devs[0])
+        state = adamw.init(params)
+        state.step.fill_(GRID_OPT_STEP)
+        return params, state
+
+    def sync():
+        for d in distinct:
+            torch.cuda.synchronize(d)
+
+    def clone(tree):
+        return tree_map(lambda t: t.clone(), tree)
+
+    cell = cell_of(cfg)
+    params, state = state_of(cfg, GNN_SEED)
+    out = {"arch": GNN_ARCH, "grid": [2, 2], "devices": devs,
+           "nodes_padded": batch["node_feat"].shape[0],
+           "edges_padded": batch["edge_src"].shape[0],
+           "batch_specs": {k: str(ns.spec) for k, ns in
+                           cell.in_shardings[2].items()},
+           "data_s": time.perf_counter() - t0}
+    assert all(ns.spec != () for ns in cell.in_shardings[2].values()), out
+    step = cell.sharded()
+    per_step = GRID_PLACES * 3 * cfg.n_layers
+    for d in distinct:
+        torch.cuda.reset_peak_memory_stats(d)
+    steps, saved = [], None
+    for i in range(GRID_GNN_STEPS):
+        if i == GRID_GNN_STEPS - 1:
+            saved = clone((params, state))
+        placed = cell.place((params, state, batch))
+        spmd.reset_ledger()
+        res, wall, got = drive(torch, ops, lambda: (step(*placed), sync()))
+        assert got["embedding_bag_backward"] == per_step and \
+            sum(got.values()) == per_step, got
+        loss = float(res[0][2]["loss"].blocks[0])
+        assert np.isfinite(loss), (i, loss)
+        steps.append({"ms": wall * 1e3, "loss": loss,
+                      "ledger": spmd.ledger(),
+                      "launches": {k: c for k, c in got.items() if c}})
+    out["steps"] = steps
+    out["launches"] = dict(sum((Counter(x["launches"]) for x in steps),
+                               Counter()))
+    out["ms_per_step"] = statistics.median(x["ms"] for x in steps[1:])
+    out["embedding_bag_backward_per_step"] = per_step
+    out["ledger_bytes_per_step"] = sum(
+        v["bytes"] for v in steps[-1]["ledger"].values())
+    out["peak_bytes"] = {str(d): torch.cuda.max_memory_allocated(d)
+                         for d in distinct}
+    last = clone((params, state))
+    again = cell.place((*saved, batch))
+    step(*again)
+    out["repeat_equal_bits"] = all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(
+            flatten_with_path(last),
+            flatten_with_path(spmd.gather_tree(again[:2]))))
+    assert out["repeat_equal_bits"], "grid step repeated"
+    del params, state, saved, last, again, placed, res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # at GRID_GNN_CHECK_LAYERS layers: the grid step against the whole
+    # step, from a state one whole step has warmed (from zero moments,
+    # AdamW's first update is the gradient's sign wherever |g| >> eps, so
+    # a zero-initialised bias's component whose gradient cancels to
+    # rounding size moves by a full step either way)
+    c2 = dataclasses.replace(cfg, n_layers=GRID_GNN_CHECK_LAYERS)
+    cell2 = cell_of(c2)
+    opt = adamw.AdamWConfig()
+    params, state = state_of(c2, GNN_SEED + 1)
+    # the yardstick: the whole step on the same graph with its edges in
+    # reverse order, which changes only the order of the float32 sums
+    flipped = {k: v.flip(0) if k.startswith("edge_") else v
+               for k, v in batch.items()}
+    kinds = {"params": "0/", "m": "1/.m/", "v": "1/.v/"}
+
+    def errors(got, want):
+        errs = {"loss": rel_l2(torch, got[2]["loss"], want[2]["loss"])}
+        for (path, a), (_, b) in zip(flatten_with_path(got[:2]),
+                                     flatten_with_path(want[:2])):
+            if a.is_floating_point():
+                errs["/".join(path)] = rel_l2(torch, a, b)
+        worst = sorted(errs, key=errs.get)[-3:]
+        return dict({k: max(e for n, e in errs.items() if n.startswith(pre))
+                     for k, pre in kinds.items()}, loss=errs["loss"],
+                    worst={n: errs[n] for n in worst}, leaves=len(errs))
+
+    checks = {}
+    for warm in (False, True):
+        if warm:
+            gnn.train_step(c2, opt, params, state, batch)
+        whole = gnn.train_step(c2, opt, *clone((params, state)), batch)
+        grid_out = spmd.gather_tree(cell2.sharded()(*cell2.place(
+            clone((params, state)) + (batch,))))
+        reordered = gnn.train_step(c2, opt, *clone((params, state)),
+                                   flipped)
+        checks["warm" if warm else "cold"] = {
+            "grid": errors(grid_out, whole),
+            "reordered_sums": errors(reordered, whole)}
+    out["check_2_layers"] = checks
+    for name, c in checks.items():
+        for k in ("loss", *kinds):
+            if name == "cold" and k == "params":
+                continue
+            bound = max(GRID_GNN_REL_L2, 2 * c["reordered_sums"][k])
+            assert c["grid"][k] <= bound, (name, k, checks)
+    del params, state, whole, grid_out
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def grid_expected_launches(bag_ops, cfg, k: int) -> dict:
+    """The embedding_bag launches of one grid serve step on a (1, k) grid:
+    every place looks every field up, in its row block of a table split
+    over ``model`` (its rows divide by k) or in the whole table, each
+    launch's mode as "auto" picks it for those rows' bytes."""
+    out = Counter()
+    for v in cfg.table_sizes:
+        rows = v // k if v % k == 0 else v
+        nbytes = rows * cfg.embed_dim * 2
+        mode = "onehot" if nbytes <= bag_ops.ONEHOT_MAX_BYTES else "dma"
+        out[f"embedding_bag_{mode}"] += k
+        if mode == "onehot":
+            w = bag_ops.onehot_route(rows, cfg.embed_dim, elem=2)
+            out[f"embedding_bag_onehot_{'slices' if w else 'rows'}"] += k
+    return dict(out)
+
+
+def grid_dlrm(torch, np, ops, bag_ops, devs) -> dict:
+    """(c) of phase_grid: dlrm-mlperf serve_p99 at CONFIG on a (1, 4) grid
+    of ``devs``, the tables from ``init_params`` on the first device and
+    their row blocks views of them where a place lies there; scores
+    within DLRM_SCORE_ATOL of the whole ``serve_step``; embedding_bag
+    launches a step: per field a block a place, each block's mode as
+    "auto" picks it for the block's bytes (``grid_expected_launches``)."""
+    import gc
+    from repro_torch.data.recsys import CriteoLikeGenerator
+    from repro_torch.launch.mesh import make_grid
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import dlrm
+    from repro_torch.parallel import spmd
+
+    t0 = time.perf_counter()
+    grid = make_grid((1, GRID_PLACES), devs)
+    distinct = list(dict.fromkeys(devs))
+    for d in distinct:
+        torch.cuda.reset_peak_memory_stats(d)
+
+    def run():
+        got = step(*placed)
+        for d in distinct:
+            torch.cuda.synchronize(d)
+        return got
+    cell = build_cell(DLRM_ARCH, "serve_p99", grid)
+    cfg = cell.cfg
+    gen = torch.Generator(device="cuda").manual_seed(DLRM_SEED)
+    params = dlrm.init_params(cfg, gen, device=devs[0])
+    b = cell.arg_specs[1]["dense"].shape[0]
+    data = CriteoLikeGenerator(cfg.table_sizes, n_dense=cfg.n_dense,
+                               hot=cfg.hot, seed=DLRM_SEED)
+    batch = {k: torch.from_numpy(v).to(devs[0])
+             for k, v in data.batch(b, with_labels=False).items()}
+    out = {"arch": DLRM_ARCH, "grid": [1, GRID_PLACES], "devices": devs,
+           "batch": b, "table_bytes": sum(
+               params[f"table{t}"].numel() * 2 for t in range(cfg.n_sparse))}
+    placed = cell.place((params, batch))
+    views = 0
+    for t in range(cfg.n_sparse):
+        whole_ptr = params[f"table{t}"].untyped_storage().data_ptr()
+        views += sum(blk.untyped_storage().data_ptr() == whole_ptr
+                     for blk in placed[0][f"table{t}"].blocks)
+    out["table_blocks_that_are_views"] = views
+    if len(distinct) == 1:
+        assert views == GRID_PLACES * cfg.n_sparse, views
+    want = dlrm.serve_step(cfg, params, batch)
+    step = cell.sharded()
+    expect = grid_expected_launches(bag_ops, cfg, GRID_PLACES)
+    assert sum(v for k, v in expect.items() if k in (
+        "embedding_bag_dma", "embedding_bag_onehot")) == \
+        GRID_PLACES * cfg.n_sparse, expect
+    spmd.reset_ledger()
+    got_scores, wall, got = drive(torch, ops, run)
+    assert {k: v for k, v in got.items() if v} == \
+        {k: v for k, v in expect.items() if v}, (got, expect)
+    launches_a = dict(got)
+    err = float((spmd.gather(got_scores).to(want.device) - want).abs().max())
+    assert err <= DLRM_SCORE_ATOL, err
+    out.update(max_abs_err=err, launches_a_step={k: v for k, v in
+                                                 got.items() if v},
+               ledger=spmd.ledger(), first_ms=wall * 1e3)
+    launches = Counter(got)
+    times = []
+    for _ in range(5):
+        _, wall, got = drive(torch, ops, run)
+        assert got == launches_a, got
+        launches.update(got)
+        times.append(wall * 1e3)
+    out["launches"] = dict(launches)
+    out["ms_per_step"] = statistics.median(times)
+    out["whole_ms"] = cuda_ms(lambda: dlrm.serve_step(cfg, params, batch), 5)
+    out["peak_bytes"] = {str(d): torch.cuda.max_memory_allocated(d)
+                         for d in distinct}
+    del params, placed, batch, want, got_scores
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def grid_lm(torch, np, ops, devs) -> dict:
+    """(d) of phase_grid: qwen2-7b's CONFIG cut to GRID_LM_LAYERS layers
+    on a (1, 4) grid of ``devs``: ``transformer_sharded.prefill`` of
+    GRID_LM_BATCH x GRID_LM_PROMPT tokens into a cache of GRID_LM_GEN more
+    positions, then GRID_LM_GEN steps of the decode cell's
+    ``Cell.sharded`` fed the whole model's greedy tokens; each step's
+    logits within LM_LOGIT_REL of the row's largest |logit| of the whole
+    model's, the grid's greedy token (an argmax over places) equal to the
+    whole model's wherever the top-2 margin exceeds that bound; ms a
+    token and the ledger's bytes. GEMMs accumulate in float32
+    (``layers.float32_accumulation``)."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch.mesh import make_grid
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as M
+    from repro_torch.models import transformer_sharded as TFS
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.parallel import spmd
+    from repro_torch.pytree import leaves
+
+    t0 = time.perf_counter()
+    grid = make_grid((1, GRID_PLACES), devs)
+    distinct = list(dict.fromkeys(devs))
+    for d in distinct:
+        torch.cuda.reset_peak_memory_stats(d)
+
+    def sync():
+        for d in distinct:
+            torch.cuda.synchronize(d)
+
+    cut = lambda c: dataclasses.replace(c, n_layers=GRID_LM_LAYERS)
+    pre = build_cell(LM_ARCH, "prefill_32k", grid, cfg_transform=cut)
+    dec = build_cell(LM_ARCH, "decode_32k", grid, cfg_transform=cut)
+    cfg = dec.cfg
+    out = {"arch": LM_ARCH, "n_layers": cfg.n_layers,
+           "full_layers": get_arch(LM_ARCH).config.n_layers,
+           "grid": [1, GRID_PLACES], "devices": devs,
+           "batch": GRID_LM_BATCH, "prompt": GRID_LM_PROMPT,
+           "gen": GRID_LM_GEN}
+    max_len = GRID_LM_PROMPT + GRID_LM_GEN
+    with L.float32_accumulation():
+        params = M.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(LM_SEED),
+            devs[0])
+        out["param_bytes"] = sum(t.numel() * t.element_size()
+                                 for t in leaves(params))
+        tok = torch.from_numpy(TokenStream(cfg.vocab, seed=0).batch(
+            GRID_LM_BATCH, GRID_LM_PROMPT)["tokens"]).to(devs[0])
+        # the whole model: prefill, then greedy decode
+        cache, last = M.prefill(cfg, params, tok, max_len=max_len)
+        want_logits, want_tokens = [last], []
+        cur = last.argmax(-1).to(torch.int32)[:, None]
+        for i in range(GRID_LM_GEN):
+            want_tokens.append(cur)
+            lg, cache = M.decode_step(cfg, params, cache, cur,
+                                      GRID_LM_PROMPT + i)
+            want_logits.append(lg)
+            cur = lg.argmax(-1).to(torch.int32)[:, None]
+        del cache
+        # the grid: prefill, then the decode cell fed the same tokens
+        p_sh = pre.place((params, tok))
+        cache_sh = SH.lm_cache_sharding(grid, M.cache_specs(
+            cfg, GRID_LM_BATCH, max_len))
+        spmd.reset_ledger()
+        sync()
+        t1 = time.perf_counter()
+        per_place = TFS.prefill(cfg, p_sh[0], p_sh[1], cache_sh, max_len)
+        sync()
+        out["prefill_ms"] = (time.perf_counter() - t1) * 1e3
+        out["prefill_ledger"] = spmd.ledger()
+        cache_g = spmd.assemble([c for c, _ in per_place], cache_sh)
+        logits_g = spmd.assemble([lg for _, lg in per_place],
+                                 pre.out_shardings[1])
+        step = dec.sharded()
+        errs, margins_ok, times, ledgers = [], [], [], []
+        for i in range(GRID_LM_GEN + 1):
+            lg = spmd.gather(logits_g)
+            ref = want_logits[i]
+            errs.append(logits_err(torch, lg, ref))
+            greedy = spmd.gather(spmd.assemble(
+                TFS.greedy(logits_g), dec.in_shardings[2]))[:, 0]
+            top2 = ref.float().topk(2, dim=-1).values
+            scale = ref.float().abs().amax(-1)
+            sure = (top2[:, 0] - top2[:, 1]) > LM_LOGIT_REL * scale
+            margins_ok.append(bool(torch.equal(
+                greedy[sure].long(), ref.argmax(-1)[sure])))
+            if i == GRID_LM_GEN:
+                break
+            token = spmd.place(want_tokens[i], dec.in_shardings[2])
+            pos = spmd.place(torch.tensor(GRID_LM_PROMPT + i,
+                                          dtype=torch.int32, device=devs[0]),
+                             dec.in_shardings[3])
+            spmd.reset_ledger()
+            sync()
+            t1 = time.perf_counter()
+            logits_g, cache_g = step(p_sh[0], cache_g, token, pos)
+            sync()
+            times.append((time.perf_counter() - t1) * 1e3)
+            ledgers.append(spmd.ledger())
+    out["max_logit_err"] = max(errs)
+    out["greedy_equal_where_sure"] = all(margins_ok)
+    assert out["max_logit_err"] <= LM_LOGIT_REL, errs
+    assert out["greedy_equal_where_sure"], margins_ok
+    out["decode_ms_per_token"] = statistics.median(times)
+    out["decode_ms_all"] = times
+    out["decode_ledger"] = ledgers[-1]
+    out["decode_ledger_bytes"] = sum(v["bytes"] for v in ledgers[-1].values())
+    out["peak_bytes"] = {str(d): torch.cuda.max_memory_allocated(d)
+                         for d in distinct}
+    del params, cache_g, logits_g, p_sh, per_place
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_grid(torch, np, ops, shared, bag_ops) -> dict:
+    """Cells split over a named grid (``launch.steps.Cell.sharded``, one
+    process driving every place, ``parallel.spmd``): (a) each collective
+    on ``["cuda:0"] * 4`` against its plain loop, bit for bit; (b)
+    graphcast's full CONFIG training on a (2, 2) grid (``grid_gnn``); (c)
+    dlrm-mlperf serve_p99 at CONFIG on a (1, 4) grid (``grid_dlrm``); (d)
+    qwen2-7b serving on a (1, 4) grid (``grid_lm``); (e) where four cards
+    are visible, (b)-(d) again on ``cuda:0..3``, else the line says why
+    not. The launch counts are zeroed before each grid step and read after
+    it (``drive``)."""
+    import gc
+    from repro_torch.launch.mesh import make_grid
+    from repro_torch.parallel import spmd
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    one = ["cuda:0"] * GRID_PLACES
+    out = {"phase": "grid", "nvidia_smi": nvidia_smi_line(),
+           "allocated_at_start": torch.cuda.memory_allocated()}
+    out["collectives"] = grid_collective_cases(torch, spmd,
+                                               make_grid((2, 2), one))
+    runs = [("gnn", lambda d: grid_gnn(torch, np, ops, d, shared)),
+            ("dlrm", lambda d: grid_dlrm(torch, np, ops, bag_ops, d)),
+            ("lm", lambda d: grid_lm(torch, np, ops, d))]
+    for name, run in runs:
+        out[name] = run(one)
+    n = torch.cuda.device_count()
+    if n >= GRID_PLACES:
+        cards = [f"cuda:{i}" for i in range(GRID_PLACES)]
+        out["distinct_cards"] = {name: run(cards) for name, run in runs}
+    else:
+        out["distinct_cards"] = f"not run: {n} visible"
+    totals = Counter()
+    for res in [out[name] for name, _ in runs] + (
+            list(out["distinct_cards"].values())
+            if isinstance(out["distinct_cards"], dict) else []):
+        totals.update(res.get("launches", {}))
+    out["launches"] = {k: totals.get(k, 0) for k in ops}
+    out["allocated_at_end"] = torch.cuda.memory_allocated()
+    out["s"] = time.perf_counter() - t0
+    assert out["s"] <= GRID_PHASE_LIMIT_S or n >= GRID_PLACES, out["s"]
     return out
 
 
@@ -5863,7 +6408,7 @@ def bag_bf16_kernel_rows(timing: dict, by_phase: dict) -> list:
 
 
 PHASES = ("dryrun", "dlrm", "train", "gnn", "lm", "lm_train", "launch",
-          "rmat",
+          "grid", "rmat",
           "clustered", "listing",
           "skew", "fused", "query", "outofcore", "query_listing", "api", "shard", "serve",
           "embedding_bag")
@@ -5894,7 +6439,7 @@ def main() -> int:
                     help="device, build and kernel checks only")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="main-path phases to run (default: all "
-                         "nineteen), "
+                         "twenty), "
                          "with the phases they reuse (NEEDS)")
     ap.add_argument("--profile", action="store_true",
                     help="repeat each main-path count under "
@@ -6026,6 +6571,7 @@ def main() -> int:
             "lm_train": lambda: phase_lm_train(torch, np, ops, shared,
                                                grad_ops),
             "launch": lambda: phase_launch(torch, np, ops, shared, bag_ops),
+            "grid": lambda: phase_grid(torch, np, ops, shared, bag_ops),
         }
         runs = []
         names = with_needs(args.phases.split(","))

@@ -37,16 +37,37 @@ bytes); a ``torch.cuda.OutOfMemoryError`` inside the step is recorded as
 emptied before the next cell. Any other exception fails the cell, and
 ``main`` exits 1 when a cell failed.
 
-The reference's HLO collective accounting (``collective_bytes_from_hlo``,
-``_measure``) has no counterpart: eager PyTorch has no HLO, and a run on
-one card makes no collective, so ``card`` records ``collectives: {}`` and
-``single`` / ``multi`` leave the term out. Nor does the reference's
-import-time ``XLA_FLAGS`` guard carry over.
+Collectives. The reference counts them in the compiled per-device HLO
+(``collective_bytes_from_hlo``). The port counts what its grid runtime
+moves (``parallel.spmd.LEDGER``, the reference's record shape
+``{"all-gather": {"count", "bytes"}, ...}``, operand bytes per device):
+
+  * ``single`` / ``multi`` records of the cells ``Cell.sharded`` runs (GNN
+    training, DLRM serving and retrieval, the dense LMs' prefill and
+    decode) carry ``collectives`` of one step run on the abstract
+    production grid with ``meta`` blocks (shapes only): a cell of R > 2
+    repeated layers is run at 1 and 2 repeats and extrapolated to R,
+    exactly, since each repeat makes the same collectives (the reference
+    extrapolates its HLO counts from probes too); other cells leave the
+    term out.
+  * ``card`` with ``grid`` (``--grid 2x2 --devices cuda:0,cuda:0,...``)
+    runs the cell split over that grid of devices (places may repeat):
+    the whole arguments made on the first device, laid out by the cell's
+    in-shardings (views where a block lies on its source's device), the
+    step timed with every device synchronised, and the record carries
+    the ledger's ``collectives`` of one step, ``n_places``, ``n_chips``
+    (distinct devices) and each device's peak. Without ``grid`` a card
+    record is one place, whole, with ``collectives: {}``; only such a run
+    takes probes.
+
+The reference's import-time ``XLA_FLAGS`` guard does not carry over.
 
 Usage:
   python -m repro_torch.launch.dryrun --all              # 40 cells x 2 grids
   python -m repro_torch.launch.dryrun --arch qwen2-7b --shape long_500k \\
       --mesh card                                         # on the card
+  python -m repro_torch.launch.dryrun --arch graphcast --shape molecule \\
+      --mesh card --grid 2x2 --devices cuda:0,cuda:0,cuda:0,cuda:0
   python -m repro_torch.launch.dryrun --fabric [--fabric-shards N]
 
 The fabric dry run (``fabric_dryrun``) plans, schedules and lays out a
@@ -328,51 +349,83 @@ def _result_of(cell, out):
     return out
 
 
+def _distinct(devs) -> list:
+    out = []
+    for d in devs:
+        if d not in out:
+            out.append(d)
+    return out
+
+
 def _measure_on(cell, dev, dims, check, n_timed) -> Dict[str, Any]:
     """Arguments made, a warm-up step, ``n_timed`` timed steps and one
-    counted step of ``cell`` on ``dev``; the arguments die with this
-    frame."""
+    counted step of ``cell`` on ``dev`` (whole), or on its grid's devices
+    (split, ``Cell.sharded``: the arguments made on the first device and
+    laid out by the in-shardings); the arguments die with this frame."""
+    from repro_torch.parallel import spmd
     from repro_torch.pytree import leaves
 
-    cuda = dev.type == "cuda"
-    args = make_args(cell, dev, dims)
+    devs = [dev] if cell.grid.size == 1 else _distinct(
+        list(cell.grid.devices.flat))
+    cuda = devs[0].type == "cuda"
+    whole = make_args(cell, devs[0], dims)
+    if cell.grid.size == 1:
+        fn, args = cell.fn, whole
+    else:
+        fn, args = cell.sharded(), cell.place(whole)
+
+    def sync():
+        if cuda:
+            for d in devs:
+                torch.cuda.synchronize(d)
+    sync()
     if cuda:
-        torch.cuda.synchronize(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-    out = cell.fn(*args)
+        for d in devs:
+            torch.cuda.reset_peak_memory_stats(d)
+    out = fn(*args)
     times = []
     for _ in range(n_timed):
         out = None                  # the last step's output, freed first
-        if cuda:
+        if cuda and len(devs) == 1:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            out = cell.fn(*args)
+            out = fn(*args)
             end.record()
             times.append((start, end))
         else:
+            sync()
             t0 = time.perf_counter()
-            out = cell.fn(*args)
+            out = fn(*args)
+            sync()
             times.append((time.perf_counter() - t0) * 1e3)
-    if cuda:
-        torch.cuda.synchronize(dev)
+    sync()
+    if cuda and len(devs) == 1:
         times = [s.elapsed_time(e) for s, e in times]
     out = None
+    spmd.reset_ledger()
     with flop_counter() as counter:
-        out = cell.fn(*args)
+        out = fn(*args)
     res = {"step_calls": n_timed + 2, "step_ms_all": times,
            "step_ms": statistics.median(times),
            "counted_flops": float(counter.get_total_flops())}
+    if cell.grid.size > 1:
+        res["collectives"] = spmd.ledger()
+        out = spmd.gather_tree(out)
     result = [x for x in leaves(_result_of(cell, out))
               if torch.is_tensor(x) and x.is_floating_point()]
     res["finite"] = bool(all(torch.isfinite(x).all() for x in result))
     if cell.step_kind == "train":
         res["loss"] = float(out[2]["loss"])
     if cuda:
-        torch.cuda.synchronize(dev)
-        res["peak_bytes"] = int(torch.cuda.max_memory_allocated(dev))
+        sync()
+        peaks = {str(d): int(torch.cuda.max_memory_allocated(d))
+                 for d in devs}
+        res["peak_bytes"] = max(peaks.values())
+        if cell.grid.size > 1:
+            res["peak_bytes_by_device"] = peaks
     if check is not None:
-        res["check"] = check(cell, args, out)
+        res["check"] = check(cell, whole, out)
     return res
 
 
@@ -398,6 +451,39 @@ def _free(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
+
+
+def grid_collectives(cell) -> Optional[Dict[str, Dict[str, int]]]:
+    """The collectives of one step of ``cell`` on its grid, reckoned by
+    running ``Cell.sharded`` on ``meta`` blocks of its argument specs
+    (module docstring); None for a cell not run on a grid."""
+    from repro_torch.parallel import spmd
+
+    try:
+        step = cell.sharded()
+    except ValueError:
+        return None
+    spmd.reset_ledger()
+    step(*cell.place(cell.arg_specs))
+    return spmd.ledger()
+
+
+def _reckoned_collectives(cell, probe: Callable):
+    """``grid_collectives`` of ``cell``; for a cell of R > 2 repeated
+    layers, of its probes at 1 and 2 repeats (``probe(k)`` builds them)
+    extrapolated linearly to R, which is exact because every repeat
+    makes the same collectives."""
+    r = _scan_repeats(cell.cfg)
+    if r <= 2:
+        return grid_collectives(cell)
+    c1 = grid_collectives(probe(1))
+    if c1 is None:
+        return None
+    c2 = grid_collectives(probe(2))
+    zero = {"count": 0, "bytes": 0}
+    return {op: {key: c1.get(op, zero)[key] + (r - 1) * (
+        c2.get(op, zero)[key] - c1.get(op, zero)[key])
+        for key in ("count", "bytes")} for op in sorted(set(c1) | set(c2))}
 
 
 def _allocator(dev) -> Dict[str, int]:
@@ -426,7 +512,9 @@ def _run_on(cell, dev, card_bytes: Optional[int], dims, check,
                    oom=str(e).strip().splitlines()[0][:400],
                    allocator=_allocator(dev))
     finally:
-        _free(dev)
+        for d in ([dev] if cell.grid.size == 1
+                  else _distinct(list(cell.grid.devices.flat))):
+            _free(d)
     if out.get("counted_flops"):
         out["useful_flops_ratio"] = (out["model_flops_global"]
                                      / out["counted_flops"])
@@ -465,12 +553,18 @@ def _extrapolated_step(lo, hi, r: int) -> Dict[str, Any]:
 
 
 def _card_cell(arch_id, shape_name, smoke, cfg_transform, dims, probes,
-               torch_device, card_bytes, check) -> Dict[str, Any]:
-    from repro_torch.launch.mesh import (hbm_bytes, make_host_mesh,
-                                         nvidia_smi_line)
+               torch_device, card_bytes, check, grid=None,
+               devices=None) -> Dict[str, Any]:
+    from repro_torch.launch.mesh import (hbm_bytes, make_grid,
+                                         make_host_mesh, nvidia_smi_line)
     from repro_torch.launch.steps import build_cell
 
-    mesh = make_host_mesh(torch_device)
+    if grid is None:
+        mesh = make_host_mesh(torch_device)
+    else:
+        n = math.prod(grid)
+        mesh = make_grid(grid, list(devices) if devices is not None
+                         else [torch_device] * n)
     dev = mesh.devices.flat[0]
     cuda = dev.type == "cuda"
     if card_bytes is None and cuda:
@@ -478,10 +572,16 @@ def _card_cell(arch_id, shape_name, smoke, cfg_transform, dims, probes,
     cell = build_cell(arch_id, shape_name, mesh, smoke=smoke,
                       cfg_transform=cfg_transform, dims=dims)
     rec: Dict[str, Any] = {
-        "ok": True, "step_kind": cell.step_kind, "n_chips": mesh.size,
+        "ok": True, "step_kind": cell.step_kind,
+        "n_chips": len(_distinct(list(mesh.devices.flat))),
         "device": torch.cuda.get_device_name(dev) if cuda else "cpu",
         "card_bytes": card_bytes, "collectives": {},
         "scan_repeats": _scan_repeats(cell.cfg)}
+    if grid is not None:
+        rec.update(grid=list(grid), n_places=mesh.size,
+                   devices=[str(d) for d in mesh.devices.flat])
+        cell.sharded()                  # a cell not run on a grid: raise
+        probes = False
     if cuda:
         rec["nvidia_smi"] = nvidia_smi_line()
     rec.update(_run_on(cell, dev, card_bytes, dims, check))
@@ -520,7 +620,9 @@ def run_cell(arch_id: str, shape_name: str, mesh_kind: str,
              dims: Optional[Dict[str, Any]] = None,
              reduced: Optional[Dict[str, Any]] = None,
              torch_device="cuda", card_bytes: Optional[int] = None,
-             check: Optional[Callable] = None) -> dict:
+             check: Optional[Callable] = None,
+             grid: Optional[tuple] = None,
+             devices: Optional[list] = None) -> dict:
     """Reckon one cell on a production grid (``single`` / ``multi``) or
     run it on one card (``card``; module docstring), and write its record
     to ``out_dir/<arch>__<shape>__<mesh>[__smoke][__variant].json``
@@ -528,7 +630,11 @@ def run_cell(arch_id: str, shape_name: str, mesh_kind: str,
     ``reduced``: a cut of the shape and its description, kept in the
     record; ``card_bytes``: the card's memory (default: read from the
     card); ``check(cell, args, out)``: called after the counted step, its
-    value recorded."""
+    value recorded (on a grid with the whole arguments and the gathered
+    output). ``grid`` (dims, e.g. ``(2, 2)``) and ``devices`` (one a
+    place, repeats allowed; default ``torch_device`` repeated): run the
+    ``card`` cell split over that grid (module docstring); the record's
+    name then ends in ``__grid<dims>``."""
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.launch.steps import build_cell
 
@@ -536,6 +642,8 @@ def run_cell(arch_id: str, shape_name: str, mesh_kind: str,
                                                      else "")
     if variant:
         tag += f"__{variant}"
+    if grid is not None:
+        tag += "__grid" + "x".join(str(d) for d in grid)
     out_dir = Path(out_dir)
     out_path = out_dir / f"{tag}.json"
     if out_path.exists() and not force:
@@ -558,10 +666,19 @@ def run_cell(arch_id: str, shape_name: str, mesh_kind: str,
                        argument_bytes_whole=argument_bytes(cell),
                        model_flops_global=model_flops_for(cell),
                        scan_repeats=_scan_repeats(cell.cfg))
+            coll = _reckoned_collectives(
+                cell, lambda k: build_cell(
+                    arch_id, shape_name, mesh, smoke=smoke,
+                    cfg_transform=_probe_transform(cfg_transform, k),
+                    dims=dims))
+            if coll is not None:
+                rec["collectives"] = coll
+                rec["collective_bytes_per_device"] = sum(
+                    v["bytes"] for v in coll.values())
         elif mesh_kind == "card":
             rec.update(_card_cell(arch_id, shape_name, smoke, cfg_transform,
                                   dims, probes, torch_device, card_bytes,
-                                  check))
+                                  check, grid, devices))
         else:
             raise ValueError(f"mesh {mesh_kind!r}: single | multi | card")
     except Exception as e:  # noqa: BLE001 — record the failure, keep going
@@ -622,6 +739,12 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="results/dryrun")
     ap.add_argument("--torch-device", default="cuda",
                     help="the card of --mesh card (cpu: run on the CPU)")
+    ap.add_argument("--grid", default=None,
+                    help="--mesh card split over a grid, e.g. 2x2")
+    ap.add_argument("--devices", default=None,
+                    help="the grid's devices in order, comma-separated "
+                         "(repeats allowed; default --torch-device "
+                         "repeated)")
     ap.add_argument("--fabric", action="store_true",
                     help="smoke the box-fabric planning path (no devices)")
     ap.add_argument("--fabric-shards", type=int, default=4)
@@ -637,6 +760,13 @@ def main(argv=None) -> int:
 
     out_dir = Path(args.out)
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
+    grid = tuple(int(d) for d in args.grid.split("x")) if args.grid \
+        else None
+    devices = args.devices.split(",") if args.devices else None
+    if grid is None and devices is not None:
+        ap.error("--devices needs --grid")
+    if grid is not None and meshes != ["card"]:
+        ap.error("--grid runs a cell on devices: it needs --mesh card")
     if "card" in meshes:
         from repro_torch.core.engine import resolve_torch_device
         resolve_torch_device(args.torch_device)     # no card: raise here
@@ -655,7 +785,8 @@ def main(argv=None) -> int:
             # grid, as the reference's are on its single pod
             rec = run_cell(aid, shp, mk, out_dir, smoke=args.smoke,
                            force=args.force, probes=(mk == "card"),
-                           torch_device=args.torch_device)
+                           torch_device=args.torch_device, grid=grid,
+                           devices=devices)
             n_ok += rec["ok"]
             n_fail += not rec["ok"]
     print(f"dry-run complete: {n_ok} ok, {n_fail} failed", flush=True)

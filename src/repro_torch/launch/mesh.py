@@ -15,8 +15,9 @@ three ``REPRO_FABRIC_*`` variables configure one.
 The model cells of ``launch.steps`` and ``launch.dryrun`` lay their
 arguments out on a named grid of devices instead (``DeviceGrid``): the
 production grids of the reference (``make_production_mesh``: 16 x 16
-``("data", "model")``, or 2 x 16 x 16 with ``"pod"``) and the one-card
-grid that runs a cell (``make_host_mesh``). ``HW`` holds the card's
+``("data", "model")``, or 2 x 16 x 16 with ``"pod"``), the one-card
+grid that runs a cell whole (``make_host_mesh``), and any grid over a
+device list (``make_grid``), on which ``parallel.spmd`` runs a cell split. ``HW`` holds the card's
 published peaks for the dry run's roofline terms.
 """
 
@@ -179,6 +180,19 @@ def make_production_mesh(*, multi_pod: bool = False,
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return _grid(shape, axes, devices)
+
+
+def make_grid(dims: Sequence[int], devices: Optional[Sequence] = None
+              ) -> DeviceGrid:
+    """A ``("data", "model")`` grid of ``dims`` (or ``("pod", "data",
+    "model")`` for three dims) over ``devices`` in grid order, repeats
+    allowed (``["cuda:0"] * 4`` for four places on one card); abstract
+    when ``devices`` is None."""
+    dims = tuple(int(d) for d in dims)
+    axes = {2: ("data", "model"), 3: ("pod", "data", "model")}.get(len(dims))
+    if axes is None:
+        raise ValueError(f"a grid has 2 or 3 dims, not {dims}")
+    return _grid(dims, axes, devices)
 
 
 def make_host_mesh(torch_device="cuda") -> DeviceGrid:

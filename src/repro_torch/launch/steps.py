@@ -13,10 +13,21 @@ dense ``train_step``, its ``serve_step`` and ``retrieval_score``. ``donate_argnu
 arguments the step may overwrite in place, which the port's train and
 decode steps do.
 
-``Cell`` has no ``jit`` or ``lower``: there is no XLA. The port runs a
-cell eagerly on one card (``dryrun.run_cell(..., "card")``), with whole
-tensors; the shardings describe the production grids' layouts and size
-their per-device bytes, and move nothing.
+``Cell.sharded()`` is the counterpart of the reference's ``Cell.jit()``
+(``jax.jit(fn, in_shardings, out_shardings, donate_argnums)``): a step
+over ``parallel.spmd.Sharded`` arguments laid out by ``in_shardings`` on
+the cell's grid, returning its outputs laid out by ``out_shardings``,
+block for block, with ``donate_argnums`` kept (the train and decode steps
+write those arguments' blocks in place). One process drives every place
+of the grid (``parallel.spmd``); inside the step the port chooses its own
+scheme (``models.gnn_sharded``, ``models.dlrm.grid_serve``,
+``models.transformer_sharded``), so ``constrain`` stays a marker. It
+covers GNN training, DLRM serving and retrieval, and the dense LMs'
+prefill and decode; another cell raises ``ValueError`` (ROADMAP §1 item
+3). ``Cell.place`` lays whole arguments out for it, and on an abstract
+grid places their ``meta`` specs, so the same step reckons the cell's
+collectives without a card (``launch.dryrun``). ``fn`` runs the cell
+whole, in one process, as before.
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ from repro_torch.models import gnn as GNN
 from repro_torch.models import transformer as TF
 from repro_torch.optim import adamw
 from repro_torch.parallel import sharding as SH
+from repro_torch.parallel import spmd
 from repro_torch.parallel.sharding import P, NamedSharding
 from repro_torch.pytree import leaves, tree_map_with_path
 
@@ -48,6 +60,65 @@ class Cell:
     donate_argnums: Tuple[int, ...]
     cfg: Any
     meta: Dict[str, Any]
+
+    @property
+    def grid(self):
+        return leaves(self.in_shardings)[0].mesh
+
+    def place(self, args):
+        """``args`` (whole tensors, or the ``arg_specs``) laid out by
+        ``in_shardings``: trees of ``parallel.spmd.Sharded``."""
+        return tuple(spmd.place_tree(a, ns)
+                     for a, ns in zip(args, self.in_shardings))
+
+    def sharded(self) -> Callable:
+        """The step on the cell's grid, the one ``build_cell`` was given
+        (module docstring). Raises ``ValueError`` for a cell this slice
+        does not cover."""
+        run = _grid_step(self)
+        in_sh, out_sh = self.in_shardings, self.out_shardings
+
+        def step(*args):
+            for a, ns in zip(args, in_sh):
+                _check_layout(a, ns)
+            per_place = run(*args)
+            return spmd.assemble(per_place, out_sh)
+        return step
+
+
+def _check_layout(arg, shardings) -> None:
+    """Raise ``ValueError`` where an argument's blocks are not laid out
+    as the cell's in-sharding says."""
+    got = leaves(arg, is_leaf=lambda x: isinstance(x, spmd.Sharded))
+    want = leaves(shardings, is_leaf=lambda x: isinstance(x, NamedSharding))
+    if len(got) != len(want):
+        raise ValueError(f"{len(got)} arguments for {len(want)} shardings")
+    for a, ns in zip(got, want):
+        if not isinstance(a, spmd.Sharded) or \
+                tuple(a.spec) != tuple(ns.spec) or \
+                a.grid.shape != ns.mesh.shape:
+            raise ValueError(f"an argument is not laid out as {ns.spec}")
+
+
+def _grid_step(cell: "Cell") -> Callable:
+    """The cell's step on a grid: one output tree a place."""
+    from repro_torch.models import gnn_sharded
+    from repro_torch.models import transformer_sharded as TFS
+
+    fam = get_arch(cell.arch_id).family
+    cfg, kind = cell.cfg, cell.step_kind
+    if fam == "gnn" and kind == "train":
+        return functools.partial(gnn_sharded.train_step, cfg, OPT_CFG)
+    if fam == "recsys" and kind in ("serve", "retrieval"):
+        return functools.partial(DLRM.grid_serve, cfg, kind)
+    if fam == "lm" and kind in ("prefill", "decode"):
+        TFS.check_config(cfg)
+        if kind == "prefill":
+            return functools.partial(TFS.prefill, cfg,
+                                     cache_shardings=cell.out_shardings[0])
+        return functools.partial(TFS.decode_step, cfg)
+    raise ValueError(f"{cell.arch_id} {cell.shape_name}: a {fam} {kind} "
+                     f"cell is not run on a grid yet (ROADMAP §1 item 3)")
 
 
 def _rep(mesh) -> NamedSharding:

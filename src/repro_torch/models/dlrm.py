@@ -25,7 +25,11 @@ params of ``parallel.sharding.dlrm_param_placement``): a bag-sum over a
 row-sharded table is a local masked bag-sum per shard followed by a sum of
 the partial bags on ``devices[0]`` (the reference's psum over the
 ``model`` axis): the sum over bag slots commutes with the shard sum, so no
-rows move between devices.
+rows move between devices. On a named grid (``grid_serve``, under the
+cell's shardings, ``launch.steps.Cell.sharded``) the batch rows follow the
+places' ``dp`` index, the candidates are split over ``model``, and the
+partial bags are all-reduced over ``model`` in grid order, their sum on
+every place of the row.
 
 The dense parts are plain PyTorch: the MLPs are ``x @ w + b`` in float32,
 the interaction one ``torch.bmm`` and fixed lower-triangle indices, as the
@@ -298,6 +302,99 @@ def retrieval_score(cfg: DLRMConfig, params, batch, *,
     k = min(100, cand.shape[0])
     top_s, top_i = torch.topk(scores, k, dim=-1)
     return top_s, top_i
+
+
+# ---------------------------------------------------------------------------
+# serving on a named device grid (parallel.spmd)
+# ---------------------------------------------------------------------------
+
+def _grid_bag(table, idx):
+    """The serving bag-sum on a place (``embedding_bag``), or its shape on
+    an abstract grid's ``meta`` blocks."""
+    if table.is_meta:
+        return torch.empty((idx.shape[0], table.shape[1]),
+                           dtype=torch.float32, device="meta")
+    return embedding_bag(table, idx)
+
+
+def _grid_lookups(cfg: DLRMConfig, tables, split, sparse, grid, p: int):
+    """One place's 26 bags (a generator, ``spmd.lockstep``): a table
+    split over ``model`` is looked up in the place's row block with the
+    other rows' slots sent to PAD (the block's row count), and the partial
+    bags all-reduced over ``model`` in grid order; a whole table is looked
+    up whole."""
+    from repro_torch.parallel import spmd
+
+    k = spmd.axis_size(grid, "model")
+    m = spmd.coord(grid, p, "model")
+    bounds = _clamp_bounds(tuple(cfg.table_sizes), sparse.device,
+                           sparse.dtype)
+    clamped = torch.minimum(sparse, bounds).transpose(0, 1).contiguous()
+    out = []
+    for t, v in enumerate(cfg.table_sizes):
+        tab = tables[f"table{t}"]
+        if not split[t]:
+            out.append(_grid_bag(tab, clamped[t]))
+            continue
+        blk = v // k
+        local = clamped[t] - m * blk
+        local = torch.where((local >= 0) & (local < blk), local, blk)
+        out.append((yield spmd.AllReduce(_grid_bag(tab, local), "model")))
+    return out
+
+
+def _grid_place(cfg: DLRMConfig, kind: str, params, split, batch, grid,
+                p: int):
+    """One place's serving step (a generator): ``serve_step``'s scores of
+    its batch rows, or ``retrieval_score``'s top candidates, the
+    candidates split over ``model`` where the rules split them."""
+    from repro_torch.parallel import spmd
+
+    x = _mlp(params, batch["dense"], "bot", len(cfg.bot_mlp))
+    embs = yield from _grid_lookups(cfg, params, split, batch["sparse"],
+                                    grid, p)
+    if kind == "serve":
+        return torch.sigmoid(_interact_top(cfg, params, x, embs))
+    for vec in embs:
+        x = x + vec
+    cand = batch["candidates"]
+    scores = x @ cand.T
+    n_all = batch["n_candidates"]
+    k = min(100, n_all)
+    if cand.shape[0] == n_all:
+        return tuple(torch.topk(scores, k, dim=-1))
+    top_s, top_i = torch.topk(scores, min(k, cand.shape[0]), dim=-1)
+    top_i = top_i + spmd.coord(grid, p, "model") * cand.shape[0]
+    all_s = yield spmd.AllGather(top_s, "model", 1)
+    all_i = yield spmd.AllGather(top_i, "model", 1)
+    best_s, at = torch.topk(all_s, k, dim=-1)
+    return best_s, torch.gather(all_i, 1, at)
+
+
+def grid_serve(cfg: DLRMConfig, kind: str, params, batch) -> list:
+    """``serve_step`` (``kind="serve"``) or ``retrieval_score``
+    (``"retrieval"``) on a grid: ``params`` and ``batch`` dicts of
+    ``spmd.Sharded`` under ``dlrm_param_sharding`` /
+    ``dlrm_batch_sharding``; one output a place (the scores of its batch
+    rows, or the (scores, indices) of the top candidates). A split table
+    is looked up per block with its partial bags all-reduced over
+    ``model``; the batch rows follow the places' ``dp`` index; the
+    candidates' blocks are scored where they lie and the blocks' best
+    all-gathered over ``model``."""
+    from repro_torch.parallel import spmd
+
+    grid = batch["dense"].grid
+    split = [params[f"table{t}"].spec[:1] == ("model",)
+             for t in range(cfg.n_sparse)]
+    n_places = len(spmd.places(grid))
+    progs = []
+    for p in range(n_places):
+        local = spmd.blocks_at(batch, p)
+        if kind == "retrieval":
+            local["n_candidates"] = batch["candidates"].shape[0]
+        progs.append(_grid_place(cfg, kind, spmd.blocks_at(params, p),
+                                 split, local, grid, p))
+    return spmd.lockstep(grid, progs)
 
 
 # ---------------------------------------------------------------------------

@@ -40,9 +40,11 @@ A dimension an axis does not divide stays whole (``_evenly``), as in the
 reference. ``set_rules`` / ``constrain`` keep the reference's activation
 rules: ``constraint_spec`` resolves a rule for a shape exactly as the
 reference's ``constrain`` does, and ``constrain`` returns its tensor
-unchanged. One process holds whole tensors (and on a (1, 1) grid the
-reference's constraint is the identity too), so nothing here moves data,
-and the port's models do not call ``constrain``.
+unchanged: nothing here moves data. A cell split over a grid
+(``launch.steps.Cell.sharded``, ``parallel.spmd``) takes its arguments
+and gives its outputs under these rules, and lays its activations out by
+its own scheme inside the step, so the port's models do not call
+``constrain``.
 """
 
 from __future__ import annotations
