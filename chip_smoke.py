@@ -148,7 +148,7 @@ Phases (the kernels each main-path phase must launch in brackets):
                   dry run's model cells, ``launch.perf``): (a)
                   ``build_cell`` and the single / multi records of all 80
                   (cell x production grid) pairs, per-device bytes <=
-                  whole bytes <= per-device bytes x n_chips, the 56
+                  whole bytes <= per-device bytes x n_chips, the 62
                   records of the cells a grid runs with their
                   collectives (reckoned on ``meta`` blocks); (b)
                   ``run_cell(..., "card")`` at full shape, the launch
@@ -194,8 +194,39 @@ Phases (the kernels each main-path phase must launch in brackets):
                   cuda:0..3, else ``"distinct_cards": "not run: <n>
                   visible"``. The phase's line carries the nvidia-smi
                   line. No new kernel.
-                  dryrun, dlrm, train, gnn, lm, lm_train, launch and grid
-                  run first, on an empty card.
+ 2i. grid_train — dense-LM training split over a (2, 2) grid
+                  (``Cell.sharded`` of qwen2-7b's train_4k cell: FSDP over
+                  ``data``, tensor parallelism over ``model``, the
+                  gradient through every collective, grid-wide remat),
+                  four places on the card repeated, bfloat16 with float32
+                  accumulation: (a) the full width at GRID_TRAIN_LAYERS
+                  layers, the arguments made on their places (one whole
+                  leaf at a time on the card), GRID_TRAIN_BATCH x
+                  GRID_TRAIN_SEQ tokens, AdamW from step GRID_OPT_STEP,
+                  GRID_TRAIN_STEPS steps [embedding_bag_backward 4 a step:
+                  each place's vocabulary block], step ms, each device's
+                  peak below GRID_TRAIN_PEAK_LIMIT, the ledger of a step,
+                  every leaf moved, the first step's loss and gradient
+                  norm within GRID_TRAIN_REL of the whole
+                  ``transformer.train_step``; one place's embedding
+                  gradient timed alone; (b) at GRID_TRAIN_CHECK_LAYERS
+                  layers remat "none", "layer" and "dots" equal bit for
+                  bit, float32 gradients within GRID_TRAIN_REL_L2
+                  relative L2 a leaf of the whole model's split by
+                  sequence, and of the unsplit whole model's (or twice
+                  the split one's distance from it), one float32 grid
+                  step's moments against the whole step's and its params
+                  the AdamW update of their own moments bit for bit,
+                  bfloat16 within LM_GRAD_REL of float32, the grid step
+                  repeated bit for bit; the one-card part within
+                  GRID_TRAIN_PHASE_LIMIT_S; (c) where four cards are
+                  visible, all 28 layers on cuda:0..3, each card below
+                  GRID_TRAIN_PEAK_LIMIT and the whole params and
+                  moments, within GRID_TRAIN_CARDS_LIMIT_S, else
+                  ``"distinct_cards": "not run: <n> visible"``. No new
+                  kernel.
+                  dryrun, dlrm, train, gnn, lm, lm_train, launch, grid and
+                  grid_train run first, on an empty card.
   3. rmat       — Graph500-style RMAT, ``backend="auto"`` [intersect]; the
                   count must equal the plain torch ``binary`` lane.
   4. clustered  — triangle-rich planted-partition graph [triangle_dense];
@@ -311,6 +342,7 @@ import argparse
 import contextlib
 import hashlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -555,6 +587,32 @@ GRID_GNN_REL_L2 = 1e-5
 GRID_LM_LAYERS = 28
 GRID_LM_BATCH, GRID_LM_PROMPT, GRID_LM_GEN = 4, 512, 16
 GRID_PHASE_LIMIT_S = 60
+# the grid_train phase (PERF.md §4): qwen2-7b's train_4k cell split over a
+# (2, 2) grid of four places on the card: its full width cut to the most
+# layers whose grid step and the whole step it is held to both stay below
+# GRID_TRAIN_PEAK_LIMIT (the grid step's peak, scripts/grid_train_depth.py:
+# 44.7 GB at 8 layers and 2.8 GB a layer more; the whole step's, this
+# phase at 8 layers: 55.8 GB), the sequence of 4,096 tokens with the
+# batch cut to one sequence a dp row, AdamW from
+# step GRID_OPT_STEP, remat "layer"; its loss and gradient norm against
+# the whole step within GRID_TRAIN_REL; the checks at
+# GRID_TRAIN_CHECK_LAYERS layers (float32 gradients within
+# GRID_TRAIN_REL_L2 relative L2 a leaf of the whole step split by
+# sequence, and of the unsplit whole step or twice the split one's
+# distance from it; bfloat16 within LM_GRAD_REL of float32); where four
+# cards are visible, all 28 layers
+# on cuda:0..3. Its own time limits: the one-card part (a)-(b), and the
+# four-card run (c) (28 layers made on their places and 2 steps)
+GRID_TRAIN_LAYERS = 14
+GRID_TRAIN_BATCH, GRID_TRAIN_SEQ = 2, 4096
+GRID_TRAIN_STEPS = 3
+GRID_TRAIN_SEED = 1
+GRID_TRAIN_REL = 2.0 ** -7
+GRID_TRAIN_CHECK_LAYERS = 2
+GRID_TRAIN_REL_L2 = 1e-5
+GRID_TRAIN_PEAK_LIMIT = 75e9
+GRID_TRAIN_PHASE_LIMIT_S = 60
+GRID_TRAIN_CARDS_LIMIT_S = 120
 # the fused kernel's plain version is timed on the largest main-path input
 # whose padded (R, K) atoms hold at most this many words
 FUSED_PLAIN_WORDS_CAP = 1 << 30
@@ -4167,18 +4225,23 @@ def phase_train(torch, np, ops, shared, grad_ops) -> dict:
 
 
 def bag_backward_kernel_row(timing, gnn_timing, lm_timing,
-                            by_phase: dict) -> dict:
+                            by_phase: dict, grid_lm_timing=None) -> dict:
     """The backward kernel's line: its launches by phase (train, gnn,
-    lm_train), its times at the largest train field's shape (both fields
-    under ``by_field``) or, where the train phase did not run, at the gnn
-    phase's largest segment sum or else the lm_train phase's token
-    embedding; ``by_gnn_shape`` and ``by_lm_shape`` hold those two."""
+    lm_train, grid, grid_train), its times at the largest train field's
+    shape (both fields under ``by_field``) or, where the train phase did
+    not run, at the gnn phase's largest segment sum, else the lm_train
+    phase's token embedding, else one grid_train place's vocabulary
+    block; ``by_gnn_shape``, ``by_lm_shape`` and ``by_grid_lm_shape``
+    hold those three."""
     shapes = dict(timing or {})
     if gnn_timing:
         shapes["gnn"] = gnn_timing
     if lm_timing:
         shapes["lm"] = lm_timing
-    top = timing["largest"] if timing else gnn_timing or lm_timing
+    if grid_lm_timing:
+        shapes["grid_lm"] = grid_lm_timing
+    top = timing["largest"] if timing else \
+        gnn_timing or lm_timing or grid_lm_timing
     launches = by_phase["embedding_bag_backward"]
     row = {"name": "embedding_bag_backward", "route": "cuda",
            "source": "src/repro_torch/csrc/embedding_bag_backward.cu",
@@ -4206,6 +4269,9 @@ def bag_backward_kernel_row(timing, gnn_timing, lm_timing,
         row["by_gnn_shape"] = {"mesh_r6_d512": gnn_timing}
     if lm_timing:
         row["by_lm_shape"] = {"qwen2_7b_embed_4096": lm_timing}
+    if grid_lm_timing:
+        row["by_grid_lm_shape"] = {
+            "qwen2_7b_embed_block_4096": grid_lm_timing}
     return row
 
 
@@ -4221,10 +4287,13 @@ def time_segment_sum(torch, grad_ops, x, seg, n: int, order=None,
     call); the plain version on the card and one ``index_add_`` into a
     float32 (n, D) table (eager: ``library_ms``; in a graph:
     ``library_graph_ms``); the host synchronisations of one call; equality
-    with the plain version on the CPU copy; the bytes bound (each value
-    row and id read once, the n x D output written once: every row, the
-    untouched ones zero) and the longest run's add chain, 4 cycles a slot
-    at the card's maximum SM clock."""
+    with the plain version on the CPU copy; the bytes bound (each id and
+    each value row it keeps read once, the n x D output written once:
+    every row, the untouched ones zero) and the longest run's add chain,
+    4 cycles a slot at the card's maximum SM clock. Ids >= n (a
+    grid_train place's tokens outside its vocabulary block) add nothing:
+    ``index_add_``, which has no such skip, is given the kept slots
+    alone."""
     from repro_torch.kernels.embedding_bag.ref import \
         embedding_bag_backward_ref
     dtype = torch.float32 if dtype is None else dtype
@@ -4260,15 +4329,19 @@ def time_segment_sum(torch, grad_ops, x, seg, n: int, order=None,
     del out, work, want
     plain_ms = cuda_ms(lambda: embedding_bag_backward_ref(x, idx, n, dtype),
                        TIMING_REPS)
+    keep = seg < n
+    seg_in, x_in = seg[keep], x[keep]
     acc = torch.zeros((n, d), dtype=torch.float32, device="cuda")
-    lib_ms = cuda_ms(lambda: acc.index_add_(0, seg, x), TIMING_REPS)
+    lib_ms = cuda_ms(lambda: acc.index_add_(0, seg_in, x_in), TIMING_REPS)
     lib_graph_ms = graph_ms(torch, lambda: [
-        acc.index_add_(0, seg, x) for _ in range(BAG_GRAPH_LAUNCHES)],
+        acc.index_add_(0, seg_in, x_in) for _ in range(BAG_GRAPH_LAUNCHES)],
         TIMING_REPS) / BAG_GRAPH_LAUNCHES
     del acc
     item = torch.empty((), dtype=dtype).element_size()
-    n_bytes = e * (seg.element_size() + 4 * d) + n * d * item
-    counts = torch.bincount(seg.long(), minlength=n)
+    e_in = seg_in.shape[0]
+    n_bytes = e * seg.element_size() + e_in * 4 * d + n * d * item
+    counts = torch.bincount(seg_in.long(), minlength=n)
+    del seg_in, x_in
     longest = int(counts.max())
     clocks = sm_clocks_mhz()
     return {"ms": ms, "ms_with_order": ms_with_order,
@@ -4285,6 +4358,7 @@ def time_segment_sum(torch, grad_ops, x, seg, n: int, order=None,
             "device_ops_per_call": "memset + bag_backward_plan + "
                                    "bag_backward_runs (+ the sort "
                                    "without order)",
+            "skipped_slots": e - e_in,
             "shape": {"rows": n, "idx": [e, 1], "d": d,
                       "out_dtype": str(dtype).replace("torch.", "")}}
 
@@ -5277,8 +5351,9 @@ def launch_grid_records(tmp) -> dict:
                 n += 1
     assert n == 80, n
     # the records of the cells a grid runs carry their collectives: the
-    # GNN (16), DLRM serving (3) and dense-LM serving (9) cells, each grid
-    assert coll == 2 * (16 + 3 + 9), coll
+    # GNN (16), DLRM serving (3) and dense-LM (12: training, prefill and
+    # the two decodes of three archs) cells, each grid
+    assert coll == 2 * (16 + 3 + 12), coll
     return {"records": n, "largest_per_device": largest,
             "with_collectives": coll}
 
@@ -5911,6 +5986,493 @@ def phase_grid(torch, np, ops, shared, bag_ops) -> dict:
     return out
 
 
+def grid_train_cell(n_layers: int, devs):
+    """qwen2-7b's train_4k cell at its full width cut to ``n_layers``
+    layers, remat "layer", on a (2, 2) grid of ``devs``, its batch
+    GRID_TRAIN_BATCH x GRID_TRAIN_SEQ."""
+    import dataclasses
+    from repro_torch.launch.mesh import make_grid
+    from repro_torch.launch.steps import build_cell
+    return build_cell(
+        LM_ARCH, "train_4k", make_grid((2, 2), devs),
+        cfg_transform=lambda c: dataclasses.replace(c, n_layers=n_layers,
+                                                    remat="layer"),
+        dims={"batch": GRID_TRAIN_BATCH, "seq": GRID_TRAIN_SEQ})
+
+
+def grid_train_args(torch, cell, seed: int) -> tuple:
+    """The cell's params and AdamW state made on their places
+    (``dryrun.make_placed_args``: each leaf drawn whole on the first
+    device, its blocks copied out and the leaf freed before the next),
+    the state's step set to GRID_OPT_STEP."""
+    from repro_torch.launch import dryrun
+    params, state, _ = dryrun.make_placed_args(cell, seed=seed)
+    for b in state.step.blocks:
+        b.fill_(GRID_OPT_STEP)
+    return params, state
+
+
+def sharded_checksums(torch, adamw, spmd, tree) -> list:
+    """``leaf_checksums`` of each ``spmd.Sharded`` leaf's blocks: a leaf
+    whose sums changed moved."""
+    from repro_torch.pytree import leaves
+    return [leaf_checksums(torch, adamw, list(sh.blocks)) for sh in
+            leaves(tree, is_leaf=lambda x: isinstance(x, spmd.Sharded))]
+
+
+def grid_train_run(torch, np, ops, grad_ops, devs, n_layers: int,
+                   n_steps: int, record_embed: bool = False,
+                   peak_limit: float = GRID_TRAIN_PEAK_LIMIT) -> tuple:
+    """(a) and (c) of phase_grid_train: qwen2-7b's train_4k cell at
+    ``n_layers`` layers on a (2, 2) grid of ``devs`` through
+    ``Cell.sharded``, the arguments made on their places
+    (``grid_train_args``); ``n_steps`` steps [embedding_bag_backward 4 a
+    step: each place's vocabulary block], step ms with every device
+    synchronised, each device's peak (making the arguments, and in the
+    steps; each below ``peak_limit``), the ledger of a step, finite losses
+    and gradient norms with the same bits on every place, every leaf
+    moved. Returns (its line,
+    the first step's loss and gradient norm, place 0's
+    embedding-gradient inputs of the last step where ``record_embed``)."""
+    import gc
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import spmd
+    from repro_torch.pytree import leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    distinct = list(dict.fromkeys(devs))
+
+    def sync():
+        for d in distinct:
+            torch.cuda.synchronize(d)
+
+    def peaks():
+        return {str(d): torch.cuda.max_memory_allocated(d) for d in distinct}
+
+    for d in distinct:
+        torch.cuda.reset_peak_memory_stats(d)
+    t0 = time.perf_counter()
+    cell = grid_train_cell(n_layers, devs)
+    cfg = cell.cfg
+    params, state = grid_train_args(torch, cell, GRID_TRAIN_SEED)
+    sync()
+    n_params = cfg.params_count()
+    out = {"arch": LM_ARCH, "grid": [2, 2], "devices": devs,
+           "n_layers": cfg.n_layers, "remat": cfg.remat, "params": n_params,
+           "batch": GRID_TRAIN_BATCH, "seq": GRID_TRAIN_SEQ,
+           "opt_step": GRID_OPT_STEP, "init_s": time.perf_counter() - t0,
+           "state_bytes": {str(d): torch.cuda.memory_allocated(d)
+                           for d in distinct},
+           "init_peak_bytes": peaks(),
+           "largest_leaf_bytes": max(t.numel() * t.element_size()
+                                     for t in leaves(cell.arg_specs[0]))}
+    batches = [spmd.place_tree(b, cell.in_shardings[2]) for b in lm_batches(
+        torch, cfg.vocab, n_steps, GRID_TRAIN_BATCH, GRID_TRAIN_SEQ)]
+    before = sharded_checksums(torch, adamw, spmd, params)
+    step = cell.sharded()
+    for d in distinct:
+        torch.cuda.reset_peak_memory_stats(d)
+    steps, seen = [], []
+    for i, batch in enumerate(batches):
+        log = seen if record_embed and i == n_steps - 1 else []
+        spmd.reset_ledger()
+        with recording_bag_backward(grad_ops, log):
+            res, wall, got = drive(torch, ops, lambda: (
+                step(params, state, batch), sync()))
+        assert got["embedding_bag_backward"] == GRID_PLACES and \
+            sum(got.values()) == GRID_PLACES, got
+        m = res[0][2]
+        for name in ("loss", "grad_norm", "lr"):
+            assert all(torch.equal(b.cpu(), m[name].blocks[0].cpu())
+                       for b in m[name].blocks), (i, name)
+        loss = float(m["loss"].blocks[0])
+        gnorm = float(m["grad_norm"].blocks[0])
+        assert np.isfinite(loss) and np.isfinite(gnorm), (i, loss, gnorm)
+        steps.append({"ms": wall * 1e3, "loss": loss, "grad_norm": gnorm,
+                      "lr": float(m["lr"].blocks[0]),
+                      "ledger": spmd.ledger(),
+                      "launches": {k: c for k, c in got.items() if c}})
+        del res, m
+    out["steps"] = steps
+    out["losses"] = [x["loss"] for x in steps]
+    step_ms = statistics.median(x["ms"] for x in steps[1:] or steps)
+    tokens = GRID_TRAIN_BATCH * GRID_TRAIN_SEQ
+    out["ms_per_step"] = step_ms
+    out["tokens_per_s"] = tokens / step_ms * 1e3
+    out["model_flops_per_step"] = 6 * n_params * tokens
+    out["model_flops_share"] = out["model_flops_per_step"] / step_ms * 1e3 \
+        / (H100_BF16_FLOPS * len(distinct))
+    out["ledger"] = steps[-1]["ledger"]
+    out["ledger_bytes_per_step"] = sum(
+        v["bytes"] for v in steps[-1]["ledger"].values())
+    out["embedding_bag_backward_per_step"] = GRID_PLACES
+    out["launches"] = dict(sum((Counter(x["launches"]) for x in steps),
+                               Counter()))
+    out["peak_bytes"] = peaks()
+    for peak in (out["init_peak_bytes"], out["peak_bytes"]):
+        assert max(peak.values()) < peak_limit, out
+    after = sharded_checksums(torch, adamw, spmd, params)
+    out["leaves"] = len(before)
+    out["leaves_moved"] = sum(a != b for a, b in zip(before, after))
+    assert out["leaves_moved"] == len(before), out
+    embed = None
+    if record_embed:
+        grad_out, idx, v, dtype = seen[0]
+        embed = (grad_out.detach().clone(), idx.clone(), v, dtype)
+    first = {"loss": steps[0]["loss"], "grad_norm": steps[0]["grad_norm"]}
+    del params, state, batches, seen, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, first, embed
+
+
+def grid_train_whole(torch, ops, n_layers: int) -> dict:
+    """The yardstick of (a): the whole ``transformer.train_step`` of the
+    same cell on the first card, on the params the grid made (the same
+    generator and draws, ``layers.materialize``) and the grid's first
+    batch: its loss, gradient norm, ms and peak."""
+    import gc
+    from repro_torch.launch.steps import OPT_CFG
+    from repro_torch.models import transformer as M
+    from repro_torch.optim import adamw
+    cfg = grid_train_cell(n_layers, ["cuda:0"] * GRID_PLACES).cfg
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        GRID_TRAIN_SEED), "cuda")
+    state = adamw.init(params)
+    state.step.fill_(GRID_OPT_STEP)
+    batch, = lm_batches(torch, cfg.vocab, 1, GRID_TRAIN_BATCH,
+                        GRID_TRAIN_SEQ)
+    torch.cuda.reset_peak_memory_stats()
+    res, wall, got = drive(torch, ops, lambda: M.train_step(
+        cfg, OPT_CFG, params, state, batch))
+    out = {"loss": float(res[2]["loss"]),
+           "grad_norm": float(res[2]["grad_norm"]), "ms": wall * 1e3,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "launches": {k: c for k, c in got.items() if c}}
+    del params, state, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def rel_l2_sliced(torch, adamw, got, want, fn=lambda t: t) -> float:
+    """``rel_l2`` of ``fn(got)`` against ``fn(want)``, taken over
+    ``adamw.pieces`` slices (no whole-leaf float64 temporary)."""
+    num = den = 0.0
+    for at in adamw.pieces(got.shape):
+        g, w = fn(got[at]).double(), fn(want[at]).double()
+        num += float(torch.sum(torch.square(g - w)))
+        den += float(torch.sum(torch.square(w)))
+    return math.sqrt(num) / max(math.sqrt(den), 1e-300)
+
+
+def adamw_from_moments(torch, adamw, opt_cfg, p, m, v, step):
+    """The param ``adamw.apply`` makes of ``p`` from its new moments ``m``
+    and ``v`` at ``step`` (the step after its increment): the same float32
+    operations in the same order, so a block updated once from its own
+    moments equals it bit for bit."""
+    lr = adamw.schedule(opt_cfg, step)
+    bc1, bc2 = adamw.bias_corrections(opt_cfg, step)
+    delta = (m / bc1) / (torch.sqrt(v / bc2) + opt_cfg.eps)
+    if opt_cfg.weight_decay and p.dim() >= 2:
+        delta = delta + opt_cfg.weight_decay * p.to(torch.float32)
+    return (p.to(torch.float32) - lr * delta).to(p.dtype)
+
+
+def grid_train_step_check(torch, cell, p32, batch, bounds: dict) -> dict:
+    """One float32 grid step (``Cell.sharded``) against the whole
+    ``transformer.train_step``, both from ``p32`` and zero moments at step
+    GRID_OPT_STEP: each leaf's first moment, and the square root of its
+    second (``|g|`` moves no further than ``g``), within ``bounds`` (the
+    leaf's gradient bound) plus the two gradient norms' relative distance
+    (the clip's scale); every param equal bit for bit to the AdamW update
+    of ``p32`` from its own new moments (``adamw_from_moments``), on the
+    grid and in the whole step, so each distinct block was updated once
+    from its own moments; the updates' relative L2 to the whole step's
+    recorded (AdamW's first update is nearly the gradient's sign, so a
+    component whose gradient is at rounding size flips)."""
+    from repro_torch.launch.steps import OPT_CFG
+    from repro_torch.models import transformer as M
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import spmd
+    from repro_torch.pytree import flatten_with_path, leaves, tree_map
+    is_sh = lambda x: isinstance(x, spmd.Sharded)
+
+    def fresh():
+        state = adamw.init(p32)
+        state.step.fill_(GRID_OPT_STEP)
+        return tree_map(torch.clone, p32), state
+
+    pw, sw, mw = M.train_step(cell.cfg, OPT_CFG, *fresh(), batch)
+    pg, sg, mg = cell.sharded()(*cell.place((*fresh(), batch)))
+    norms = {"grid": float(mg["grad_norm"].blocks[0]),
+             "whole": float(mw["grad_norm"])}
+    norm_rel = abs(norms["grid"] - norms["whole"]) / norms["whole"]
+    step = torch.full((), GRID_OPT_STEP + 1, dtype=torch.int32,
+                      device=batch["tokens"].device)
+    errs, own = {}, {}
+    for (path, p0), g, w, gm, wm, gv, wv in zip(
+            flatten_with_path(p32), leaves(pg, is_leaf=is_sh), leaves(pw),
+            leaves(sg.m, is_leaf=is_sh), leaves(sw.m),
+            leaves(sg.v, is_leaf=is_sh), leaves(sw.v)):
+        n = "/".join(path)
+        g, gm, gv = spmd.gather(g), spmd.gather(gm), spmd.gather(gv)
+        errs[n] = {
+            "m": rel_l2_sliced(torch, adamw, gm, wm),
+            "sqrt_v": rel_l2_sliced(torch, adamw, gv, wv, torch.sqrt),
+            "update": rel_l2_sliced(torch, adamw, g - p0, w - p0),
+            "bound": bounds[n] + norm_rel}
+        own[n] = all(
+            torch.equal(x[at], adamw_from_moments(
+                torch, adamw, OPT_CFG, p0[at], xm[at], xv[at], step))
+            for x, xm, xv in ((g, gm, gv), (w, wm, wv))
+            for at in adamw.pieces(p0.shape))
+        del g, gm, gv
+    del pg, sg, pw, sw
+    over = {n: e for n, e in errs.items()
+            if max(e["m"], e["sqrt_v"]) > e["bound"]}
+    worst = max(errs, key=lambda n: errs[n]["update"])
+    out = {"leaves": len(errs), "grad_norms": norms,
+           "loss": {"grid": float(mg["loss"].blocks[0]),
+                    "whole": float(mw["loss"])},
+           "max_m": max(e["m"] for e in errs.values()),
+           "max_sqrt_v": max(e["sqrt_v"] for e in errs.values()),
+           "params_equal_own_moments_update": all(own.values()),
+           "worst_update": {"leaf": worst, **errs[worst]},
+           "over": over}
+    assert not over and all(own.values()), (
+        out, [n for n, ok in own.items() if not ok])
+    return out
+
+
+def grid_train_checks(torch, np, devs) -> dict:
+    """(b) of phase_grid_train, at GRID_TRAIN_CHECK_LAYERS layers of the
+    full width on a (2, 2) grid of ``devs``, the params made on their
+    places: remat "layer", "none" and "dots" give the same loss, norm and
+    gradient blocks bit for bit; the grid step run twice from one state,
+    equal bit for bit in the params, moments and metrics; the same params
+    in float32: each leaf's gradient gathered from the grid within
+    GRID_TRAIN_REL_L2 relative L2 of the whole model's with the batch's
+    mean split by sequence (each sequence's gradient alone, the two
+    added, as the grid's data-parallel step splits them), and within
+    GRID_TRAIN_REL_L2 of the whole model's, or within twice the split
+    whole model's own distance from it where that is larger; the loss
+    likewise; one float32 grid step against the whole step
+    (``grid_train_step_check``); the bfloat16 grid gradient within
+    LM_GRAD_REL of the whole float32 one."""
+    import dataclasses
+    import gc
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as M
+    from repro_torch.models import transformer_sharded as TFS
+    from repro_torch.parallel import spmd
+    from repro_torch.pytree import flatten_with_path, leaves, tree_map
+    is_sh = lambda x: isinstance(x, spmd.Sharded)
+    cell = grid_train_cell(GRID_TRAIN_CHECK_LAYERS, devs)
+    cfg = cell.cfg
+    params, state = grid_train_args(torch, cell, GRID_TRAIN_SEED + 1)
+    batch, = lm_batches(torch, cfg.vocab, 1, GRID_TRAIN_BATCH,
+                        GRID_TRAIN_SEQ)
+    placed = spmd.place_tree(batch, cell.in_shardings[2])
+    out = {"n_layers": cfg.n_layers}
+
+    def grid_grads(c, p):
+        losses, grads, norms = TFS.loss_and_grad(c, p, placed)
+        return [losses[0], norms[0]] + [
+            b for sh in leaves(grads, is_leaf=is_sh) for b in sh.blocks], \
+            grads
+
+    ref, g_bf16 = grid_grads(cfg, params)
+    for remat in ("none", "dots"):
+        got, _ = grid_grads(dataclasses.replace(cfg, remat=remat), params)
+        assert len(got) == len(ref) and all(
+            torch.equal(a, b) for a, b in zip(got, ref)), remat
+        del got
+    out["remat_equal_bits"] = True
+    out["blocks_compared"] = len(ref)
+    loss_bf16 = float(ref[0])
+    del ref
+    p32 = tree_map(lambda sh: spmd.gather(sh).float(), params,
+                   is_leaf=is_sh)
+    # the grid step twice from one state
+    step = cell.sharded()
+    copy = cell.place((*spmd.gather_tree((params, state)), batch))
+    a = step(params, state, placed)
+    b = step(*copy)
+    pairs = list(zip(leaves(a, is_leaf=is_sh), leaves(b, is_leaf=is_sh)))
+    out["repeat_equal_bits"] = all(
+        torch.equal(x, y) for sa, sb in pairs
+        for x, y in zip(sa.blocks, sb.blocks))
+    out["repeat_leaves_compared"] = len(pairs)
+    assert out["repeat_equal_bits"], "grid train step repeated"
+    del params, state, copy, a, b, pairs, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    # float32: the whole model, the whole model split by sequence and the
+    # grid, each leaf's distances taken as each gradient comes
+    names = ["/".join(path) for path, _ in flatten_with_path(p32)]
+    errs = {n: {} for n in names}
+
+    def distances(key, grads, want, back=lambda g: g):
+        for n, g, w in zip(names, leaves(grads, is_leaf=is_sh),
+                           leaves(want)):
+            errs[n][key] = rel_l2(torch, back(g), w)
+
+    saved = L.PDTYPE, L.ADTYPE
+    L.set_dtypes(torch.float32, torch.float32)
+    try:
+        loss_w, g_whole = grads_of(torch, L, M, cfg, p32, batch)
+        distances("bf16", g_bf16, g_whole, lambda g: spmd.gather(g).float())
+        del g_bf16
+        # the batch's mean as the mean of each sequence's mean (equal
+        # lengths; the division by the batch is exact)
+        loss_s, g_split = grads_of(torch, L, M, cfg, p32, {
+            k: v[:1] for k, v in batch.items()})
+        for i in range(1, GRID_TRAIN_BATCH):
+            loss_i, g_i = grads_of(torch, L, M, cfg, p32, {
+                k: v[i:i + 1] for k, v in batch.items()})
+            loss_s = loss_s + loss_i
+            for x, y in zip(leaves(g_split), leaves(g_i)):
+                x.add_(y)
+            del g_i
+        loss_s = loss_s / GRID_TRAIN_BATCH
+        for x in leaves(g_split):
+            x.div_(GRID_TRAIN_BATCH)
+        distances("split", g_split, g_whole)
+        flat32, g_grid = grid_grads(cfg, spmd.place_tree(
+            p32, cell.in_shardings[0]))
+        loss_grid = float(flat32[0])
+        del flat32
+        distances("grid", g_grid, g_whole, spmd.gather)
+        distances("grid_vs_split", g_grid, g_split, spmd.gather)
+        del g_grid, g_split, g_whole
+        gc.collect()
+        torch.cuda.empty_cache()
+        for e in errs.values():
+            e["bound"] = max(GRID_TRAIN_REL_L2, 2 * e["split"])
+        over = {n: e for n, e in errs.items() if e["grid"] > e["bound"]
+                or e["grid_vs_split"] > GRID_TRAIN_REL_L2}
+        top = sorted(errs, key=lambda n: errs[n]["grid"])[-3:]
+        losses = {"grid": loss_grid, "whole": float(loss_w),
+                  "split": float(loss_s)}
+        out["f32_grid_vs_whole"] = {
+            "bound": GRID_TRAIN_REL_L2, "leaves": len(errs),
+            "worst": {n: errs[n] for n in top},
+            "max_grid": max(e["grid"] for e in errs.values()),
+            "max_grid_vs_split": max(e["grid_vs_split"]
+                                     for e in errs.values()),
+            "max_split": max(e["split"] for e in errs.values()),
+            "losses": losses}
+        assert not over, (over, out["f32_grid_vs_whole"])
+        rel = {k: abs(v - losses["whole"]) / losses["whole"]
+               for k, v in losses.items()}
+        assert rel["grid"] <= max(GRID_TRAIN_REL_L2, 2 * rel["split"]) \
+            and abs(loss_grid - losses["split"]) / losses["split"] <= \
+            GRID_TRAIN_REL_L2, losses
+        out["f32_step"] = grid_train_step_check(
+            torch, cell, p32, batch, {n: e["bound"] for n, e in errs.items()})
+        del p32
+    finally:
+        L.set_dtypes(*saved)
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst = max(errs, key=lambda n: errs[n]["bf16"])
+    out["bf16_grid_vs_f32_whole"] = {
+        "bound": LM_GRAD_REL, "worst_leaf": worst,
+        "worst_rel_l2": errs[worst]["bf16"], "loss_bf16": loss_bf16,
+        "loss_f32": losses["whole"]}
+    assert errs[worst]["bf16"] <= LM_GRAD_REL, out["bf16_grid_vs_f32_whole"]
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def phase_grid_train(torch, np, ops, shared, grad_ops) -> dict:
+    """Dense-LM training split over a named grid (``Cell.sharded`` of
+    qwen2-7b's train_4k cell: FSDP over ``data``, tensor parallelism over
+    ``model``, the gradient through every collective, grid-wide remat),
+    four places on the card repeated, in bfloat16 with float32
+    accumulation (``layers.float32_accumulation``): (a) GRID_TRAIN_LAYERS
+    layers, ``grid_train_run`` [embedding_bag_backward 4 a step], its
+    first step's loss and gradient norm within GRID_TRAIN_REL of the
+    whole ``transformer.train_step`` (``grid_train_whole``); one place's
+    embedding gradient alone (``time_segment_sum``: its block of 76,032
+    rows, ids outside it skipped); (b) ``grid_train_checks`` at
+    GRID_TRAIN_CHECK_LAYERS layers; (c) where four cards are visible, all
+    28 layers on cuda:0..3 (each card's peak below GRID_TRAIN_PEAK_LIMIT
+    and below the whole params and moments), else ``"distinct_cards":
+    "not run: <n> visible"``. The launch counts are zeroed before each
+    grid step and read after it (``drive``)."""
+    import gc
+    from repro_torch.configs import get_arch
+    from repro_torch.models import layers as L
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    one = ["cuda:0"] * GRID_PLACES
+    n = torch.cuda.device_count()
+    out = {"phase": "grid_train", "nvidia_smi": nvidia_smi_line(),
+           "allocated_at_start": torch.cuda.memory_allocated()}
+    runs = []
+    saved = L.PDTYPE, L.ADTYPE
+    with L.float32_accumulation():
+        try:
+            L.set_dtypes(torch.bfloat16, torch.bfloat16)
+            t1 = time.perf_counter()
+            full, first, embed = grid_train_run(
+                torch, np, ops, grad_ops, one, GRID_TRAIN_LAYERS,
+                GRID_TRAIN_STEPS, record_embed=True)
+            runs.append(full)
+            whole = grid_train_whole(torch, ops, GRID_TRAIN_LAYERS)
+            rel = {k: abs(first[k] - whole[k]) / abs(whole[k])
+                   for k in ("loss", "grad_norm")}
+            full["whole"] = dict(whole, grid_first_step=first, rel=rel,
+                                 bound=GRID_TRAIN_REL)
+            assert max(rel.values()) <= GRID_TRAIN_REL, full["whole"]
+            full["s"] = time.perf_counter() - t1
+            out["one_card"] = full
+            t1 = time.perf_counter()
+            grad_out, idx, v, dtype = embed
+            del embed
+            shared["grid_train_embed_timing"] = time_segment_sum(
+                torch, grad_ops, grad_out, idx.view(-1), v, dtype=dtype)
+            del grad_out, idx
+            out["embed_backward_s"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            out["check"] = dict(grid_train_checks(torch, np, one),
+                                s=time.perf_counter() - t1)
+            out["one_card_s"] = time.perf_counter() - t0
+            assert out["one_card_s"] <= GRID_TRAIN_PHASE_LIMIT_S, \
+                out["one_card_s"]
+            if n >= GRID_PLACES:
+                t1 = time.perf_counter()
+                cards = [f"cuda:{i}" for i in range(GRID_PLACES)]
+                res, _, _ = grid_train_run(
+                    torch, np, ops, grad_ops, cards,
+                    get_arch(LM_ARCH).config.n_layers, 2)
+                # AdamW's state alone: bfloat16 params and two float32
+                # moments, 10 B a param
+                res["whole_state_bytes"] = 10 * res["params"]
+                for peak in (res["init_peak_bytes"], res["peak_bytes"]):
+                    assert max(peak.values()) < res["whole_state_bytes"], res
+                res["s"] = time.perf_counter() - t1
+                runs.append(res)
+                out["distinct_cards"] = res
+                assert res["s"] <= GRID_TRAIN_CARDS_LIMIT_S, res["s"]
+            else:
+                out["distinct_cards"] = f"not run: {n} visible"
+        finally:
+            L.set_dtypes(*saved)
+    totals = Counter()
+    for res in runs:
+        totals.update(res["launches"])
+    out["launches"] = {k: totals.get(k, 0) for k in ops}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["allocated_at_end"] = torch.cuda.memory_allocated()
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
 def phase_dryrun(torch, ops, shared) -> dict:
     """The fabric dry run (``repro_torch.launch.dryrun``): ``fabric_dryrun``
     in this process at the reference test's size (3 shards, 64 vertices,
@@ -6408,7 +6970,7 @@ def bag_bf16_kernel_rows(timing: dict, by_phase: dict) -> list:
 
 
 PHASES = ("dryrun", "dlrm", "train", "gnn", "lm", "lm_train", "launch",
-          "grid", "rmat",
+          "grid", "grid_train", "rmat",
           "clustered", "listing",
           "skew", "fused", "query", "outofcore", "query_listing", "api", "shard", "serve",
           "embedding_bag")
@@ -6439,7 +7001,7 @@ def main() -> int:
                     help="device, build and kernel checks only")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="main-path phases to run (default: all "
-                         "twenty), "
+                         "twenty-one), "
                          "with the phases they reuse (NEEDS)")
     ap.add_argument("--profile", action="store_true",
                     help="repeat each main-path count under "
@@ -6572,6 +7134,8 @@ def main() -> int:
                                                grad_ops),
             "launch": lambda: phase_launch(torch, np, ops, shared, bag_ops),
             "grid": lambda: phase_grid(torch, np, ops, shared, bag_ops),
+            "grid_train": lambda: phase_grid_train(torch, np, ops, shared,
+                                                   grad_ops),
         }
         runs = []
         names = with_needs(args.phases.split(","))
@@ -6620,11 +7184,13 @@ def main() -> int:
                                                 by_phase))
         if any(k in shared for k in ("bag_backward_timing",
                                      "gnn_segment_timing",
-                                     "lm_embed_timing")):
+                                     "lm_embed_timing",
+                                     "grid_train_embed_timing")):
             kernels.append(bag_backward_kernel_row(
                 shared.get("bag_backward_timing"),
                 shared.get("gnn_segment_timing"),
-                shared.get("lm_embed_timing"), by_phase))
+                shared.get("lm_embed_timing"), by_phase,
+                shared.get("grid_train_embed_timing")))
         for k in kernels:
             assert k["exact"], k
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start,

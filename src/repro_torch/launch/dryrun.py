@@ -43,8 +43,8 @@ moves (``parallel.spmd.LEDGER``, the reference's record shape
 ``{"all-gather": {"count", "bytes"}, ...}``, operand bytes per device):
 
   * ``single`` / ``multi`` records of the cells ``Cell.sharded`` runs (GNN
-    training, DLRM serving and retrieval, the dense LMs' prefill and
-    decode) carry ``collectives`` of one step run on the abstract
+    training, DLRM serving and retrieval, the dense LMs' training, prefill
+    and decode) carry ``collectives`` of one step run on the abstract
     production grid with ``meta`` blocks (shapes only): a cell of R > 2
     repeated layers is run at 1 and 2 repeats and extrapolated to R,
     exactly, since each repeat makes the same collectives (the reference
@@ -53,8 +53,12 @@ moves (``parallel.spmd.LEDGER``, the reference's record shape
   * ``card`` with ``grid`` (``--grid 2x2 --devices cuda:0,cuda:0,...``)
     runs the cell split over that grid of devices (places may repeat):
     the whole arguments made on the first device, laid out by the cell's
-    in-shardings (views where a block lies on its source's device), the
-    step timed with every device synchronised, and the record carries
+    in-shardings (views where a block lies on its source's device); an LM
+    cell's params are made on their places instead (``make_placed_args``:
+    leaf by leaf, the first device holding one whole leaf at a time) and
+    its AdamW state as zeros there, so a cell whose arguments exceed one
+    card runs on several. The step is timed with every device
+    synchronised, and the record carries
     the ledger's ``collectives`` of one step, ``n_places``, ``n_chips``
     (distinct devices) and each device's peak. Without ``grid`` a card
     record is one place, whole, with ``collectives: {}``; only such a run
@@ -86,6 +90,7 @@ import statistics
 import sys
 import time
 import traceback
+from collections import Counter
 from pathlib import Path
 from typing import Any, Callable, Dict, Optional
 
@@ -191,20 +196,24 @@ def _shape_dims(cell, dims: Optional[Dict[str, Any]]) -> Dict[str, Any]:
             **(dims or {})}
 
 
-def _lm_args(cell, gen, dev, seed: int):
+def _lm_args(cell, gen, dev, seed: int, params=None, opt_state=None):
+    """An LM cell's arguments on ``dev``; ``params`` and ``opt_state``
+    where they are made already (on their places), else here, whole."""
     from repro_torch.data.tokens import TokenStream
     from repro_torch.models import transformer as TF
     from repro_torch.optim import adamw
     from repro_torch.pytree import tree_map
 
     cfg = cell.cfg
-    params = TF.init_params(cfg, gen, dev)
+    if params is None:
+        params = TF.init_params(cfg, gen, dev)
     stream = TokenStream(cfg.vocab, seed=seed)
     as_dev = lambda a: torch.from_numpy(a).to(dev)
     if cell.step_kind == "train":
         b, s = cell.arg_specs[2]["tokens"].shape
         batch = {k: as_dev(v) for k, v in stream.batch(b, s).items()}
-        return (params, adamw.init(params), batch)
+        return (params, adamw.init(params) if opt_state is None
+                else opt_state, batch)
     if cell.step_kind == "prefill":
         b, s = cell.arg_specs[1].shape
         return (params, as_dev(stream.batch(b, s)["tokens"]))
@@ -332,6 +341,47 @@ def make_args(cell, dev, dims: Optional[Dict[str, Any]] = None,
     return args
 
 
+def make_placed_args(cell, seed: int = 0) -> tuple:
+    """An LM cell's arguments on its grid's places, by ``make_args``'s
+    makers from the same generator, so every block has the bits of the
+    whole argument's: the params drawn leaf by leaf on the grid's first
+    device (``layers.iter_materialize``), each leaf's blocks copied to
+    their places and the leaf freed before the next is drawn
+    (``spmd.place_leaves``), so that device holds one whole leaf at a
+    time; AdamW's moments and step as zeros on their places
+    (``spmd.zeros``); the batch, tokens or cache made on the first device
+    and laid out by the in-shardings."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as TF
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import spmd
+    from repro_torch.pytree import tree_map
+
+    if get_arch(cell.arch_id).family != "lm" or cell.grid.devices is None:
+        raise ValueError(f"{cell.arch_id} {cell.shape_name}: arguments are "
+                         f"made on their places for LM cells on a grid of "
+                         f"devices only")
+    dev = cell.grid.devices.flat[0]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = spmd.place_leaves(
+        L.iter_materialize(TF.param_shapes(cell.cfg), gen, dev),
+        cell.in_shardings[0])
+    state = None
+    if cell.step_kind == "train":
+        o_sh = cell.in_shardings[1]
+        zeros = lambda tree: tree_map(
+            lambda s, ns: spmd.zeros(s.shape, torch.float32, ns), params,
+            tree, is_leaf=lambda x: isinstance(x, spmd.Sharded))
+        state = adamw.OptState(spmd.zeros((), torch.int32, o_sh.step),
+                               zeros(o_sh.m), zeros(o_sh.v))
+    args = _lm_args(cell, gen, dev, seed, params, state)
+    return args[:1] + tuple(
+        a if i == 1 and state is not None else spmd.place_tree(a, ns)
+        for i, (a, ns) in enumerate(zip(args[1:], cell.in_shardings[1:]),
+                                    start=1))
+
+
 # ---------------------------------------------------------------------------
 # a run on the card
 # ---------------------------------------------------------------------------
@@ -357,21 +407,35 @@ def _distinct(devs) -> list:
     return out
 
 
+def _placed_on_grid(cell) -> bool:
+    """Whether ``_measure_on`` makes the cell's arguments on their places
+    (``make_placed_args``) rather than whole on the first device."""
+    from repro_torch.configs import get_arch
+    return cell.grid.size > 1 and get_arch(cell.arch_id).family == "lm"
+
+
 def _measure_on(cell, dev, dims, check, n_timed) -> Dict[str, Any]:
     """Arguments made, a warm-up step, ``n_timed`` timed steps and one
     counted step of ``cell`` on ``dev`` (whole), or on its grid's devices
-    (split, ``Cell.sharded``: the arguments made on the first device and
-    laid out by the in-shardings); the arguments die with this frame."""
+    (split, ``Cell.sharded``: an LM cell's arguments made on their places,
+    ``make_placed_args``, another cell's made on the first device and laid
+    out by the in-shardings); the arguments die with this frame. ``check``
+    gets the whole arguments, or an LM cell's placed ones, and the step's
+    output (its blocks, on a grid)."""
     from repro_torch.parallel import spmd
     from repro_torch.pytree import leaves
 
     devs = [dev] if cell.grid.size == 1 else _distinct(
         list(cell.grid.devices.flat))
     cuda = devs[0].type == "cuda"
-    whole = make_args(cell, devs[0], dims)
     if cell.grid.size == 1:
+        whole = make_args(cell, devs[0], dims)
         fn, args = cell.fn, whole
+    elif _placed_on_grid(cell):
+        whole = args = make_placed_args(cell)
+        fn = cell.sharded()
     else:
+        whole = make_args(cell, devs[0], dims)
         fn, args = cell.sharded(), cell.place(whole)
 
     def sync():
@@ -409,14 +473,17 @@ def _measure_on(cell, dev, dims, check, n_timed) -> Dict[str, Any]:
     res = {"step_calls": n_timed + 2, "step_ms_all": times,
            "step_ms": statistics.median(times),
            "counted_flops": float(counter.get_total_flops())}
+    checked = _result_of(cell, out)
     if cell.grid.size > 1:
         res["collectives"] = spmd.ledger()
-        out = spmd.gather_tree(out)
-    result = [x for x in leaves(_result_of(cell, out))
+        # only the checked part made whole: a train step's params and
+        # moments may not fit one device
+        checked = spmd.gather_tree(checked)
+    result = [x for x in leaves(checked)
               if torch.is_tensor(x) and x.is_floating_point()]
     res["finite"] = bool(all(torch.isfinite(x).all() for x in result))
     if cell.step_kind == "train":
-        res["loss"] = float(out[2]["loss"])
+        res["loss"] = float(checked["loss"])
     if cuda:
         sync()
         peaks = {str(d): int(torch.cuda.max_memory_allocated(d))
@@ -496,10 +563,18 @@ def _allocator(dev) -> Dict[str, int]:
 
 def _run_on(cell, dev, card_bytes: Optional[int], dims, check,
             n_timed: int = TIMED_STEPS) -> Dict[str, Any]:
-    """One cell on ``dev`` (``_measure_on``), or why it did not run."""
+    """One cell on ``dev`` (``_measure_on``), or why it did not run: the
+    arguments a card holds (the whole arguments, or where they are made
+    on their places each place's blocks times the places of the busiest
+    card) exceed ``card_bytes``."""
     need = argument_bytes(cell)
     out: Dict[str, Any] = {"argument_size_in_bytes": need,
                            "model_flops_global": model_flops_for(cell)}
+    if _placed_on_grid(cell):
+        per_card = max(Counter(str(d) for d in cell.grid.devices.flat)
+                       .values())
+        need = argument_bytes(cell, True) * per_card
+        out["argument_bytes_on_a_card"] = need
     if card_bytes is not None and need > card_bytes:
         return dict(out, ran=False, fits_one_card=False,
                     reason="arguments exceed the card")

@@ -23,8 +23,10 @@ of the grid (``parallel.spmd``); inside the step the port chooses its own
 scheme (``models.gnn_sharded``, ``models.dlrm.grid_serve``,
 ``models.transformer_sharded``), so ``constrain`` stays a marker. It
 covers GNN training, DLRM serving and retrieval, and the dense LMs'
-prefill and decode; another cell raises ``ValueError`` (ROADMAP §1 item
-3). ``Cell.place`` lays whole arguments out for it, and on an abstract
+training (``train_4k``: FSDP and tensor parallelism, the gradient
+through every collective), prefill and decode; another cell (MLA, MoE,
+DLRM training) raises ``ValueError`` (ROADMAP §1 item 3).
+``Cell.place`` lays whole arguments out for it, and on an abstract
 grid places their ``meta`` specs, so the same step reckons the cell's
 collectives without a card (``launch.dryrun``). ``fn`` runs the cell
 whole, in one process, as before.
@@ -111,8 +113,10 @@ def _grid_step(cell: "Cell") -> Callable:
         return functools.partial(gnn_sharded.train_step, cfg, OPT_CFG)
     if fam == "recsys" and kind in ("serve", "retrieval"):
         return functools.partial(DLRM.grid_serve, cfg, kind)
-    if fam == "lm" and kind in ("prefill", "decode"):
+    if fam == "lm" and kind in ("train", "prefill", "decode"):
         TFS.check_config(cfg)
+        if kind == "train":
+            return functools.partial(TFS.train_step, cfg, OPT_CFG)
         if kind == "prefill":
             return functools.partial(TFS.prefill, cfg,
                                      cache_shardings=cell.out_shardings[0])

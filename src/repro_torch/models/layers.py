@@ -80,20 +80,30 @@ def materialize(shapes: Dict[str, Any], generator: torch.Generator,
     fan_in = ``shape[-2]`` (``shape[-1]`` for 1-D). The draw is made in
     the parameter's own dtype, in place (a float32 temporary of a
     39,980,032 x 128 table would take 20.5 GB)."""
-    made = {}
-    for path, (shape, dtype) in flatten_with_path(shapes, is_leaf=_is_shape):
-        name = path[-1] if path else ""
-        if "norm" in name:
-            made[path] = torch.ones(shape, dtype=dtype, device=device)
-        elif _is_zero_init(name, shape):
-            made[path] = torch.zeros(shape, dtype=dtype, device=device)
-        else:
-            fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-            std = 1.0 / math.sqrt(max(1, fan_in))
-            made[path] = torch.empty(shape, dtype=dtype, device=device) \
-                .normal_(0.0, std, generator=generator)
+    made = dict(iter_materialize(shapes, generator, device))
     return tree_map_with_path(lambda path, _: made[path], shapes,
                               is_leaf=_is_shape)
+
+
+def _draw(name: str, shape, dtype, generator, device) -> torch.Tensor:
+    if "norm" in name:
+        return torch.ones(shape, dtype=dtype, device=device)
+    if _is_zero_init(name, shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    std = 1.0 / math.sqrt(max(1, fan_in))
+    return torch.empty(shape, dtype=dtype, device=device).normal_(
+        0.0, std, generator=generator)
+
+
+def iter_materialize(shapes: Dict[str, Any], generator: torch.Generator,
+                     device="cpu"):
+    """:func:`materialize`'s leaves one at a time, ``(path, tensor)`` in
+    pytree order, the same draws: a consumer that lets each leaf go
+    before asking for the next holds one whole leaf at a time."""
+    for path, (shape, dtype) in flatten_with_path(shapes, is_leaf=_is_shape):
+        yield path, _draw(path[-1] if path else "", shape, dtype, generator,
+                          device)
 
 
 def abstractify(shapes: Dict[str, Any]) -> Dict[str, Any]:

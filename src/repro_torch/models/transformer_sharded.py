@@ -1,30 +1,38 @@
-"""Dense-LM serving split over a named device grid (``parallel.spmd``).
+"""Dense-LM serving and training split over a named device grid
+(``parallel.spmd``).
 
-The reference's prefill and decode cells run under ``jax.jit`` with the
-params under ``lm_param_sharding`` (FSDP rows over ``dp``, tensor
-parallelism over ``model``), the KV cache's sequence split over ``model``
-(``lm_cache_sharding``) and the logits' vocabulary split over ``model``;
-XLA inserts the collectives. Here each place runs its part of
-``models.transformer``'s prefill or decode step (``spmd.lockstep``), the
-activation layouts the port's own and the arguments and outputs the
-reference's, block for block:
+The reference's prefill, decode and train cells run under ``jax.jit``
+with the params under ``lm_param_sharding`` (FSDP rows over ``dp``,
+tensor parallelism over ``model``), the KV cache's sequence split over
+``model`` (``lm_cache_sharding``), the batch over ``dp``
+(``lm_batch_sharding``), the AdamW moments as the params
+(``opt_state_sharding``) and the logits' vocabulary split over
+``model``; XLA inserts the collectives. Here each place runs its part of
+``models.transformer``'s step (``spmd.lockstep``), the activation
+layouts the port's own and the arguments and outputs the reference's,
+block for block:
 
-* FSDP: a layer's weights are all-gathered over ``dp`` a layer at a time.
+* FSDP: a layer's weights are all-gathered over ``dp`` a layer at a time;
+  in training the all-gather's backward reduce-scatters each weight's
+  gradient to the place's own rows (FSDP's gradient reduce-scatter).
 * The embedding's vocabulary is split over ``model``: each place looks
   its tokens up in its rows, the others' slots zero, and the rows are
-  all-reduced over ``model`` (one nonzero each, so exact). The logits
+  all-reduced over ``model`` (one nonzero each, so exact). The block's
+  gradient is the ordered sum of the rows' gradients by token id on
+  ``embedding_bag_backward`` (``_VocabRows``, as the whole model's
+  ``gather_rows``), an id outside the block adding nothing. The logits
   come from the place's ``lm_head`` columns and stay vocabulary-split, as
   the out-sharding says; ``greedy`` takes the argmax over places, ties to
   the lowest index as ``torch.argmax``.
-* Attention, prefill: heads split over ``model`` (Megatron column /
-  row parallelism). Where a column block is not whole heads (a head count
-  the axis does not divide), the columns are all-gathered to whole heads
-  and the heads cut in ``spmd.even_sizes`` parts. ``wk`` / ``wv`` are
-  all-gathered over ``model`` (each place needs its query heads' key
-  heads, which a quarter or half of a head per block does not give), and
-  each place projects its own sequence block of the cache with them, as
-  the whole prefill's projection pass does: the cache comes out in its
-  out-sharding without moving activations.
+* Attention, prefill and training: heads split over ``model`` (Megatron
+  column / row parallelism). Where a column block is not whole heads (a
+  head count the axis does not divide), the columns are all-gathered to
+  whole heads and the heads cut in ``spmd.even_sizes`` parts. In prefill
+  ``wk`` / ``wv`` are all-gathered over ``model`` (each place needs its
+  query heads' key heads, which a quarter or half of a head per block
+  does not give), and each place projects its own sequence block of the
+  cache with them, as the whole prefill's projection pass does: the
+  cache comes out in its out-sharding without moving activations.
 * Attention, decode: the cache is split by sequence, so the new token's
   q / k / v are the place's column blocks all-gathered over ``model``
   (activations, whole heads whatever the blocks), the new K/V are written
@@ -38,13 +46,35 @@ reference's, block for block:
   a contiguous column block over ``model`` does not hold a gate/up pair.
   Each place fetches the gate and up columns of its own f-range (the rows
   of ``ffn/wo`` it holds) from the places that hold them (a
-  collective-permute), and its ``wo`` rows match that range.
+  collective-permute, whose gradient goes back the same way), and its
+  ``wo`` rows match that range.
+* The loss (training): the logits stay vocabulary-split; each token's
+  log-sum-exp combines the blocks' (max, sum of exp), all-gathered over
+  ``model``, in grid order, and its gold logit comes from the block that
+  holds the target, all-reduced over ``model``; the NLL's sum and its
+  token count are all-reduced over the batch axes. The loss's gradient is
+  taken at place 0, so the duals of the all-reduces hand every place its
+  share. A block replicated along axes its spec leaves out (the norms
+  everywhere, ``bq`` / ``bk`` / ``bv`` over ``dp``) has its gradient
+  all-reduced over those axes, in grid order. The clip's norm is the sum
+  of squares of each distinct block, counted once, all-reduced in grid
+  order; ``adamw.apply`` updates each distinct block once (places on one
+  device share a replicated block), in place.
+* remat: a repeated layer runs on every place in lockstep as one function
+  of all places' inputs (``spmd.lockstep_fn``), wrapped by
+  ``transformer._remat``: ``"layer"`` recomputes the whole grid layer in
+  the backward, its collectives included (the ledger counts them again),
+  ``"dots"`` keeps its GEMMs' outputs, ``"none"`` keeps everything. The
+  three give the same bits.
 
 A dimension the rules leave whole is cut inside the step where the work
 is summed (heads, f, the decode's sequence) so it is counted once; the
 batch, where ``dp`` does not divide it, is computed on every place of a
-``model`` row. MLA, MoE and tied embeddings are not run on a grid
-(``ValueError``, ROADMAP §1 item 3).
+``model`` row in serving, and cut in ``spmd.even_sizes`` parts over
+``dp`` in training, so each token's loss is counted once. MLA, MoE and
+tied embeddings are not run on a grid (``ValueError``, ROADMAP §1 item
+3). On an abstract grid (one ``meta`` place) the same steps reckon the
+cells' collectives without data.
 """
 
 from __future__ import annotations
@@ -54,9 +84,11 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.embedding_bag import grad as bag_grad
+from repro_torch.optim import adamw
 from repro_torch.parallel import spmd
 from repro_torch.parallel.sharding import dp_axes
-from repro_torch.pytree import tree_map
+from repro_torch.pytree import leaves, tree_map
 
 from . import layers as L
 from . import transformer as TF
@@ -82,12 +114,12 @@ class _Place:
     """One place's view of the grid: its coordinates and its params'
     blocks and specs by layer."""
 
-    def __init__(self, cfg, grid, params, p: int):
+    def __init__(self, cfg, grid, params, p: int, blocks=None):
         self.cfg = cfg
         self.dp = dp_axes(grid)
         self.m = spmd.axis_size(grid, "model")
         self.j = spmd.coord(grid, p, "model")
-        self.blocks = spmd.blocks_at(params, p)
+        self.blocks = spmd.blocks_at(params, p) if blocks is None else blocks
         self.specs = tree_map(lambda s: tuple(s.spec), params,
                               is_leaf=lambda x: isinstance(x, spmd.Sharded))
 
@@ -130,18 +162,46 @@ class _Place:
         return spmd.part_range(n, self.m, self.j)
 
 
+class _VocabRows(torch.autograd.Function):
+    """The rows of a vocabulary block ``[lo, lo + n)`` for token ids, zero
+    rows for ids outside it; the block's gradient is the ordered float32
+    sum of the rows' gradients by id (``bag_grad.segment_rows``:
+    ``embedding_bag_backward`` with L = 1 on the card), rounded once to the
+    table's dtype, an id outside the block adding nothing (the sum skips
+    ids >= n)."""
+
+    @staticmethod
+    def forward(ctx, table, ids, lo: int):
+        n = table.shape[0]
+        local = ids - lo
+        ok = (local >= 0) & (local < n)
+        ctx.save_for_backward(torch.where(ok, local, n))
+        ctx.n, ctx.dtype = n, table.dtype
+        rows = table.index_select(0, local.clamp(0, n - 1))
+        return torch.where(ok[:, None], rows, torch.zeros_like(rows))
+
+    @staticmethod
+    def backward(ctx, grad):
+        seg, = ctx.saved_tensors
+        if grad.is_meta:
+            out = torch.zeros((ctx.n, grad.shape[1]), dtype=ctx.dtype,
+                              device="meta")
+        else:
+            out = bag_grad.segment_rows(grad.float(), seg, ctx.n,
+                                        dtype=ctx.dtype)
+        return out, None, None
+
+
 def _embed(pl: _Place, tokens: torch.Tensor):
     table = yield from pl.dp_full(pl.blocks["embed"], pl.specs["embed"], 1)
     flat = tokens.reshape(-1).long()
     if _entry(pl.specs["embed"], 0) == "model":
-        blk = table.shape[0]
-        local = flat - pl.j * blk
-        ok = (local >= 0) & (local < blk)
-        rows = table.index_select(0, local.clamp(0, blk - 1))
-        rows = torch.where(ok[:, None], rows, torch.zeros_like(rows))
+        rows = _VocabRows.apply(table, flat, pl.j * table.shape[0])
         rows = yield spmd.AllReduce(rows, "model")
-    else:
+    elif table.is_meta:
         rows = table.index_select(0, flat)
+    else:
+        rows = bag_grad.gather_rows(table, flat)
     return rows.view(*tokens.shape, -1).to(L.ADTYPE)
 
 
@@ -237,6 +297,17 @@ def _prefill_attention(pl: _Place, spec, p, specs, h, positions):
         (h0 * dh, h1 * dh), h.dtype))
 
 
+def _layer(pl: _Place, spec, w, specs, x, positions):
+    """One layer on the place's heads and f-range (a generator): the
+    residual stream after attention and SwiGLU, whole on every place of
+    a ``model`` row."""
+    hn = L.rms_norm(x, w["norm1"])
+    x = x + (yield from _prefill_attention(pl, spec, w["attn"],
+                                           specs["attn"], hn, positions))
+    hn = L.rms_norm(x, w["norm2"])
+    return x + (yield from _ffn(pl, w["ffn"], specs["ffn"], hn))
+
+
 def _project_block(pl: _Place, spec, p, specs, x, lo: int, hi: int):
     """The cache's K/V of positions [lo, hi) of the layer input ``x``,
     every key head (the whole prefill's projection pass)."""
@@ -289,11 +360,7 @@ def _prefill_place(cfg, grid, params, tokens, cache_specs, max_len: int,
                                       spmd.even_sizes(max_len, pl.m))
             k, v = kk, vv
         per_layer.append({"k": k, "v": v})
-        hn = L.rms_norm(x, w["norm1"])
-        x = x + (yield from _prefill_attention(pl, spec, w["attn"],
-                                               specs["attn"], hn, positions))
-        hn = L.rms_norm(x, w["norm2"])
-        x = x + (yield from _ffn(pl, w["ffn"], specs["ffn"], hn))
+        x = yield from _layer(pl, spec, w, specs, x, positions)
     at = 0
     for i in range(len(cfg.prefix)):
         cache[f"prefix{i}"] = per_layer[at]
@@ -433,6 +500,175 @@ def decode_step(cfg: TF.TransformerConfig, params, cache, token: spmd.Sharded,
             for p in range(len(spmd.places(grid)))])
 
 
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def _batch_rows(s: spmd.Sharded, p: int, dp) -> torch.Tensor:
+    """Place ``p``'s rows of a batch array: its block, or where ``dp``
+    does not split the batch its ``spmd.even_sizes`` part of it."""
+    blk = s.blocks[p]
+    k = spmd.axis_size(s.grid, dp)
+    if _entry(s.spec, 0) is not None or k == 1:
+        return blk
+    lo, hi = spmd.part_range(blk.shape[0], k, spmd.coord(s.grid, p, dp))
+    return blk[lo:hi]
+
+
+def _nll_place(pl: _Place, x: torch.Tensor, targets: torch.Tensor):
+    """The mean next-token NLL over the grid (a generator; module
+    docstring): the same value on every place."""
+    lg = yield from _logits(pl, x)
+    v_blk = lg.shape[-1]
+    lg = lg.reshape(-1, v_blk)
+    tgt = targets.reshape(-1).long()
+    if _entry(pl.specs["lm_head"], 1) == "model":
+        # log-sum-exp over the blocks: m and the combined maximum are
+        # constants of the function, so they carry no gradient
+        mx = lg.detach().amax(-1)
+        se = torch.exp(lg - mx[:, None]).sum(-1)
+        parts = yield spmd.AllGather(torch.stack([mx, se])[None], "model", 0)
+        top = parts[:, 0].detach().amax(0)
+        tot = None
+        for i in range(parts.shape[0]):           # grid order
+            t = parts[i, 1] * torch.exp(parts[i, 0] - top)
+            tot = t if tot is None else tot + t
+        lse = top + torch.log(tot)
+        local = tgt - pl.j * v_blk
+        ok = (local >= 0) & (local < v_blk)
+        gold = torch.gather(lg, 1, local.clamp(0, v_blk - 1)[:, None])[:, 0]
+        gold = yield spmd.AllReduce(
+            torch.where(ok, gold, torch.zeros_like(gold)), "model")
+    else:
+        lse = torch.logsumexp(lg, dim=-1)
+        gold = torch.gather(lg, 1, tgt[:, None])[:, 0]
+    part = torch.stack([torch.sum(lse - gold),
+                        lse.new_full((), float(tgt.numel()))])
+    tot = yield spmd.AllReduce(part, pl.dp)
+    return tot[0] / tot[1]
+
+
+def _spec_axes(spec) -> set:
+    return {a for entry in spec for a in spmd.axes_of(entry)}
+
+
+def _is_sharded(x) -> bool:
+    return isinstance(x, spmd.Sharded)
+
+
+def loss_and_grad(cfg: TF.TransformerConfig, params, batch):
+    """The loss and its gradient on a grid (module docstring): ``params``
+    a tree of ``spmd.Sharded`` under ``lm_param_sharding``, ``batch``
+    ``{"tokens", "targets"}`` under ``lm_batch_sharding``. Returns (one
+    0-d loss a place, the gradient as a tree of ``spmd.Sharded`` in the
+    params' shardings, one clip norm a place); every place's loss and norm
+    have the same bits. Nothing is updated."""
+    check_config(cfg)
+    grid = batch["tokens"].grid
+    n = len(spmd.places(grid))
+    dp = dp_axes(grid)
+    live = [tree_map(lambda t: t.detach().requires_grad_(),
+                     spmd.blocks_at(params, p)) for p in range(n)]
+    pls = [_Place(cfg, grid, params, p, blocks=live[p]) for p in range(n)]
+    tokens = [_batch_rows(batch["tokens"], p, dp) for p in range(n)]
+    targets = [_batch_rows(batch["targets"], p, dp) for p in range(n)]
+    xs = spmd.lockstep(grid, [_embed(pl, t) for pl, t in zip(pls, tokens)])
+    positions = [TF._positions(x.shape[0], x.shape[1], x.device) for x in xs]
+    walks = [pl.layers() for pl in pls]
+    for i in range(cfg.n_layers):
+        here = [next(w) for w in walks]
+
+        def make(p, x, here=here):
+            spec, w, specs = here[p]
+            return _layer(pls[p], spec, w, specs, x, positions[p])
+        run = spmd.lockstep_fn(grid, make)
+        if i >= len(cfg.prefix):                  # the repeated blocks
+            run = TF._remat(cfg, run)
+        xs = list(run(*xs))
+    losses = spmd.lockstep(grid, [_nll_place(pl, x, t) for pl, x, t in
+                                  zip(pls, xs, targets)])
+    flat = [leaves(t) for t in live]
+    k = len(flat[0])
+    got = torch.autograd.grad(losses[0], [x for f in flat for x in f],
+                              allow_unused=True)
+    grads = [[torch.zeros_like(x) if g is None else g
+              for x, g in zip(flat[p], got[p * k:(p + 1) * k])]
+             for p in range(n)]
+    sharded = leaves(params, is_leaf=_is_sharded)
+    with torch.no_grad():
+        ss = [torch.zeros((), dtype=torch.float32, device=x.device)
+              for x in xs]
+        for j, sh in enumerate(sharded):
+            missing = tuple(a for a in grid.axis_names
+                            if a not in _spec_axes(sh.spec))
+            if spmd.axis_size(grid, missing) > 1:
+                summed = spmd.all_reduce([g[j] for g in grads], grid,
+                                         missing)
+                for p in range(n):
+                    grads[p][j] = summed[p]
+            seen = set()
+            for p in range(n):                    # each block counted once
+                key = tuple((b.start, b.stop) for b in spmd.block_slices(
+                    sh.sharding, sh.shape, p))
+                if key not in seen:
+                    seen.add(key)
+                    ss[p] = ss[p] + adamw.sum_squares(grads[p][j])
+        norms = [torch.sqrt(t) for t in
+                 spmd.all_reduce(ss, grid, grid.axis_names)]
+    trees = []
+    for p in range(n):
+        at = {id(t): g for t, g in zip(flat[p], grads[p])}
+        trees.append(tree_map(lambda t: at[id(t)], live[p]))
+    shardings = tree_map(lambda sh: sh.sharding, params, is_leaf=_is_sharded)
+    return ([x.detach() for x in losses], spmd.assemble(trees, shardings),
+            norms)
+
+
+def train_step(cfg: TF.TransformerConfig, opt_cfg: adamw.AdamWConfig, params,
+               opt_state: adamw.OptState, batch):
+    """The train cell on a grid (module docstring), under
+    ``layers.float32_accumulation``: ``params`` and ``opt_state`` trees of
+    ``spmd.Sharded`` in the cell's in-shardings, updated in place (the
+    cell donates them). Returns one (params, opt_state, metrics) of blocks
+    a place, the metrics the reference's: ``loss``, ``nll``, ``aux``,
+    ``grad_norm``, ``lr``."""
+    with L.float32_accumulation():
+        losses, grads, norms = loss_and_grad(cfg, params, batch)
+        grid = batch["tokens"].grid
+        devs = spmd.places(grid)
+        trees = [leaves(t, is_leaf=_is_sharded)
+                 for t in (params, grads, opt_state.m, opt_state.v)]
+        # each distinct block once, on its device: places of one device
+        # share a replicated block
+        by_dev: Dict[str, Any] = {}
+        seen = set()
+        for p, dev in enumerate(devs):
+            _, ps, gs, ms, vs = by_dev.setdefault(str(dev),
+                                                  (p, [], [], [], []))
+            for j, sh in enumerate(trees[0]):
+                t = sh.blocks[p]
+                key = (p, j) if t.is_meta else (
+                    str(dev), t.data_ptr(), tuple(t.shape), t.stride())
+                if key in seen:
+                    continue
+                seen.add(key)
+                for out, tree in zip((ps, gs, ms, vs), trees):
+                    out.append(tree[j].blocks[p])
+        lr = {}
+        for dev, (p0, ps, gs, ms, vs) in by_dev.items():
+            state = adamw.OptState(opt_state.step.blocks[p0], ms, vs)
+            _, _, om = adamw.apply(opt_cfg, ps, gs, state, norm=norms[p0])
+            lr[dev] = om["lr"]
+    out = []
+    for p, dev in enumerate(devs):
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
+        metrics = {"loss": losses[p] + 0.01 * aux, "nll": losses[p],
+                   "aux": aux, "grad_norm": norms[p], "lr": lr[str(dev)]}
+        out.append((spmd.blocks_at(params, p), spmd.blocks_at(opt_state, p),
+                    metrics))
+    return out
+
+
 def _greedy_place(logits: torch.Tensor, grid, p: int):
     val, idx = logits.max(-1, keepdim=True)
     idx = idx + spmd.coord(grid, p, "model") * logits.shape[-1]
@@ -451,4 +687,5 @@ def greedy(logits: spmd.Sharded) -> list:
                                     for p, b in enumerate(logits.blocks)])
 
 
-__all__ = ["check_config", "decode_step", "greedy", "prefill"]
+__all__ = ["check_config", "decode_step", "greedy", "loss_and_grad",
+           "prefill", "train_step"]

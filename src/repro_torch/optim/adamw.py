@@ -106,13 +106,15 @@ def pieces(shape, chunk: Optional[int] = None) -> List[Tuple]:
     return [(slice(i, i + step),) for i in range(0, shape[0], step)]
 
 
-def _sum_squares(x: torch.Tensor) -> torch.Tensor:
+def sum_squares(x: torch.Tensor) -> torch.Tensor:
+    """Σ x² in float32, a large leaf's slices (``pieces``) summed in
+    order."""
     return sum(torch.sum(torch.square(x[at].to(torch.float32)))
                for at in pieces(x.shape))
 
 
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(_sum_squares(x) for x in leaves(tree)))
+    return torch.sqrt(sum(sum_squares(x) for x in leaves(tree)))
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -132,11 +134,14 @@ def clip_by_global_norm(grads, max_norm: float):
     return tree_map(lambda g: _clipped(g, scale), grads), norm
 
 
-def apply(cfg: AdamWConfig, params, grads, state: OptState):
+def apply(cfg: AdamWConfig, params, grads, state: OptState,
+          norm: Optional[torch.Tensor] = None):
     """One AdamW step, in place (module docstring); returns (params, state,
-    {"grad_norm", "lr"})."""
+    {"grad_norm", "lr"}). ``norm``: the clip's norm where it is computed
+    elsewhere (a grid step's blocks are not the whole model: its norm is
+    summed over every place), else the global norm of ``grads``."""
     with torch.no_grad():
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads) if norm is None else norm
         scale = _clip_scale(gnorm, cfg.clip_norm)
         state.step.add_(1)
         lr = schedule(cfg, state.step)

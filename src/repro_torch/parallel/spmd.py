@@ -20,14 +20,16 @@ There is no ``torch.distributed`` here and no NCCL.
   XLA's collective-permute). A group's sum is taken in grid order, place
   0 first (in float32 for lower-precision floats, rounded once), on the
   group's first place, and copied to the others, so a step gives the same
-  bits on every run and on every place of a group. The first four are
+  bits on every run and on every place of a group. All five are
   ``torch.autograd.Function``s whose backward is the dual collective
   (all-gather <-> reduce-scatter, all-reduce <-> all-reduce, all-to-all <->
-  its inverse), so gradients cross places in grid order too.
+  its inverse, fetch <-> each piece's gradient sent back to the place that
+  holds it and added there in grid order), so gradients cross places in
+  grid order too.
 * ``LEDGER`` counts every collective by XLA's opcode name in the
   reference's record shape, ``{"all-gather": {"count": n, "bytes": b},
   ...}``: one op per device per call, and ``bytes`` the operand bytes of
-  one device's operand (for ``fetch``, the bytes a device receives from
+  one device's operand (for ``fetch``, the bytes place 0 receives from
   other places), forward and backward alike. A collective over a
   one-place group moves nothing and is not counted.
 * ``lockstep(grid, gens)``: each place's step is a generator that
@@ -35,6 +37,22 @@ There is no ``torch.distributed`` here and no NCCL.
   collective and receives its own result; the driver runs the places in
   grid order up to the next collective, runs it over all of them, and
   goes on, so each place's code reads as a sequential program.
+* Grid-wide remat: a layer's forward meets collectives with every other
+  place, so one place's layer cannot be recomputed alone.
+  ``lockstep_fn(grid, make)`` is one function of every place's input
+  that runs ``make(p, x_p)`` on all places in lockstep and returns all
+  their outputs; checkpointing that function (``torch.utils.checkpoint``)
+  recomputes the layer over the whole grid in the backward, collectives
+  included, as XLA's remat re-runs a rematerialized all-gather. The
+  ledger counts the recomputed collectives. Autograd runs each device's
+  nodes on a thread of its own, and a checkpoint's recompute is not safe
+  against two threads starting it at once, so the outputs pass through
+  one node (``_Join``) whose backward starts the recompute before any
+  place's backward in the layer can.
+* ``place_leaves`` lays out a tree made one leaf at a time (each block
+  copied to its place, the whole leaf freed before the next is made), and
+  ``zeros`` makes a value's blocks directly on their places: arguments
+  that do not fit one device whole.
 
 An abstract grid (``devices=None``) is represented by one place, place 0,
 whose blocks are tensors on the ``meta`` device: every collective knows
@@ -46,6 +64,7 @@ grid, reckons a cell's collectives without a card and without data.
 from __future__ import annotations
 
 import math
+import threading
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -57,6 +76,9 @@ from repro_torch.pytree import tree_map
 OPCODES = ("all-gather", "reduce-scatter", "all-reduce", "all-to-all",
            "collective-permute")
 LEDGER: Dict[str, Dict[str, int]] = {}
+# autograd runs each card's backward nodes on a thread of its own, so two
+# collectives' backwards may count at once
+_LEDGER_LOCK = threading.Lock()
 
 
 def reset_ledger() -> None:
@@ -69,9 +91,10 @@ def ledger() -> Dict[str, Dict[str, int]]:
 
 
 def _count(op: str, nbytes: int) -> None:
-    rec = LEDGER.setdefault(op, {"count": 0, "bytes": 0})
-    rec["count"] += 1
-    rec["bytes"] += int(nbytes)
+    with _LEDGER_LOCK:
+        rec = LEDGER.setdefault(op, {"count": 0, "bytes": 0})
+        rec["count"] += 1
+        rec["bytes"] += int(nbytes)
 
 
 def _nbytes(x: torch.Tensor) -> int:
@@ -186,9 +209,11 @@ def block_slices(sharding, shape, p: int) -> Tuple[slice, ...]:
     return tuple(out)
 
 
-def place(x: torch.Tensor, sharding) -> Sharded:
+def place(x: torch.Tensor, sharding, copy: bool = False) -> Sharded:
     """``x`` cut into its blocks under ``sharding``; raises
-    ``ValueError`` where a split dimension does not divide."""
+    ``ValueError`` where a split dimension does not divide. A block on
+    ``x``'s device is a view of it, or with ``copy`` a copy, so that
+    ``x`` can be freed."""
     grid = sharding.mesh
     shape = tuple(x.shape)
     bshape = sharding.shard_shape(shape)
@@ -203,9 +228,45 @@ def place(x: torch.Tensor, sharding) -> Sharded:
         key = (str(dev), tuple((s.start, s.stop) for s in sl))
         if key not in made:
             blk = x[sl]
-            made[key] = blk if blk.device == dev else blk.to(dev)
+            made[key] = blk.to(dev, copy=copy or blk.device != dev)
         blocks.append(made[key])
     return Sharded(shape, x.dtype, sharding, blocks)
+
+
+def zeros(shape, dtype: torch.dtype, sharding) -> Sharded:
+    """A zero value of ``shape`` laid out by ``sharding``, its blocks
+    made on their places (places on one device share a replicated
+    block)."""
+    grid = sharding.mesh
+    shape = tuple(shape)
+    bshape = sharding.shard_shape(shape)
+    made: Dict[Tuple, torch.Tensor] = {}
+    blocks = []
+    for p, dev in enumerate(places(grid)):
+        sl = block_slices(sharding, shape, p)
+        key = (str(dev), tuple((s.start, s.stop) for s in sl))
+        if key not in made:
+            made[key] = torch.zeros(bshape, dtype=dtype, device=dev)
+        blocks.append(made[key])
+    return Sharded(shape, dtype, sharding, blocks)
+
+
+def place_leaves(made, shardings):
+    """A tree of ``Sharded`` values from ``made``, an iterable of ``(path,
+    tensor)`` in the order of the tree ``shardings`` (``pytree`` paths),
+    each tensor's blocks copied to their places before the next is drawn:
+    a device that makes the leaves holds one whole leaf at a time."""
+    from repro_torch.pytree import flatten_with_path, tree_map_with_path
+    is_ns = lambda x: hasattr(x, "spec")
+    want = dict(flatten_with_path(shardings, is_leaf=is_ns))
+    out = {}
+    for path, x in made:
+        out[path] = place(x, want[path], copy=True)
+        del x
+    if set(out) != set(want):
+        raise ValueError(f"made {sorted(out)} for {sorted(want)}")
+    return tree_map_with_path(lambda path, _: out[path], shardings,
+                              is_leaf=is_ns)
 
 
 def gather(s: Sharded) -> torch.Tensor:
@@ -358,15 +419,21 @@ def _a2a(xs, grid, axes, split_dim: int, concat_dim: int
     return out
 
 
-def fetch(xs, grid, axes, dim: int, block: int, want: Sequence
-          ) -> List[torch.Tensor]:
-    """Place ``p`` gets the global ranges ``want[p]`` (a list of ``(a,
-    b)``) along ``dim`` of a value split over ``axes`` in blocks of
-    ``block`` (``xs[p]`` holds ``[c·block, (c+1)·block)``, ``c`` its index
-    along ``axes``), each range cut from the places that hold it and the
-    pieces joined in order. Pieces from other places are counted as one
-    collective-permute a call, ``bytes`` what place 0 receives. No
-    gradient: serving only."""
+def _pieces(want_m, block: int):
+    """The pieces of one place's ranges: (holder index c, start, stop) in
+    global coordinates, each inside one block."""
+    out = []
+    for a, b in want_m:
+        while a < b:
+            c = a // block
+            hi = min(b, (c + 1) * block)
+            out.append((c, a, hi))
+            a = hi
+    return out
+
+
+def _fetch(xs, grid, axes, dim: int, block: int, want: Sequence
+           ) -> List[torch.Tensor]:
     k = axis_size(grid, axes)
     out: List[Optional[torch.Tensor]] = [None] * len(xs)
     recv0 = 0
@@ -374,24 +441,63 @@ def fetch(xs, grid, axes, dim: int, block: int, want: Sequence
         for i, m in enumerate(g):
             x, dev = xs[m], xs[m].device
             pieces = []
-            for a, b in want[m]:
-                while a < b:
-                    c = a // block
-                    hi = min(b, (c + 1) * block)
-                    if len(g) < k:       # abstract: a piece of its shape
-                        shape = list(x.shape)
-                        shape[dim] = hi - a
-                        piece = torch.empty(shape, dtype=x.dtype,
-                                            device=dev)
-                    else:
-                        piece = _to(xs[g[c]].narrow(dim, a - c * block,
-                                                    hi - a), dev)
-                    if c != i and m == 0:
-                        recv0 += _nbytes(piece)
-                    pieces.append(piece)
-                    a = hi
+            for c, a, hi in _pieces(want[m], block):
+                if len(g) < k:       # abstract: a piece of its shape
+                    shape = list(x.shape)
+                    shape[dim] = hi - a
+                    piece = torch.empty(shape, dtype=x.dtype, device=dev)
+                else:
+                    piece = _to(xs[g[c]].narrow(dim, a - c * block, hi - a),
+                                dev)
+                if c != i and m == 0:
+                    recv0 += _nbytes(piece)
+                pieces.append(piece)
             out[m] = pieces[0] if len(pieces) == 1 else torch.cat(pieces,
                                                                   dim)
+    if recv0:
+        _count("collective-permute", recv0)
+    return out
+
+
+def _fetch_transpose(grads, shapes, grid, axes, dim: int, block: int,
+                     want: Sequence) -> List[torch.Tensor]:
+    """The gradient of ``_fetch``: each received piece's gradient sent
+    back to the place that holds it and added into that place's zeros,
+    the receivers in grid order (in float32 for lower-precision floats,
+    rounded once). Counted as a collective-permute, ``bytes`` what place 0
+    receives (on an abstract grid, what it received in the forward: the
+    pieces it sends back)."""
+    k = axis_size(grid, axes)
+    out: List[Optional[torch.Tensor]] = [None] * len(grads)
+    recv0 = 0
+    for g in groups(grid, axes):
+        if len(g) < k:
+            m = g[0]
+            shape, dtype, dev = shapes[m]
+            out[m] = torch.zeros(shape, dtype=dtype, device=dev)
+            recv0 += sum(_nbytes(grads[m].narrow(dim, 0, hi - a))
+                         for c, a, hi in _pieces(want[m], block) if c != 0)
+            continue
+        acc = {}
+        for m in g:
+            at = 0
+            for c, a, hi in _pieces(want[m], block):
+                piece = grads[m].narrow(dim, at, hi - a)
+                at += hi - a
+                holder = g[c]
+                shape, dtype, dev = shapes[holder]
+                if holder not in acc:
+                    acc[holder] = torch.zeros(
+                        shape, dtype=torch.float32 if _lowp(piece)
+                        else dtype, device=dev)
+                if holder == 0 and m != 0:
+                    recv0 += _nbytes(piece)
+                acc[holder].narrow(dim, a - c * block, hi - a).add_(
+                    _to(piece, dev).to(acc[holder].dtype))
+        for m in g:
+            shape, dtype, dev = shapes[m]
+            out[m] = acc[m].to(dtype) if m in acc else \
+                torch.zeros(shape, dtype=dtype, device=dev)
     if recv0:
         _count("collective-permute", recv0)
     return out
@@ -467,6 +573,22 @@ class _AllToAll(torch.autograd.Function):
         return (None, None, None, None, *gs)
 
 
+class _Fetch(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, grid, axes, dim, block, want, *xs):
+        ctx.args = (grid, axes, dim, block, want)
+        ctx.ins = _shapes(xs)
+        outs = _fetch(list(xs), grid, axes, dim, block, want)
+        ctx.outs = _shapes(outs)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        gs = _fetch_transpose(_zeros_for(grads, ctx.outs), ctx.ins,
+                              *ctx.args)
+        return (None, None, None, None, None, *gs)
+
+
 def _dim(xs, dim: int) -> int:
     return dim % xs[0].dim()
 
@@ -495,6 +617,20 @@ def all_to_all(xs, grid, axes, split_dim: int, concat_dim: int):
     member's tensor, joined in order along ``concat_dim``."""
     return list(_AllToAll.apply(grid, axes_of(axes), _dim(xs, split_dim),
                                 _dim(xs, concat_dim), *xs))
+
+
+def fetch(xs, grid, axes, dim: int, block: int, want: Sequence):
+    """Place ``p`` gets the global ranges ``want[p]`` (a list of ``(a,
+    b)``) along ``dim`` of a value split over ``axes`` in blocks of
+    ``block`` (``xs[p]`` holds ``[c·block, (c+1)·block)``, ``c`` its index
+    along ``axes``), each range cut from the places that hold it and the
+    pieces joined in order. Pieces from other places are counted as one
+    collective-permute a call, ``bytes`` what place 0 receives. The
+    gradient sends each piece's gradient back to the place that holds it
+    (``_fetch_transpose``)."""
+    want = tuple(tuple((int(a), int(b)) for a, b in w) for w in want)
+    return list(_Fetch.apply(grid, axes_of(axes), _dim(xs, dim), block,
+                             want, *xs))
 
 
 # ---------------------------------------------------------------------------
@@ -539,7 +675,8 @@ def Fetch(x, axes, dim: int, block: int, want) -> Request:
 _RUN: Dict[str, Callable] = {"all_gather": all_gather,
                              "reduce_scatter": reduce_scatter,
                              "all_reduce": all_reduce,
-                             "all_to_all": all_to_all}
+                             "all_to_all": all_to_all,
+                             "fetch": fetch}
 
 
 def _execute(grid, reqs: List[Request]) -> List[torch.Tensor]:
@@ -553,8 +690,8 @@ def _execute(grid, reqs: List[Request]) -> List[torch.Tensor]:
     xs = [r.x for r in reqs]
     if op == "fetch":
         kw = reqs[0].kw
-        return fetch(xs, grid, axes, kw["dim"], kw["block"],
-                     [r.kw["want"] for r in reqs])
+        return _RUN[op](xs, grid, axes, kw["dim"], kw["block"],
+                        [r.kw["want"] for r in reqs])
     return _RUN[op](xs, grid, axes, **reqs[0].kw)
 
 
@@ -581,10 +718,39 @@ def lockstep(grid, gens: Sequence) -> list:
         send = _execute(grid, reqs)
 
 
+class _Join(torch.autograd.Function):
+    """Every place's output unchanged, through one autograd node: its
+    backward runs once, after every place's gradient has arrived, and
+    unpacks a saved tensor first, so under a checkpoint the recompute
+    runs there, on one thread (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, *xs):
+        ctx.save_for_backward(xs[0])
+        return xs
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.saved_tensors
+        return grads
+
+
+def lockstep_fn(grid, make: Callable) -> Callable:
+    """One function of every place's input, ``fn(x_0, x_1, ...)``, that
+    runs the generators ``make(p, x_p)`` in lockstep and returns every
+    place's output as a tuple: what a grid-wide checkpoint wraps (module
+    docstring)."""
+    def run(*xs):
+        return _Join.apply(*lockstep(grid, [make(p, x) for p, x in
+                                            enumerate(xs)]))
+    return run
+
+
 __all__ = ["AllGather", "AllReduce", "AllToAll", "Fetch", "LEDGER",
            "OPCODES", "ReduceScatter", "Request", "Sharded", "all_gather",
            "all_reduce", "all_to_all", "assemble", "axes_of", "axis_size",
            "block_slices", "blocks_at", "coord", "even_sizes", "fetch",
            "gather", "gather_tree", "groups", "is_abstract", "ledger",
-           "lockstep", "part_range", "place", "place_tree", "places",
-           "reduce_scatter", "reset_ledger"]
+           "lockstep", "lockstep_fn", "part_range", "place", "place_leaves",
+           "place_tree", "places", "reduce_scatter", "reset_ledger",
+           "zeros"]

@@ -692,7 +692,7 @@ def test_dryrun_cli_runs_a_cell_on_a_cpu_grid(tmp_path):
     assert rec["ran"] and rec["collectives"]["all-reduce"]["count"] > 0
 
 
-@pytest.mark.parametrize("arch,shape", [("qwen2-7b", "train_4k"),
+@pytest.mark.parametrize("arch,shape", [("deepseek-v2-236b", "train_4k"),
                                         ("deepseek-v2-236b", "decode_32k"),
                                         ("llama4-maverick-400b-a17b", "prefill_32k"),
                                         ("dlrm-mlperf", "train_batch")])
